@@ -1,0 +1,70 @@
+"""Volume-rendering math (counterpart of ``sdfstudio_tpu/ops/render.py``)."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from sdfstudio_tpu_torch.utils import checks
+
+BACKGROUND_COLORS = {"white": (1.0, 1.0, 1.0), "black": (0.0, 0.0, 0.0)}
+
+
+def weights_and_transmittance_from_densities(
+    deltas: torch.Tensor, densities: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NeRF quadrature (render.py:24-38)."""
+    delta_density = deltas * densities
+    alphas = 1.0 - torch.exp(-delta_density)
+    shifted = torch.cat([torch.zeros_like(delta_density[..., :1]), delta_density[..., :-1]], -1)
+    transmittance = torch.exp(-torch.cumsum(shifted, dim=-1))
+    return alphas * transmittance, transmittance
+
+
+def weights_from_densities(deltas: torch.Tensor, densities: torch.Tensor) -> torch.Tensor:
+    return weights_and_transmittance_from_densities(deltas, densities)[0]
+
+
+def weights_and_transmittance_from_alphas(alphas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NeuS compositing (render.py:45-59): T = cumprod of (1 - alpha + 1e-7)
+    with a leading 1, length S+1; weights use T[..., :-1]."""
+    ones = torch.ones_like(alphas[..., :1])
+    transmittance = torch.cumprod(torch.cat([ones, 1.0 - alphas + 1e-7], -1), dim=-1)
+    return alphas * transmittance[..., :-1], transmittance
+
+
+def render_rgb(rgb: torch.Tensor, weights: torch.Tensor, background_color: str = "black") -> torch.Tensor:
+    """Composite per-sample colours (render.py:79-100) for a constant background."""
+    checks.check_weights_values(weights, rgb, "render_rgb")
+    comp = torch.sum(weights[..., None] * rgb, dim=-2)
+    if background_color == "none":
+        return comp
+    if background_color not in BACKGROUND_COLORS:
+        raise NotImplementedError(f"background_color={background_color!r} is not ported")
+    accumulation = torch.sum(weights, dim=-1, keepdim=True)
+    bg = torch.tensor(BACKGROUND_COLORS[background_color], dtype=rgb.dtype, device=rgb.device)
+    return comp + bg * (1.0 - accumulation)
+
+
+def render_accumulation(weights: torch.Tensor) -> torch.Tensor:
+    """[..., S] -> [..., 1] (render.py:103-105)."""
+    return torch.sum(weights, dim=-1, keepdim=True)
+
+
+def render_depth_expected(
+    weights: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor, eps: float = 1e-10
+) -> torch.Tensor:
+    """Accumulation-normalised expected depth (render.py:108-116)."""
+    checks.check_sample_axis("render_depth_expected", weights=weights, starts=starts, ends=ends)
+    steps = (starts + ends) * 0.5
+    depth = torch.sum(weights * steps, dim=-1, keepdim=True)
+    depth = depth / (torch.sum(weights, dim=-1, keepdim=True) + eps)
+    return torch.minimum(
+        torch.maximum(depth, steps.amin(dim=-1, keepdim=True)), steps.amax(dim=-1, keepdim=True)
+    )
+
+
+def render_semantics(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted sum of per-sample vectors (render.py:131-135); normals use it."""
+    checks.check_weights_values(weights, values, "render_semantics")
+    return torch.sum(weights[..., None] * values, dim=-2)
