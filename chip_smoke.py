@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,11 +18,26 @@ Phases, each printing its own line with wall-clock seconds:
 4. kernel against plain: the inputs of the three ``fused_mlp`` calls of one
    chunk are captured, the kernel and ``fused_mlp_plain`` run on them on the
    card, and the two are compared and timed;
-5. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+5. train: the committed DTU-like scene (``.parity/dtu_like``) is parsed by
+   the port's dataparser, its image stack goes to the card, and the trainer
+   of ``scripts/train.py`` takes ``TRAIN_STEPS`` steps of 2048 rays on a
+   full-width ``neus-facto-tpu-p8`` from seed 0, past frozen proposal
+   steps: the first ``CHECK_STEPS`` one at a time through ``train_step``,
+   the rest through ``Trainer.train``, the loop a user runs, timed as one
+   window. Checked: finite losses, the proposal nets still on a frozen step
+   and moving on an update step, and a lower rgb L1 on a fixed probe batch.
+   One step is then taken twice from the same state, batch and seed, with
+   the kernels and with ``fused_mlp`` swapped for its plain versions, and
+   the losses and every group's gradient compared; the three backward calls
+   of that step are captured and the backward kernel is compared with
+   ``fused_mlp_bwd_plain`` and timed; one step runs under
+   ``torch.profiler``;
+6. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It imports torch, numpy, the standard library and ``sdfstudio_tpu_torch``
 only, and reads no checkpoint. Any failed check raises, so the exit code is
-not 0 and no result line is printed. Without CUDA it exits with code 2.
+not 0 and no result line is printed. Without CUDA it exits with code 2; it
+fails with a message when the scene is missing.
 """
 from __future__ import annotations
 
@@ -46,6 +61,24 @@ FOCAL = 422.4  # its intrinsics
 CAM_DIST = 2.0
 KERNEL_TOL = 1e-4  # max |kernel - plain| / (max |plain| + 1)
 SLICE_TOL = 1e-3  # card path against the CPU path, on rgb / accumulation / depth
+SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".parity", "dtu_like")
+TRAIN_RAYS = 2048  # the parity protocol's rays per batch (parity.py NUM_RAYS)
+TRAIN_STEPS = 40  # steps 10-39 update the proposal nets on even steps only
+CHECK_STEPS = 12  # steps taken one at a time; update step 10 and frozen step 11 are checked
+# backward kernel against fused_mlp_bwd_plain, both f32 on the card: the
+# relative Frobenius error ||kernel - plain|| / ||plain|| of dx, each dW and
+# each db. dW sums up to 524,288 rows in other orders, and where a
+# pre-activation lies within rounding of 0 the two forwards may take the
+# relu's two sides, which moves that row's delta by its full value. Measured
+# at most 5.2e-7 (NVIDIA H100 80GB HBM3, 700 W); the bound keeps room for
+# such rows: 1e-4.
+BWD_TOL = 1e-4
+# the kernel step against the plain step (losses, relative; each group's
+# gradient, relative Frobenius): the proposal densities differ by rounding
+# and ``weights ** anneal`` can magnify that in nearly empty bins before the
+# resampled positions reach the field. Measured 2.1e-7 and 3.7e-7: 1e-4.
+STEP_LOSS_TOL = 1e-4
+STEP_GRAD_TOL = 1e-4
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # bytes/s
 
@@ -85,23 +118,38 @@ def cuda_time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 
 
 @contextlib.contextmanager
-def capture_fused_mlp_calls(calls: list):
-    """Record the arguments of every ``fused_mlp`` call the model makes."""
+def swap_fused_mlp(fn):
+    """Route every ``fused_mlp`` call of the model through ``fn``."""
     from sdfstudio_tpu_torch.fields import sdf_field
     from sdfstudio_tpu_torch.ops import mlp
 
     orig = mlp.fused_mlp
-
-    def recording(x, weights, biases, activation="relu", out_activation="none"):
-        calls.append((x.clone(), [w.clone() for w in weights], [b.clone() for b in biases],
-                      activation, out_activation))
-        return orig(x, weights, biases, activation, out_activation)
-
-    mlp.fused_mlp = sdf_field.fused_mlp = recording
+    mlp.fused_mlp = sdf_field.fused_mlp = fn
     try:
-        yield
+        yield orig
     finally:
         mlp.fused_mlp = sdf_field.fused_mlp = orig
+
+
+@contextlib.contextmanager
+def capture_fused_mlp_calls(calls: list):
+    """Record the arguments of every ``fused_mlp`` call the model makes and,
+    for a call under autograd, the cotangent its backward receives (as the
+    dict's ``"g"``)."""
+    from sdfstudio_tpu_torch.ops.fused_mlp import fused_mlp
+
+    def recording(x, weights, biases, activation="relu", out_activation="none"):
+        rec = {"x": x.detach().clone(), "ws": [w.detach().clone() for w in weights],
+               "bs": [b.detach().clone() for b in biases], "act": activation,
+               "out_act": out_activation, "need_dx": x.requires_grad}
+        calls.append(rec)
+        y = fused_mlp(x, weights, biases, activation, out_activation)
+        if y.requires_grad:
+            y.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
+        return y
+
+    with swap_fused_mlp(recording):
+        yield
 
 
 def mlp_work(x, weights):
@@ -110,6 +158,20 @@ def mlp_work(x, weights):
     dims = [x.shape[-1]] + [w.shape[1] for w in weights]
     flop = 2.0 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     nbytes = 4.0 * (n * dims[0] + n * dims[-1] + sum(a * b + b for a, b in zip(dims[:-1], dims[1:])))
+    return flop, nbytes, dims, n
+
+
+def mlp_bwd_work(x, weights, need_dx):
+    """(FLOP, bytes) of one backward call: the forward that rebuilds the
+    activations (they are not inputs), every dW, the delta chain through each
+    layer after the first, and dx when it is needed; x, g, W, b read once,
+    dx, dW, db written once."""
+    n = x.shape[0]
+    dims = [x.shape[-1]] + [w.shape[1] for w in weights]
+    prods = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    flop = 2.0 * n * (2 * sum(prods) + sum(prods[1:]) + (prods[0] if need_dx else 0))
+    params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = 4.0 * (n * dims[0] * (2 if need_dx else 1) + n * dims[-1] + 2 * params)
     return flop, nbytes, dims, n
 
 
@@ -126,12 +188,17 @@ def _union_us(intervals) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def render_breakdown(events, wall_ms: float) -> dict:
-    """From one traced render that took ``wall_ms``: the device's busy time
-    (union of its kernel intervals) and idle share, for each ``sst/*`` range
-    of the model (proposal sampler, permutohedral encode, geometry MLP with
-    its gradient, color MLP) its host span, its span on the device timeline
-    and the kernel time inside that span, and the kernels that took most."""
+def render_breakdown(events, wall_ms: float, windows=()) -> dict:
+    """From one traced render or train step that took ``wall_ms``: the
+    device's busy time (union of its kernel intervals) and idle share, for
+    each ``sst/*`` range of the model (proposal sampler, permutohedral
+    encode, geometry MLP with its gradient, color MLP, the train step's
+    phases) its host span, its span on the device timeline and the kernel
+    time inside that span, and the kernels that took most. Each window
+    ``(label, after, before)`` adds the kernel time between the end of range
+    ``after`` and the start of range ``before`` on the device: the autograd
+    engine launches the backward from its own thread, outside the caller's
+    ranges."""
     cuda = torch.autograd.DeviceType.CUDA
     kernels, dev_ranges, host_ranges = [], {}, {}
     for e in events:
@@ -160,6 +227,13 @@ def render_breakdown(events, wall_ms: float) -> dict:
             "kernel_ms": _union_us(inside) / 1e3,
             "calls": len(host_ranges.get(name, [])),
         }
+    for label, after, before in windows:
+        check(after in dev_ranges and before in dev_ranges,
+              f"no device span for {after} or {before}: {sorted(dev_ranges)}")
+        lo = max(b for _, b in dev_ranges[after])
+        hi = min(a for a, _ in dev_ranges[before])
+        per_range[label] = {"kernel_ms": _union_us(
+            [(max(a, lo), min(b, hi)) for (a, b), _ in kernels if b > lo and a < hi]) / 1e3}
     by_name = {}
     for (a, b), name in kernels:
         t, n = by_name.get(name, (0.0, 0))
@@ -172,6 +246,186 @@ def render_breakdown(events, wall_ms: float) -> dict:
         "top_kernels": [{"name": k[:100], "ms": t, "calls": n}
                         for k, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]],
     }
+
+
+def rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| (0 when both are 0)."""
+    num, den = float(torch.linalg.vector_norm(a - b)), float(torch.linalg.vector_norm(b))
+    return num / den if den > 0 else num
+
+
+def grads_of(trainer, total):
+    """Every group's gradient as one flat vector (zeros where unused)."""
+    from sdfstudio_tpu_torch.engine.trainer import group_grads
+
+    g = group_grads(total, trainer.optimizers)
+    return {name: torch.cat([(t if t is not None else torch.zeros_like(p)).reshape(-1)
+                             for t, p in zip(g[name], opt.params)])
+            for name, opt in trainer.optimizers.items()}
+
+
+def train_phase(fm) -> dict:
+    """Train p8 on the committed scene, check it, compare the kernel step with
+    the plain one and the backward kernel with its plain version, profile one
+    step. Returns what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+
+    if not os.path.isfile(os.path.join(SCENE, "meta_data.json")):
+        raise FileNotFoundError(
+            f"the committed DTU-like scene is missing: {SCENE} (the train phase needs "
+            ".parity/dtu_like in the checkout)")
+    t = time.perf_counter()
+    trainer = setup_trainer("neus-facto-tpu-p8", SCENE, max_num_iterations=TRAIN_STEPS,
+                            num_rays=TRAIN_RAYS, device="cuda")
+    torch.cuda.synchronize()
+    dm, model = trainer.datamanager, trainer.model
+    log("train", f"scene {tuple(dm.train_data['image'].shape)} on the card, model and trainer set up "
+        f"in {time.perf_counter() - t:.2f} s; {sum(p.numel() for p in model.parameters())} parameters")
+
+    # a fixed probe batch, rendered without jitter before and after training
+    probe_gen = torch.Generator(device="cuda").manual_seed(123)
+    probe_idx, probe = dm.sample_train_batch(probe_gen)
+    probe_rb = dm.generate_rays(probe_idx)
+    probe_sched = model.schedules(TRAIN_STEPS)
+
+    def probe_l1():
+        out = model.get_outputs(probe_rb, sched=probe_sched, train=False)
+        return float(torch.mean(torch.abs(out["rgb"] - probe["image"])))
+
+    l1_before = probe_l1()
+
+    prop = trainer.optimizers["proposal_networks"].params
+    moved, step_ms, rows = {}, [], []
+    torch.cuda.synchronize()
+    fm.reset_launch_counts()
+    # steps 0-11 one at a time, each synchronised, for the checks of steps
+    # 10 and 11 and the per-step times (a side statistic)
+    for i in range(CHECK_STEPS):
+        before = [p.detach().clone() for p in prop] if i in (10, 11) else None
+        t = time.perf_counter()
+        rows.append(trainer.train_step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if before is not None:
+            moved[i] = any(not torch.equal(a, b) for a, b in zip(before, prop))
+    # the remaining steps as a user runs them: Trainer.train, which reads the
+    # metrics back once per log interval, with one synchronise at the end
+    t = time.perf_counter()
+    last = trainer.train()
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(fm.LAUNCHES)
+    check(trainer.step == TRAIN_STEPS, f"Trainer.train stopped at step {trainer.step}")
+    metrics = torch.stack(rows).cpu()
+    keys = list(trainer.metric_keys)
+    log("train", f"{TRAIN_STEPS} steps of {TRAIN_RAYS} rays; launches {launches}; first step "
+        f"{step_ms[0]:.1f} ms; losses at 0 / {TRAIN_STEPS - 1}: "
+        + " ".join(f"{k}={metrics[0, j]:.5g}/{last[k]:.5g}" for j, k in enumerate(keys)))
+    check(bool(torch.isfinite(metrics).all()) and all(math.isfinite(v) for v in last.values()),
+          "a training loss or metric is not finite")
+    check(launches["fused_mlp_fwd"] > 0 and launches["fused_mlp_bwd"] > 0,
+          f"the training steps did not launch both kernels: {launches}")
+    n_frozen = sum(not model.schedules(i)["train_proposal"] for i in range(TRAIN_STEPS))
+    # 3 forward calls a step; 3 backward calls on an update step, the color net's alone on a frozen one
+    check(launches["fused_mlp_fwd"] == 3 * TRAIN_STEPS
+          and launches["fused_mlp_bwd"] == 3 * TRAIN_STEPS - 2 * n_frozen,
+          f"expected {3 * TRAIN_STEPS} forward and {3 * TRAIN_STEPS - 2 * n_frozen} backward launches")
+    check(model.schedules(10)["train_proposal"] and moved[10], "the proposal nets did not move on step 10")
+    check(not model.schedules(11)["train_proposal"] and not moved[11],
+          "the proposal nets moved on frozen step 11")
+    l1_after = probe_l1()
+    log("train", f"probe batch rgb L1 before {l1_before:.6f}, after {l1_after:.6f}; proposal nets "
+        f"moved on update step 10: {moved[10]}, on frozen step 11: {moved[11]}")
+    check(l1_after < l1_before, f"probe rgb L1 did not fall: {l1_before} -> {l1_after}")
+    n_window = TRAIN_STEPS - CHECK_STEPS
+    train_ms = window_ms / n_window
+    warm = step_ms[3:]
+    log("train", f"Trainer.train, steps {CHECK_STEPS}-{TRAIN_STEPS - 1}: {window_ms:.2f} ms, "
+        f"{train_ms:.2f} ms a step, {TRAIN_RAYS / train_ms * 1e3:.0f} rays/s; steps 3-{CHECK_STEPS - 1} "
+        f"one at a time, each synchronised: median {float(np.median(warm)):.2f} ms "
+        f"(min {min(warm):.2f}, max {max(warm):.2f})")
+
+    # one step twice from the same state: the kernels, then the plain versions
+    sched = model.schedules(trainer.step)
+    check(sched["train_proposal"], f"step {trainer.step} is not an update step")
+
+    def one_step(capture=None):
+        gen = torch.Generator(device="cuda").manual_seed(777)
+        idx, batch = dm.sample_train_batch(gen)
+        total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
+
+    calls: list = []
+    with capture_fused_mlp_calls(calls):
+        k_loss, k_grads = one_step()
+    with swap_fused_mlp(fm.fused_mlp_plain):
+        p_loss, p_grads = one_step()
+    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
+    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
+    log("train", f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); "
+        f"gradient rel err {grad_err} (tol {STEP_GRAD_TOL})")
+    for k, e in loss_err.items():
+        check(e <= STEP_LOSS_TOL, f"{k}: kernel step and plain step differ by {e}")
+    for g, e in grad_err.items():
+        check(e <= STEP_GRAD_TOL, f"{g} gradient: kernel step and plain step differ by {e}")
+
+    # the backward kernel against fused_mlp_bwd_plain on the three captured calls
+    check(len(calls) == 3 and all("g" in c for c in calls),
+          f"expected 3 fused_mlp calls with a backward, captured {len(calls)}")
+    before = dict(fm.LAUNCHES)
+    names = ["proposal_0", "proposal_1", "color"]
+    bwd_calls, fwd_calls = [], []
+    for name, c in zip(names, calls):
+        x = c["x"].reshape(-1, c["x"].shape[-1])
+        g = c["g"].reshape(-1, c["g"].shape[-1]).contiguous()
+        ws, bs, act, out_act, need_dx = c["ws"], c["bs"], c["act"], c["out_act"], c["need_dx"]
+        with torch.no_grad():
+            kern = fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx)
+            plain = fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx)
+            torch.cuda.synchronize()
+            pairs = [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(kern[1], plain[1]))]
+            pairs += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(kern[2], plain[2]))]
+            if need_dx:
+                pairs.append(("dx", kern[0], plain[0]))
+            rel = {n: rel_fro(a, b) for n, a, b in pairs}
+            max_abs = max(float((a - b).abs().max()) for _, a, b in pairs)
+            reps = 10
+            k_ms = cuda_time_ms(lambda: fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx), reps)
+            p_ms = cuda_time_ms(lambda: fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx), reps)
+            fk_ms = cuda_time_ms(lambda: fm.fused_mlp(x, ws, bs, act, out_act), reps)
+            fp_ms = cuda_time_ms(lambda: fm.fused_mlp_plain(x, ws, bs, act, out_act), reps)
+        flop, nbytes, dims, n = mlp_bwd_work(x, ws, need_dx)
+        bound_ms = max(flop / FP32_PEAK, nbytes / HBM_RATE) * 1e3
+        rec = {"call": name, "rows": n, "dims": dims, "act": act, "need_dx": need_dx, "flop": flop,
+               "bytes": nbytes, "max_abs_err": max_abs, "rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "operations" if flop / FP32_PEAK >= nbytes / HBM_RATE else "bytes"}
+        bwd_calls.append(rec)
+        log("kernel", json.dumps(rec))
+        for n_, e in rel.items():
+            check(e <= BWD_TOL, f"{name} {n_}: backward kernel vs plain rel error {e} > {BWD_TOL}")
+        fflop, fbytes, _, _ = mlp_work(x, ws)
+        fwd_calls.append({"call": name, "rows": n, "ms": fk_ms, "plain_ms": fp_ms,
+                          "bound_ms": max(fflop / FP32_PEAK, fbytes / HBM_RATE) * 1e3})
+    fm.LAUNCHES.update(before)  # comparison launches are not the main path's
+
+    # where a step's time goes: one traced step (an update step)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    profile = {"step": trainer.step - 1, "traced_wall_ms": traced_ms, **render_breakdown(
+        prof.events(), traced_ms,
+        windows=[("backward (between forward and optimizer)", "sst/train_forward", "sst/train_optimizer")])}
+    log("train_profile", json.dumps(profile))
+    return {"launches": launches, "step_ms": train_ms, "rays_per_s": TRAIN_RAYS / train_ms * 1e3,
+            "synced_step_median_ms": float(np.median(warm)),
+            "bwd_calls": bwd_calls, "fwd_calls": fwd_calls, "profile": profile,
+            "probe_l1": [l1_before, l1_after], "step_loss_err": loss_err, "step_grad_err": grad_err}
 
 
 def main() -> int:
@@ -317,7 +571,8 @@ def main() -> int:
     names = ["proposal_0", "proposal_1", "color"]
     per_call = []
     before = fm.LAUNCHES["fused_mlp_fwd"]
-    for name, (x, ws, bs, act, out_act) in zip(names, calls):
+    for name, c in zip(names, calls):
+        x, ws, bs, act, out_act = c["x"], c["ws"], c["bs"], c["act"], c["out_act"]
         with torch.no_grad():
             y_k = fm.fused_mlp(x, ws, bs, act, out_act)
             y_p = fm.fused_mlp_plain(x, ws, bs, act, out_act)
@@ -339,13 +594,19 @@ def main() -> int:
         check(err / scale <= KERNEL_TOL, f"{name}: kernel vs plain error {err / scale} > {KERNEL_TOL}")
     fm.LAUNCHES["fused_mlp_fwd"] = before  # comparison launches are not the main path's
 
-    # 5. results ------------------------------------------------------------
+    # 5. train --------------------------------------------------------------
+    train = train_phase(fm)
+
+    # 6. results ------------------------------------------------------------
+    bwd = train["bwd_calls"]
     kernels = {"kernels": [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
         "source": "sdfstudio_tpu_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:94",
-        "launches": launches["fused_mlp_fwd"],
+        "launches": launches["fused_mlp_fwd"] + train["launches"]["fused_mlp_fwd"],
+        "launches_render": launches["fused_mlp_fwd"],
+        "launches_train": train["launches"]["fused_mlp_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in per_call),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
@@ -356,6 +617,24 @@ def main() -> int:
         "image_ms": warm_ms,
         "image_device_idle_share_traced": profile["device_idle_share"],
         "build_s": build_s,
+        "train_step_calls": train["fwd_calls"],
+    }, {
+        "name": "fused_mlp_bwd",
+        "route": "cuda",
+        "source": "sdfstudio_tpu_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:151",
+        "launches": train["launches"]["fused_mlp_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd),
+        "ms": sum(r["ms"] for r in bwd),
+        "plain_ms": sum(r["plain_ms"] for r in bwd),
+        "bound_ms": sum(r["bound_ms"] for r in bwd),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in bwd) else "bytes",
+        "library_ms": None,
+        "per_step_calls": bwd,
+        "train_step_ms": train["step_ms"],
+        "train_rays_per_s": train["rays_per_s"],
+        "train_synced_step_median_ms": train["synced_step_median_ms"],
+        "train_step_device_idle_share_traced": train["profile"]["device_idle_share"],
     }]}
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))

@@ -5,7 +5,20 @@ its counterpart there by file and line. This package imports ``torch``,
 ``numpy`` and the standard library only -- never ``jax`` and nothing of
 ``sdfstudio_tpu`` -- so it runs on a machine that has neither.
 
-Slice 1 covers the serving path of ``neus-facto-tpu-p8``: render an image
-from a trained (or seeded) model, with the fully-fused MLP forward as a
-hand-written CUDA kernel (``ops/fused_mlp.py`` + ``csrc/fused_mlp_fwd.cu``).
+It covers ``neus-facto-tpu-p8``: rendering an image from a trained (or
+seeded) model (``engine/final_eval.py``) and training it on an
+SDFStudio-format scene (``scripts/train.py``), with the fully-fused MLP as
+hand-written CUDA kernels, forward and backward (``ops/fused_mlp.py`` +
+``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``).
 """
+
+import torch as _torch
+
+# PyTorch's CPU builds compute float32 sin, exp, sqrt, ... through MKL's VML,
+# in chunks of >= 2048 elements spread over OpenMP threads, at VML's
+# high-accuracy setting. VML sets up its dispatch at its first call in the
+# process; when several threads make that first call at once, a thread may
+# compute its chunk at the enhanced-performance setting instead (sin off by
+# ~1.5e-4 instead of ~4e-8). One small call here, on one thread, sets VML
+# up before any threaded call.
+_torch.sin(_torch.zeros(16))

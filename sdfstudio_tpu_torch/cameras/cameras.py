@@ -75,9 +75,15 @@ class Cameras:
     def device(self) -> torch.device:
         return self.camera_to_worlds.device
 
+    def to(self, device: Union[str, torch.device]) -> "Cameras":
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
+        )
+
     def generate_rays(self, camera_indices: torch.Tensor, coords: torch.Tensor) -> RayBundle:
-        """Pixel coords (y, x) -> world rays (cameras.py:134-230, perspective branch).
-        Pixel centres at +0.5 are the caller's business, as in the JAX package."""
+        """Pixel coords (y, x) -> world rays (cameras.py:134-230, perspective
+        branch), each ray from its own camera ``camera_indices[i]``. Pixel
+        centres at +0.5 are the caller's business, as in the JAX package."""
         idx = camera_indices
         y, x = coords[..., 0], coords[..., 1]
         fx, fy, cx, cy = self.fx[idx], self.fy[idx], self.cx[idx], self.cy[idx]

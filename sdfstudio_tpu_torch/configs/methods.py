@@ -1,17 +1,22 @@
 """Method registry (counterpart of ``sdfstudio_tpu/configs/methods.py``).
 
-Slice 1 registers ``neus-facto-tpu-p8`` (methods.py:361-393) as a Python
-dataclass; nothing is read from YAML.
+Registers ``neus-facto-tpu-p8`` (methods.py:361-393) as a Python dataclass
+with its model, optimizer groups, trainer and data-manager settings; nothing
+is read from YAML.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
+from sdfstudio_tpu_torch.data.datamanager import DataManagerConfig
+from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGroupConfig
+from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
+from sdfstudio_tpu_torch.engine.trainer import TrainerConfig
 from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig
 from sdfstudio_tpu_torch.models.neus_facto import NeuSFactoModel, NeuSFactoModelConfig
 from sdfstudio_tpu_torch.utils.device import resolve_device
@@ -22,6 +27,13 @@ class MethodConfig:
     method_name: str
     model_class: type
     model: NeuSFactoModelConfig
+    optimizers: Dict[str, OptimizerGroupConfig] = dataclasses.field(default_factory=dict)
+    trainer: TrainerConfig = TrainerConfig()
+    datamanager: DataManagerConfig = DataManagerConfig()
+
+
+def _adam(lr: float) -> OptimizerConfig:
+    return OptimizerConfig(lr=lr, eps=1e-15)  # methods.py:62-63
 
 
 method_configs = {
@@ -47,6 +59,17 @@ method_configs = {
             background_model="none",
             eval_num_rays_per_chunk=1024,
         ),
+        # methods.py:389-395; p8 has no background field, so the JAX
+        # "field_background" group (a placeholder) has no counterpart
+        optimizers={
+            "proposal_networks": OptimizerGroupConfig(
+                _adam(1e-2), SchedulerConfig(kind="multistep", max_steps=20000)),
+            "field": OptimizerGroupConfig(
+                _adam(5e-4), SchedulerConfig(kind="neus", warm_up_end=500,
+                                             learning_rate_alpha=0.05, max_steps=20000)),
+        },
+        trainer=TrainerConfig(max_num_iterations=20001),
+        datamanager=DataManagerConfig(train_num_rays_per_batch=2048),
     ),
 }
 

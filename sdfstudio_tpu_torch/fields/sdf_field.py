@@ -1,4 +1,5 @@
-"""SDF field, eval path (counterpart of ``sdfstudio_tpu/fields/sdf_field.py``).
+"""SDF field (counterpart of ``sdfstudio_tpu/fields/sdf_field.py``), eval
+and training forward.
 
 Ported: the permutohedral grid feature with its analytic jacobian, the
 weight-normed geometry MLP with the ``"vjp"`` gradient
@@ -170,16 +171,31 @@ class SDFField(nn.Module):
                 h = softplus_beta100(h)
         return h
 
-    def geonetwork_with_gradient(self, x: torch.Tensor):
+    def geonetwork_with_gradient(self, x: torch.Tensor, train: bool = False):
         """(geonetwork output, d sdf/dx) from one encode (sdf_field.py:323-362,
         ``"vjp"``): one reverse pass through the MLP, whose input gradient wrt
         the feature is chained onto the analytic encode jacobian,
         d sdf/dx = d sdf/dx|direct + jac^T . d sdf/d feature.
 
-        The geometry MLP stays on ``torch.matmul`` because it needs an input
-        gradient, which the fused kernel does not give. The render runs under
-        ``no_grad``, so this step turns grad on for itself only."""
+        The geometry MLP stays on ``torch.matmul``: the eikonal loss
+        differentiates d sdf/dx again, and the fused kernel has no double
+        backward. With ``train`` the encode, its jacobian and the reverse
+        pass stay in the graph (``create_graph``), so the table takes
+        gradients through both the feature and the jacobian and the eikonal
+        loss reaches every parameter (sdf_field.py:173-193). Without it the
+        render runs under ``no_grad`` and this step turns grad on for
+        itself only."""
         checks.check_positions(x, "SDFField.geonetwork positions")
+        if train:
+            with record_function("sst/permuto_encode"):
+                feature, fjac = self.grid_feature(x)
+            layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
+            with record_function("sst/geo_mlp_and_grad"):
+                xg = x.detach().requires_grad_(True)
+                h = self.geo_mlp(xg, feature, layers)
+                dx, dfeat = torch.autograd.grad(h[..., 0].sum(), (xg, feature), create_graph=True)
+                grad = dx + torch.einsum("...f,...fa->...a", dfeat, fjac)
+            return h, grad
         with torch.no_grad(), record_function("sst/permuto_encode"):
             feature, fjac = self.grid_feature(x)
         with torch.no_grad():
@@ -199,9 +215,11 @@ class SDFField(nn.Module):
         gradients: torch.Tensor,
         geo_features: torch.Tensor,
     ) -> torch.Tensor:
-        """View-dependent colour at eval, no appearance embedding
-        (sdf_field.py:387-473 with ``train=False``), the whole chain in the
-        fused kernel."""
+        """View-dependent colour (sdf_field.py:387-473), the whole chain in
+        the fused kernel. ``neus-facto-tpu-p8`` has no appearance embedding
+        in training either (``use_appearance_embedding=False`` zeroes it), so
+        the embedding input is zero in both modes. In training the kernel's
+        input gradient reaches ``gradients`` and the geometry features."""
         cfg = self.config
         d = self.direction_encoding(directions)
         emb = torch.zeros(
@@ -224,15 +242,16 @@ class SDFField(nn.Module):
         ray_samples: RaySamples,
         cos_anneal_ratio: float = 1.0,
         return_alphas: bool = False,
+        train: bool = False,
     ) -> Dict[str, torch.Tensor]:
-        """Field forward over ray samples at eval (sdf_field.py:642-765)."""
+        """Field forward over ray samples (sdf_field.py:642-765)."""
         R, S = ray_samples.num_rays, ray_samples.num_samples
         inputs = ray_samples.get_start_positions().reshape(-1, 3)
         directions = ray_samples.directions[..., None, :].expand(R, S, 3).reshape(-1, 3)
         inputs = self.contract_positions(inputs)
         points_norm = torch.linalg.vector_norm(inputs, dim=-1)
 
-        h, gradients = self.geonetwork_with_gradient(inputs)
+        h, gradients = self.geonetwork_with_gradient(inputs, train=train)
         sdf, geo_feat = h[..., :1], h[..., 1:]
         rgb = self.colors(inputs, directions, gradients, geo_feat)
         beta = density_ops.effective_beta(self.laplace_beta)

@@ -46,8 +46,19 @@ def neus_alpha(
     return torch.clamp(alpha, 0.0, 1.0)
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """exp(x) (density.py:101-106). The JAX version only changes the
-    derivative (clamped to exp(clip(x, -15, 15))); the render path takes no
-    derivative through it, so the forward is all this slice needs."""
-    return torch.exp(x)
+    """exp(x) whose derivative is taken from clip(x, -15, 15), against
+    exploding gradients (density.py:101-113, the instant-ngp activation)."""
+    return _TruncExp.apply(x)

@@ -1,39 +1,46 @@
-"""Fully-fused MLP forward: the hand-written CUDA kernel and its plain version.
+"""Fully-fused MLP: the hand-written CUDA kernels, forward and backward, and
+their plain versions.
 
-Replaces the Pallas TPU kernel ``sdfstudio_tpu/ops/pallas_mlp.py::_fwd_kernel``
-(launched by ``_fused_mlp_padded_fwd``, public entry ``fused_mlp`` at
-pallas_mlp.py:238). It computes, in f32,
+Replaces the Pallas TPU kernels of ``sdfstudio_tpu/ops/pallas_mlp.py``:
+``_fwd_kernel`` (launched by ``_fused_mlp_padded_fwd``, public entry
+``fused_mlp`` at pallas_mlp.py:238) and ``_fused_mlp_padded_bwd`` (its custom
+VJP, pallas_mlp.py:151-235). The forward computes, in f32,
 
     y = out_act(act(... act(x @ W0 + b0) ...) @ Wn + bn)
 
 with ``act`` in relu | softplus100 | none and weights in the JAX layout
-``W_i [d_i, d_{i+1}]``.
+``W_i [d_i, d_{i+1}]``; the backward gives ``dx``, every ``dW_i`` and every
+``db_i`` from the cotangent of ``y``.
 
-On this card the function is bound by arithmetic, not bytes: at the render
-path's shapes it does 140..900 FLOP per byte of HBM traffic, far above the
-FP32 ridge of an H100 (67 TFLOP/s over 3.35 TB/s). The kernel
-(``csrc/fused_mlp_fwd.cu``) therefore keeps each 64-row block's activations
-in shared memory across the whole chain, streams each layer's weights
-through shared memory in K slices (the color net's 580 KB of f32 weights do
-not fit a block, unlike the TPU's VMEM), and accumulates on the FP32 cores,
-matching the TPU kernel's Precision.HIGHEST. Tensor cores are later work.
+On this card both are bound by arithmetic, not bytes: at the slice's shapes
+they do 140..900 FLOP per byte of HBM traffic, far above the FP32 ridge of
+an H100 (67 TFLOP/s over 3.35 TB/s). The forward kernel
+(``csrc/fused_mlp_fwd.cu``) keeps each 64-row block's activations in shared
+memory across the whole chain and streams the weights through shared memory
+in K slices; the backward (``csrc/fused_mlp_bwd.cu``) recomputes the forward
+the same way, runs the delta chain back through ``W^T``, and sums dW / db
+over the rows as a split-K product reduced in a fixed order. Both accumulate
+on the FP32 cores, matching the TPU kernel's Precision.HIGHEST.
 
-``fused_mlp`` takes the plain version for a tensor on the CPU, launches the
-kernel for a CUDA tensor, and raises on anything else. There is no backward
-kernel yet (pallas_mlp.py:151 ``_fused_mlp_padded_bwd`` is the training
-slice's work), so it raises on inputs that require grad.
+``fused_mlp`` takes the plain version for tensors on the CPU, launches the
+kernels for CUDA tensors, and raises on anything else. Under autograd it is
+one ``torch.autograd.Function`` whose backward is the backward kernel (or,
+on the CPU, :func:`fused_mlp_bwd_plain`); like the JAX custom VJP it has no
+double backward.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
+from torch.profiler import record_function
 
 ACTIVATIONS = {"none": 0, "relu": 1, "softplus100": 2}
 
 # Launches of each kernel wrapper, counted where the kernel is enqueued.
-LAUNCHES: Dict[str, int] = {"fused_mlp_fwd": 0}
+LAUNCHES: Dict[str, int] = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -51,6 +58,15 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     return x
 
 
+def _act_grad(pre: torch.Tensor, name: str) -> torch.Tensor:
+    """The activation's derivative from its pre-activation (pallas_mlp.py:74-79)."""
+    if name == "relu":
+        return (pre > 0).to(pre.dtype)
+    if name == "softplus100":
+        return torch.sigmoid(100.0 * pre)
+    return torch.ones_like(pre)
+
+
 def fused_mlp_plain(
     x: torch.Tensor,
     weights: Sequence[torch.Tensor],
@@ -58,13 +74,48 @@ def fused_mlp_plain(
     activation: str = "relu",
     out_activation: str = "none",
 ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: the same function, layer by layer."""
+    """The plain PyTorch version of the forward kernel: the same function, layer by layer."""
     h = x
     n = len(weights)
     for i, (w, b) in enumerate(zip(weights, biases)):
         h = torch.matmul(h, w) + b
         h = _act(h, activation if i < n - 1 else out_activation)
     return h
+
+
+def fused_mlp_bwd_plain(
+    x: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    activation: str = "relu",
+    out_activation: str = "none",
+    need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """The plain PyTorch version of the backward kernel, the algebra of
+    pallas_mlp.py:158-197 written out: recompute the forward, then
+    ``d = g * out_act'(pre)``, ``dW_i = a_i^T d``, ``db_i = sum d``,
+    ``d <- (d W_i^T) * act'(pre_{i-1})``, ``dx = d W_0^T``.
+    ``x [n, d0]`` and ``g [n, dL]`` are 2-D. Returns (dx or None, dWs, dbs)."""
+    n_layers = len(weights)
+    acts, pres = [x], []
+    h = x
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        pre = torch.matmul(h, w) + b
+        pres.append(pre)
+        if i < n_layers - 1:
+            h = _act(pre, activation)
+            acts.append(h)
+    d = g * _act_grad(pres[-1], out_activation)
+    dws: List[Optional[torch.Tensor]] = [None] * n_layers
+    dbs: List[Optional[torch.Tensor]] = [None] * n_layers
+    for i in range(n_layers - 1, -1, -1):
+        dws[i] = torch.matmul(acts[i].t(), d)
+        dbs[i] = torch.sum(d, dim=0)
+        if i > 0:
+            d = torch.matmul(d, weights[i].t()) * _act_grad(pres[i - 1], activation)
+    dx = torch.matmul(d, weights[0].t()) if need_dx else None
+    return dx, dws, dbs
 
 
 def _check(x, weights, biases, activation, out_activation):
@@ -79,13 +130,40 @@ def _check(x, weights, biases, activation, out_activation):
         if tuple(b.shape) != (w.shape[1],):
             raise ValueError(f"fused_mlp layer {i}: bias {tuple(b.shape)} != ({w.shape[1]},)")
         d = w.shape[1]
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, *weights, *biases)
-    ):
-        raise RuntimeError(
-            "fused_mlp has no backward kernel yet (the fused-MLP backward is the "
-            "training slice's work); call it under torch.no_grad()"
-        )
+
+
+class _FusedMLP(torch.autograd.Function):
+    """One autograd node for the whole chain (the JAX ``_fused_mlp_padded``
+    custom VJP): the residuals are (x, W, b), as on the TPU, and the
+    backward recomputes the forward inside its kernel."""
+
+    @staticmethod
+    def forward(ctx, x2, activation, out_activation, n_layers, *params):
+        weights, biases = params[:n_layers], params[n_layers:]
+        ctx.save_for_backward(x2, *params)
+        ctx.acts = (activation, out_activation, n_layers)
+        if x2.device.type == "cpu":
+            return fused_mlp_plain(x2, weights, biases, activation, out_activation)
+        return _launch(x2, weights, biases, activation, out_activation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        activation, out_activation, n_layers = ctx.acts
+        x2, *params = ctx.saved_tensors
+        weights, biases = params[:n_layers], params[n_layers:]
+        need_dx = ctx.needs_input_grad[0]
+        gy = gy.contiguous()
+        if x2.device.type == "cpu":
+            dx, dws, dbs = fused_mlp_bwd_plain(x2, weights, biases, gy, activation,
+                                               out_activation, need_dx)
+        else:
+            # the autograd engine runs this on its own thread, outside the
+            # caller's profiler ranges: name the kernel's range here
+            with record_function("sst/fused_mlp_bwd"):
+                dx, dws, dbs = fused_mlp_bwd(x2, weights, biases, gy, activation, out_activation,
+                                             need_dx)
+        return (dx, None, None, None, *dws, *dbs)
 
 
 def fused_mlp(
@@ -96,55 +174,136 @@ def fused_mlp(
     out_activation: str = "none",
 ) -> torch.Tensor:
     """``x [..., d_in] -> [..., d_out]`` through the whole chain in one kernel
-    (pallas_mlp.py:238-302). CPU tensors take :func:`fused_mlp_plain`."""
+    (pallas_mlp.py:238-302), differentiable in reverse mode. CPU tensors take
+    :func:`fused_mlp_plain` and :func:`fused_mlp_bwd_plain`."""
     _check(x, weights, biases, activation, out_activation)
-    if x.device.type == "cpu":
-        return fused_mlp_plain(x, weights, biases, activation, out_activation)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
-    return _launch(x, weights, biases, activation, out_activation)
+    batch = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (x2, *weights, *biases))):
+        if x.device.type == "cpu":
+            y = fused_mlp_plain(x2, weights, biases, activation, out_activation)
+        else:
+            y = _launch(x2, weights, biases, activation, out_activation)
+    else:
+        y = _FusedMLP.apply(x2, activation, out_activation, len(weights), *weights, *biases)
+    return y.reshape(*batch, weights[-1].shape[1])
+
+
+def _check_cuda(named: Sequence[Tuple[str, torch.Tensor]], device: torch.device, what: str) -> None:
+    for name, t in named:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _layer_args(weights, biases, d_in):
+    n_layers = len(weights)
+    dims = (ctypes.c_int * (n_layers + 1))(d_in, *[w.shape[1] for w in weights])
+    w_ptrs = (ctypes.c_uint64 * n_layers)(*[w.data_ptr() for w in weights])
+    b_ptrs = (ctypes.c_uint64 * n_layers)(*[b.data_ptr() for b in biases])
+    return dims, w_ptrs, b_ptrs
+
+
+def _vp(a) -> ctypes.c_void_p:
+    return ctypes.cast(a, ctypes.c_void_p)
 
 
 def _launch(x, weights, biases, activation, out_activation) -> torch.Tensor:
-    for name, t in [("x", x)] + [(f"W{i}", w) for i, w in enumerate(weights)] + [
-        (f"b{i}", b) for i, b in enumerate(biases)
-    ]:
-        if t.device != x.device:
-            raise ValueError(f"fused_mlp: {name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"fused_mlp: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_mlp: {name} must be contiguous")
+    """The forward kernel on 2-D ``x [n, d_in]``."""
+    _check_cuda([("x", x)] + [(f"W{i}", w) for i, w in enumerate(weights)]
+                + [(f"b{i}", b) for i, b in enumerate(biases)], x.device, "fused_mlp")
     from sdfstudio_tpu_torch.utils.cuda_build import load_library
 
     lib = load_library()
-    batch = x.shape[:-1]
-    n = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    n = x.shape[0]
     d_out = weights[-1].shape[1]
-    y = torch.empty((*batch, d_out), dtype=torch.float32, device=x.device)
+    y = torch.empty((n, d_out), dtype=torch.float32, device=x.device)
     if n == 0:
         return y
     n_layers = len(weights)
     if n_layers > lib.sst_fused_mlp_fwd_max_layers():
         raise ValueError(f"fused_mlp: {n_layers} layers exceed the kernel's limit")
-    dims = (ctypes.c_int * (n_layers + 1))(x.shape[-1], *[w.shape[1] for w in weights])
-    smem = lib.sst_fused_mlp_fwd_smem_bytes(ctypes.cast(dims, ctypes.c_void_p), n_layers)
+    dims, w_ptrs, b_ptrs = _layer_args(weights, biases, x.shape[1])
+    smem = lib.sst_fused_mlp_fwd_smem_bytes(_vp(dims), n_layers)
     if smem > lib.sst_fused_mlp_fwd_smem_limit():
         raise ValueError(
             f"fused_mlp: widths {list(dims)} need {smem} B of shared memory per block, "
             f"above the card's {lib.sst_fused_mlp_fwd_smem_limit()} B"
         )
-    w_ptrs = (ctypes.c_uint64 * n_layers)(*[w.data_ptr() for w in weights])
-    b_ptrs = (ctypes.c_uint64 * n_layers)(*[b.data_ptr() for b in biases])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sst_fused_mlp_fwd(
-            x.data_ptr(), y.data_ptr(),
-            ctypes.cast(w_ptrs, ctypes.c_void_p), ctypes.cast(b_ptrs, ctypes.c_void_p),
-            ctypes.cast(dims, ctypes.c_void_p), n_layers, n,
+            x.data_ptr(), y.data_ptr(), _vp(w_ptrs), _vp(b_ptrs), _vp(dims), n_layers, n,
             ACTIVATIONS[activation], ACTIVATIONS[out_activation], stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: cudaError {err}")
     LAUNCHES["fused_mlp_fwd"] += 1
     return y
+
+
+def fused_mlp_bwd(
+    x: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    activation: str = "relu",
+    out_activation: str = "none",
+    need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """The backward kernel on CUDA tensors ``x [n, d0]``, ``g [n, dL]``:
+    (dx or None, dWs, dbs), as :func:`fused_mlp_bwd_plain` returns them."""
+    _check(x, weights, biases, activation, out_activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd: the kernel takes CUDA tensors, got {x.device}")
+    if x.ndim != 2 or tuple(g.shape) != (x.shape[0], weights[-1].shape[1]):
+        raise ValueError(f"fused_mlp_bwd: x {tuple(x.shape)} and g {tuple(g.shape)} do not match")
+    _check_cuda([("x", x), ("g", g)] + [(f"W{i}", w) for i, w in enumerate(weights)]
+                + [(f"b{i}", b) for i, b in enumerate(biases)], x.device, "fused_mlp_bwd")
+    from sdfstudio_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library()
+    n, n_layers = x.shape[0], len(weights)
+    if n_layers > lib.sst_fused_mlp_bwd_max_layers():
+        raise ValueError(f"fused_mlp_bwd: {n_layers} layers exceed the kernel's limit")
+    dims, w_ptrs, b_ptrs = _layer_args(weights, biases, x.shape[1])
+    sizes = (ctypes.c_int64 * 4)()
+    lib.sst_fused_mlp_bwd_workspace(_vp(dims), n_layers, max(n, 1), _vp(sizes))
+    splits, total, scratch_n, smem = (int(v) for v in sizes)
+    if smem > lib.sst_fused_mlp_bwd_smem_limit():
+        raise ValueError(
+            f"fused_mlp_bwd: widths {list(dims)} need {smem} B of shared memory per block, "
+            f"above the card's {lib.sst_fused_mlp_bwd_smem_limit()} B"
+        )
+    dev = x.device
+    flat = torch.empty(total, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    if n == 0:
+        flat.zero_()
+    else:
+        scratch = torch.empty(scratch_n, dtype=torch.float32, device=dev)
+        partial = torch.empty(splits * total, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.sst_fused_mlp_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+                _vp(w_ptrs), _vp(b_ptrs), scratch.data_ptr(), partial.data_ptr(),
+                flat.data_ptr(), _vp(dims), n_layers, n,
+                ACTIVATIONS[activation], ACTIVATIONS[out_activation], stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError {err}")
+        LAUNCHES["fused_mlp_bwd"] += 1
+    # flat holds dW_0, db_0, dW_1, db_1, ... (csrc/fused_mlp_bwd.cu, plan())
+    dws, dbs, off = [], [], 0
+    for w in weights:
+        k, m = w.shape
+        dws.append(flat[off:off + k * m].view(k, m))
+        dbs.append(flat[off + k * m:off + k * m + m])
+        off += k * m + m
+    return dx, dws, dbs

@@ -7,6 +7,7 @@ import torch
 
 from sdfstudio_tpu_torch.core.math import searchsorted_right
 from sdfstudio_tpu_torch.core.rays import RayBundle, RaySamples
+from sdfstudio_tpu_torch.samplers.spaced import Rng, uniform
 from sdfstudio_tpu_torch.utils import checks
 
 
@@ -14,12 +15,15 @@ def sample_pdf_bins(
     existing_bins: torch.Tensor,  # [R, N+1] spacing coords
     weights: torch.Tensor,  # [R, N]
     num_samples: int,
+    rng: Rng = None,
+    single_jitter: bool = False,
     histogram_padding: float = 0.01,
     include_original: bool = False,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """``num_samples + 1`` new bin edges from the weight histogram, at the
-    bin midpoints of the inverse CDF (pdf.py:21-78 with ``rng=None``)."""
+    """``num_samples + 1`` new bin edges from the weight histogram
+    (pdf.py:21-78): the inverse CDF at the bin midpoints, or, with an
+    ``rng``, at jittered positions (one draw per ray under ``single_jitter``)."""
     checks.check_bins_weights(existing_bins, weights, "sample_pdf_bins")
     num_bins = num_samples + 1
     weights = weights + histogram_padding
@@ -32,7 +36,11 @@ def sample_pdf_bins(
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # [R, N+1]
 
     u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, device=cdf.device)
-    u = (u + 1.0 / (2 * num_bins)).expand(*cdf.shape[:-1], num_bins)
+    if rng is not None:
+        shape = (*cdf.shape[:-1], 1 if single_jitter else num_bins)
+        u = u + uniform(rng, shape, cdf.device) / num_bins
+    else:
+        u = (u + 1.0 / (2 * num_bins)).expand(*cdf.shape[:-1], num_bins)
 
     inds = searchsorted_right(cdf, u)
     n = existing_bins.shape[-1]
@@ -54,13 +62,15 @@ def pdf_sampler(
     ray_samples: RaySamples,
     weights: torch.Tensor,
     num_samples: int,
+    rng: Rng = None,
+    single_jitter: bool = False,
     histogram_padding: float = 0.01,
     include_original: bool = True,
 ) -> RaySamples:
-    """PDF resampling over the existing bins (pdf.py:81-109 with ``rng=None``)."""
+    """PDF resampling over the existing bins (pdf.py:81-109)."""
     existing_bins = torch.cat([ray_samples.spacing_starts, ray_samples.spacing_ends[..., -1:]], -1)
     bins = sample_pdf_bins(
-        existing_bins, weights, num_samples,
+        existing_bins, weights, num_samples, rng=rng, single_jitter=single_jitter,
         histogram_padding=histogram_padding, include_original=include_original,
     )
     return ray_bundle.get_ray_samples(

@@ -1,0 +1,1 @@
+"""See the package docstring of sdfstudio_tpu_torch."""

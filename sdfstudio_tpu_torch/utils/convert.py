@@ -13,6 +13,14 @@ and copies each leaf into the port model's parameter of the same path:
 It raises on any missing, extra or mis-shaped leaf. The JAX tree's
 ``field_background/dummy`` (a placeholder group, base_surface_model.py:104)
 is the one leaf that has no counterpart and is accepted as such.
+
+``opt_state_from_jax(optimizers, opt_state)`` carries optax's state into
+the port's per-group Adam (engine/optimizers.py): for each group, the
+``ScaleByAdamState`` (count, mu, nu) inside ``multi_transform``'s
+``MaskedState`` chain, whose moment trees map leaf for leaf like the
+parameters. The chain's ``ScaleByScheduleState`` count must equal Adam's,
+because the port reads the schedule at Adam's count. The optax objects are
+read by their attributes, so this module imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -68,3 +76,34 @@ def params_from_jax(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
         for pk, (_, arr) in mapped.items():
             params[pk].copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def _map_tree(tree: Mapping, prefix: str, names) -> Dict[str, np.ndarray]:
+    """Leaves of ``tree`` keyed by the port parameter name, checked against ``names``."""
+    flat = {_port_key(f"{prefix}{k}"): v for k, v in _flatten(tree).items()}
+    missing, extra = sorted(set(names) - set(flat)), sorted(set(flat) - set(names))
+    if missing or extra:
+        raise ValueError(f"opt_state_from_jax: extra JAX leaves {extra}; missing port params {missing}")
+    return flat
+
+
+def opt_state_from_jax(optimizers: Mapping, opt_state) -> None:
+    """Load optax's per-group Adam state into ``optimizers`` ({group: GroupAdam}) in place."""
+    inner = opt_state.inner_states
+    for group, opt in optimizers.items():
+        chain = getattr(inner[group], "inner_state", inner[group])
+        adam = [s for s in chain if hasattr(s, "mu") and hasattr(s, "nu")]
+        if len(adam) != 1:
+            raise ValueError(f"opt_state_from_jax: group {group} has no single Adam state")
+        count = int(np.asarray(adam[0].count))
+        others = [int(np.asarray(s.count)) for s in chain if hasattr(s, "count") and not hasattr(s, "mu")]
+        if any(c != count for c in others):
+            raise ValueError(f"opt_state_from_jax: group {group} schedule counts {others} != Adam count {count}")
+        mu = _map_tree(adam[0].mu[group], f"{group}.", opt.names)
+        nu = _map_tree(adam[0].nu[group], f"{group}.", opt.names)
+        dev = opt.params[0].device if opt.params else "cpu"
+
+        def tensors(flat):
+            return [torch.from_numpy(np.array(flat[n], dtype=np.float32)).to(dev) for n in opt.names]
+
+        opt.load_state(count, tensors(mu), tensors(nu))

@@ -104,6 +104,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sst_fused_mlp_fwd_smem_limit.restype = ci
     lib.sst_fused_mlp_fwd_max_layers.argtypes = []
     lib.sst_fused_mlp_fwd_max_layers.restype = ci
+    lib.sst_fused_mlp_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.sst_fused_mlp_bwd.restype = ci
+    lib.sst_fused_mlp_bwd_workspace.argtypes = [vp, ci, ci, vp]
+    lib.sst_fused_mlp_bwd_workspace.restype = None
+    lib.sst_fused_mlp_bwd_smem_limit.argtypes = []
+    lib.sst_fused_mlp_bwd_smem_limit.restype = ci
+    lib.sst_fused_mlp_bwd_max_layers.argtypes = []
+    lib.sst_fused_mlp_bwd_max_layers.restype = ci
     return lib
 
 

@@ -1,4 +1,5 @@
-"""The fused-MLP CUDA kernel against its plain PyTorch version, on the card.
+"""The fused-MLP CUDA kernels, forward and backward, against their plain
+PyTorch versions, on the card.
 
 Every test here needs an NVIDIA card (marked ``cuda``) and skips elsewhere.
 The file imports no JAX, so on a machine with the card but without JAX it
@@ -18,6 +19,8 @@ from sdfstudio_tpu_torch.ops import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
 
+_ACTS = [("relu", "none"), ("softplus100", "relu"), ("none", "softplus100")]
+
 
 @pytest.fixture
 def card():
@@ -27,15 +30,24 @@ def card():
     return torch.device("cuda")
 
 
-def _case(dims, n, device, seed=0):
+def _case(dims, n, device, seed=0, margin=False):
+    """Seeded inputs. With ``margin`` the biases lie in +-[0.5, 1.5] and the
+    weights are scaled by 0.1, so no pre-activation comes within ~1e-6 of
+    0: the relu derivative jumps there, and a rounding difference between
+    two sums could flip it (a real difference of the two paths, not an
+    error of either)."""
     rng = np.random.default_rng(seed)
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(device)
 
     x = t(rng.standard_normal((n, dims[0])))
-    ws = [t(rng.standard_normal((a, b)) / np.sqrt(a)) for a, b in zip(dims[:-1], dims[1:])]
-    bs = [t(0.1 * rng.standard_normal(b)) for b in dims[1:]]
+    scale = 0.1 if margin else 1.0
+    ws = [t(scale * rng.standard_normal((a, b)) / np.sqrt(a)) for a, b in zip(dims[:-1], dims[1:])]
+    if margin:
+        bs = [t(rng.choice([-1.0, 1.0], b) * rng.uniform(0.5, 1.5, b)) for b in dims[1:]]
+    else:
+        bs = [t(0.1 * rng.standard_normal(b)) for b in dims[1:]]
     return x, ws, bs
 
 
@@ -49,7 +61,7 @@ def _case(dims, n, device, seed=0):
         ([17, 257, 5, 300, 1], 1),  # a narrow hidden layer between tiled ones
     ],
 )
-@pytest.mark.parametrize("act,out_act", [("relu", "none"), ("softplus100", "relu"), ("none", "softplus100")])
+@pytest.mark.parametrize("act,out_act", _ACTS)
 def test_kernel_matches_plain(card, dims, n, act, out_act):
     x, ws, bs = _case(dims, n, card)
     before = fm.LAUNCHES["fused_mlp_fwd"]
@@ -71,7 +83,88 @@ def test_kernel_refuses_what_it_cannot_take(card):
         fm.fused_mlp(x, [ws[0].cpu(), ws[1]], bs)
     with pytest.raises(ValueError, match="shared memory"):
         fm.fused_mlp(*_case([1000, 16, 2], 10, card))
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        fm.fused_mlp(x.clone().requires_grad_(True), ws, bs)
+    with pytest.raises(ValueError, match="shared memory"):
+        fm.fused_mlp_bwd(*_case([1000, 16, 2], 10, card), torch.zeros(10, 2, device=card))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fm.fused_mlp_bwd(x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs],
+                         torch.zeros(10, 2))
     empty = fm.fused_mlp(x[:0], ws, bs)
     assert empty.shape == (0, 2)
+
+
+# the three calls of a 2048-ray training step, with the slice's activations
+# and dx need (the proposal nets' input needs no gradient), then odd shapes
+# under every activation, with and without dx
+_BWD_CASES = [
+    ([39, 128, 128, 1], 524288, "relu", "none", False),  # proposal 0
+    ([51, 128, 128, 1], 196608, "relu", "none", False),  # proposal 1
+    ([321, 256, 256, 3], 98304, "relu", "none", True),  # color
+] + [
+    (dims, n, act, out_act, need_dx)
+    for dims, n in [
+        ([3, 9, 130, 8], 65),  # ragged rows, a 9-wide tiled layer, an 8-wide head
+        ([17, 257, 5, 300, 1], 1),  # one row, a narrow hidden layer between tiled ones
+        ([7, 9], 1000),  # one layer: dx straight from g
+        ([130, 20, 6], 300),  # a narrow head after a ragged tile
+        ([321, 256, 256, 3], 5000),  # the color widths over a few splits
+    ]
+    for act, out_act in _ACTS
+    for need_dx in (True, False)
+]
+
+
+@pytest.mark.parametrize("dims,n,act,out_act,need_dx", _BWD_CASES)
+def test_bwd_kernel_matches_plain(card, dims, n, act, out_act, need_dx):
+    """The backward kernel against ``fused_mlp_bwd_plain`` run in float64 on
+    the same inputs: only the kernel's own f32 rounding is left, and its
+    split-K sums over at most a few thousand rows stay within 1e-4 of each
+    output's scale (max |reference| + 1e-6). The inputs keep every
+    pre-activation away from the relu's jump (``_case(margin=True)``)."""
+    x, ws, bs = _case(dims, n, card, margin=True)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal((n, dims[-1])).astype(np.float32)).to(card)
+    before = fm.LAUNCHES["fused_mlp_bwd"]
+    dx, dws, dbs = fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx)
+    rdx, rdws, rdbs = fm.fused_mlp_bwd_plain(x.double(), [w.double() for w in ws],
+                                             [b.double() for b in bs], g.double(), act, out_act,
+                                             need_dx)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_mlp_bwd"] == before + 1
+    assert (dx is None) == (not need_dx)
+    pairs = list(zip(dws, rdws)) + list(zip(dbs, rdbs)) + ([(dx, rdx)] if need_dx else [])
+    for got, ref in pairs:
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        err = float((got.double() - ref).abs().max())
+        assert err / (float(ref.abs().max()) + 1e-6) <= 1e-4
+
+
+def test_fused_mlp_autograd_wiring(card):
+    """Gradients through the autograd node (forward and backward kernels)
+    against autograd through the plain version, both f32 on the card
+    (1e-4 relative, as above), and ``torch.autograd.gradcheck`` in float32
+    on a linear chain, where central differences with step 1e-2 are exact
+    up to rounding: f32 rounding of outputs of size ~10 over 2e-2 gives
+    ~1e-4, so atol and rtol are 1e-3."""
+    x, ws, bs = _case([13, 40, 7, 3], 37, card, margin=True)
+    x = x.reshape(37, 1, 13)
+    params = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+    c = torch.randn(37, 1, 3, device=card, generator=torch.Generator(device=card).manual_seed(0))
+    before = dict(fm.LAUNCHES)
+    y = fm.fused_mlp(params[0], params[1:4], params[4:], "softplus100", "relu")
+    grads = torch.autograd.grad((y * c).sum(), params)
+    assert fm.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"] + 1
+    assert fm.LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 1
+    ref_params = [t.detach().clone().requires_grad_(True) for t in params]
+    y_ref = fm.fused_mlp_plain(ref_params[0], ref_params[1:4], ref_params[4:], "softplus100", "relu")
+    ref = torch.autograd.grad((y_ref * c).sum(), ref_params)
+    for got, want in zip(grads, ref):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) / (float(want.abs().max()) + 1e-6) <= 1e-4
+    # no gradient for x: the kernel skips dx
+    y2 = fm.fused_mlp(x.reshape(37, 13), params[1:4], params[4:], "relu")
+    g2 = torch.autograd.grad(y2.sum(), params[1])[0]
+    assert g2.shape == ws[0].shape
+    xs, wsl, bsl = _case([5, 6, 2], 4, card)
+    inputs = tuple(t.clone().requires_grad_(True) for t in (xs, *wsl, *bsl))
+    assert torch.autograd.gradcheck(
+        lambda a, w0, w1, b0, b1: fm.fused_mlp(a, [w0, w1], [b0, b1], "none", "none"),
+        inputs, eps=1e-2, atol=1e-3, rtol=1e-3)

@@ -178,8 +178,11 @@ def test_fused_mlp_wrapper_contract():
         tfm.fused_mlp(tx[:, :7], tws, tbs)
     with pytest.raises(ValueError, match="bias"):
         tfm.fused_mlp(tx, tws, [tbs[0][:3], tbs[1]])
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        tfm.fused_mlp(tx.clone().requires_grad_(True), tws, tbs)
+    # under autograd the CPU path backpropagates through fused_mlp_bwd_plain
+    # and still launches and counts nothing
+    xg = tx.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(tfm.fused_mlp(xg, tws, tbs).sum(), xg)
+    assert gx.shape == tx.shape and tfm.LAUNCHES == before
     with pytest.raises(ValueError, match="unsupported device"):
         tfm.fused_mlp(tx.to("meta"), [w.to("meta") for w in tws], [b.to("meta") for b in tbs])
 
@@ -190,7 +193,7 @@ def test_cuda_build_is_lazy_and_needs_nvcc(monkeypatch):
     assert cuda_build._lib is None or torch.cuda.is_available()
     h = cuda_build.sources_hash()
     assert h == cuda_build.sources_hash() and len(h) == 64
-    assert [p.name for p in cuda_build._sources()] == ["fused_mlp_fwd.cu"]
+    assert [p.name for p in cuda_build._sources()] == ["fused_mlp_bwd.cu", "fused_mlp_fwd.cu"]
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(cuda_build.os.path, "isfile", lambda p: False)
