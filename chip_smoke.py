@@ -32,7 +32,16 @@ Phases, each printing its own line with wall-clock seconds:
    of that step are captured and the backward kernel is compared with
    ``fused_mlp_bwd_plain`` and timed; one step runs under
    ``torch.profiler``;
-6. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+6. probe: the gather-probe entry points, ``probe_gather2`` and
+   ``probe_prims``, run in process with ``--quick`` at the reference's
+   shapes and print their lines; their launches of the two row-gather
+   kernels are counted. Each kernel is then held to its plain version on
+   random tables at the probe's shapes (``take`` at R = 2^14 and 2^19,
+   ``loop`` at 2^14) and at p8's own table (the gathers of one train step),
+   on indices that include R: a gather is a copy, so the two must agree
+   exactly, NaN rows included. Kernel, plain version and ``index_select``
+   are timed with CUDA events over many warm launches;
+7. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It imports torch, numpy, the standard library and ``sdfstudio_tpu_torch``
 only, and reads no checkpoint. Any failed check raises, so the exit code is
@@ -81,6 +90,13 @@ STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-4
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # bytes/s
+# the gather probes' kernel shapes (probe_gather2.py main): (kernel, R, F, M)
+PROBE_GATHERS = [("take", 1 << 14, 2, 4_194_304), ("take", 1 << 19, 2, 4_194_304),
+                 ("loop", 1 << 14, 2, 1 << 20)]
+# the permutohedral encode of one p8 train step: 98,304 points x 8 levels x
+# 4 corners of a 2,841,000 x 4 table
+P8_GATHER = ("take", 2_841_000, 4, 98_304 * 8 * 4)
+GATHER_REPS = 50  # warm launches per CUDA-event timing of a gather
 
 
 def log(phase: str, msg: str) -> None:
@@ -246,6 +262,89 @@ def render_breakdown(events, wall_ms: float, windows=()) -> dict:
         "top_kernels": [{"name": k[:100], "ms": t, "calls": n}
                         for k, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]],
     }
+
+
+def cuda_time_many_ms(fn, reps: int = GATHER_REPS, warmup: int = 3) -> float:
+    """Mean time of ``fn()`` over ``reps`` back-to-back launches, by CUDA
+    events around the whole run. The card first sleeps ~10 ms while the host
+    queues every launch, so the events time the device and not the rate at
+    which the host issues work (tens of microseconds a call against gathers
+    of tens of microseconds)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # clock cycles
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def probe_phase() -> dict:
+    """Run the gather-probe entry points, count their kernel launches, and
+    hold each row-gather kernel to its plain version; time kernel, plain
+    version and ``index_select``. Returns what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.ops import row_gather as rg
+    from sdfstudio_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
+    from sdfstudio_tpu_torch.scripts.benchmarking import probe_gather2, probe_prims
+    from sdfstudio_tpu_torch.utils.cuda_build import load_library
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    probe_gather2.main(["--quick"])
+    probe_prims.main(["--quick"])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log("probe", f"probe_gather2 and probe_prims --quick in {time.perf_counter() - t:.2f} s; "
+        f"launches {launches}")
+    # probe_gather2 --quick: 2 pl-take probes of K=4 and one pl-loop probe of
+    # K=2, each called 2 + 7 times (probe_prims.slope_time)
+    check(launches["row_gather_take"] == 2 * 4 * 9 and launches["row_gather_loop"] == 2 * 9,
+          f"expected 72 take and 18 loop launches, got {launches}")
+    check(launches["fused_mlp_fwd"] == 0 and launches["fused_mlp_bwd"] == 0,
+          f"the probes launched a fused-MLP kernel: {launches}")
+
+    lib = load_library()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    recs = []
+    for which, (kind, R, F, M) in [("probe", c) for c in PROBE_GATHERS] + [("p8", P8_GATHER)]:
+        kern, plain = (rg.take, rg.take_plain) if kind == "take" else (rg.loop, rg.loop_plain)
+        table = torch.randn((R, F), generator=gen, device="cuda")
+        idx = torch.randint(0, R, (M,), generator=gen, device="cuda", dtype=torch.int32)
+        edge = idx.clone()
+        edge[::997] = R  # one past the table: NaN for take, row R-1 for loop
+        edge[1], edge[2] = 0, R - 1
+        got, want = kern(table, edge), plain(table, edge)
+        torch.cuda.synchronize()
+        nan_k, nan_p = torch.isnan(got), torch.isnan(want)
+        same_nan = torch.equal(nan_k, nan_p)
+        max_abs = float(torch.where(nan_p, 0.0, (got - want).abs()).max())
+        nan_rows = int(nan_p.any(-1).sum())
+        expected_nan = int((edge == R).sum()) if kind == "take" else 0
+        ms = cuda_time_many_ms(lambda: kern(table, idx))
+        plain_ms = cuda_time_many_ms(lambda: plain(table, idx))
+        library_ms = cuda_time_many_ms(lambda: torch.index_select(table, 0, idx))
+        nbytes = 4.0 * (M + R * F + M * F)  # idx and table read once, out written once
+        rec = {"kernel": kind, "case": which, "R": R, "F": F, "M": M,
+               "staged": kind == "loop" or bool(lib.sst_row_gather_take_staged(R, F)),
+               "max_abs_err": max_abs, "nan_rows": nan_rows, "same_nan": same_nan, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
+               "bound_ms": nbytes / HBM_RATE * 1e3, "bound_by": "bytes",
+               "rows_per_s": M / ms * 1e3, "library_rows_per_s": M / library_ms * 1e3}
+        recs.append(rec)
+        log("probe", json.dumps(rec))
+        check(same_nan and nan_rows == expected_nan,
+              f"{kind} R={R}: NaN rows {nan_rows}, expected {expected_nan}, same places {same_nan}")
+        check(max_abs == 0.0, f"{kind} R={R}: kernel and plain version differ by {max_abs}")
+        del table, idx, edge, got, want
+    LAUNCHES.update(launches)  # comparison launches are not the probe's
+    return {"launches": launches, "cases": recs}
 
 
 def rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -436,7 +535,7 @@ def main() -> int:
     from sdfstudio_tpu_torch.cameras.cameras import Cameras
     from sdfstudio_tpu_torch.configs.methods import build_model
     from sdfstudio_tpu_torch.core.scene_box import SceneBox
-    from sdfstudio_tpu_torch.engine.final_eval import EVAL_STEP, render_image, set_fp32_precision
+    from sdfstudio_tpu_torch.engine.final_eval import UNTRAINED_STEP, render_image, set_fp32_precision
     from sdfstudio_tpu_torch.ops import fused_mlp as fm
     from sdfstudio_tpu_torch.utils import cuda_build
 
@@ -551,11 +650,11 @@ def main() -> int:
     sel = torch.arange(IMAGE // 2 * IMAGE, IMAGE // 2 * IMAGE + 256, device="cuda")
     sub = rb.map(lambda x: x[sel])
     with torch.no_grad():
-        gpu_out = model.get_outputs(sub, sched=model.schedules(EVAL_STEP))
+        gpu_out = model.get_outputs(sub, sched=model.schedules(UNTRAINED_STEP))
         model_cpu = build_model("neus-facto-tpu-p8", scene_box, num_train_data=1, seed=SEED,
                                 device="cpu")
         cpu_out = model_cpu.get_outputs(sub.map(lambda x: x.cpu()),
-                                        sched=model_cpu.schedules(EVAL_STEP))
+                                        sched=model_cpu.schedules(UNTRAINED_STEP))
     slice_err = {k: float((gpu_out[k].cpu() - cpu_out[k]).abs().max())
                  for k in ("rgb", "accumulation", "depth", "normal")}
     log("slice", f"card vs CPU plain path on 256 rays, max |diff|: {slice_err} (tol {SLICE_TOL})")
@@ -566,7 +665,7 @@ def main() -> int:
     calls: list = []
     chunk_rb = rb.map(lambda x: x[:1024])
     with capture_fused_mlp_calls(calls), torch.no_grad():
-        model.get_outputs(chunk_rb, sched=model.schedules(EVAL_STEP))
+        model.get_outputs(chunk_rb, sched=model.schedules(UNTRAINED_STEP))
     check(len(calls) == 3, f"expected 3 fused_mlp calls per chunk, captured {len(calls)}")
     names = ["proposal_0", "proposal_1", "color"]
     per_call = []
@@ -597,8 +696,33 @@ def main() -> int:
     # 5. train --------------------------------------------------------------
     train = train_phase(fm)
 
-    # 6. results ------------------------------------------------------------
+    # 6. probe ---------------------------------------------------------------
+    probe = probe_phase()
+
+    # 7. results ------------------------------------------------------------
     bwd = train["bwd_calls"]
+
+    def gather_entry(kind: str, replaces: str) -> dict:
+        name = f"row_gather_{kind}"
+        mine = [r for r in probe["cases"] if r["kernel"] == kind]
+        at_probe = [r for r in mine if r["case"] == "probe"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "sdfstudio_tpu_torch/csrc/row_gather.cu",
+            "replaces": replaces,
+            "launches": probe["launches"][name],
+            "launches_render": launches[name],
+            "launches_train": train["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": sum(r["ms"] for r in at_probe),
+            "plain_ms": sum(r["plain_ms"] for r in at_probe),
+            "bound_ms": sum(r["bound_ms"] for r in at_probe),
+            "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in at_probe),
+            "per_shape": mine,
+        }
+
     kernels = {"kernels": [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
@@ -635,7 +759,8 @@ def main() -> int:
         "train_rays_per_s": train["rays_per_s"],
         "train_synced_step_median_ms": train["synced_step_median_ms"],
         "train_step_device_idle_share_traced": train["profile"]["device_idle_share"],
-    }]}
+    }, gather_entry("take", "sdfstudio_tpu/scripts/benchmarking/probe_gather2.py:117"),
+        gather_entry("loop", "sdfstudio_tpu/scripts/benchmarking/probe_gather2.py:149")]}
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)

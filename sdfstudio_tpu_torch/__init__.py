@@ -9,7 +9,9 @@ It covers ``neus-facto-tpu-p8``: rendering an image from a trained (or
 seeded) model (``engine/final_eval.py``) and training it on an
 SDFStudio-format scene (``scripts/train.py``), with the fully-fused MLP as
 hand-written CUDA kernels, forward and backward (``ops/fused_mlp.py`` +
-``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``).
+``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``). The gather-probe
+entry points (``scripts/benchmarking/``) run the row-gather kernels
+(``ops/row_gather.py`` + ``csrc/row_gather.cu``).
 """
 
 import torch as _torch

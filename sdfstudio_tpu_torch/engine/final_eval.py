@@ -44,16 +44,19 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0) -> t
     return 10.0 * torch.log10(data_range**2 / torch.clamp(mse, min=1e-12))
 
 
-# a trained model's step: every schedule of neus-facto-tpu-p8 has finished
-# its anneal by then (neus.py schedules, cos_anneal_ratio 1)
-EVAL_STEP = 1_000_000
+# the step a render takes without a trained one, as the reference renders
+# with no trainer state (trainer.py:516-520)
+UNTRAINED_STEP = 1e9
 IMAGE_KEYS = ("rgb", "depth", "accumulation", "normal")
 
 
 @torch.no_grad()
-def render_image(model, cameras: Cameras, index: int, chunk: Optional[int] = None) -> Dict[str, torch.Tensor]:
+def render_image(model, cameras: Cameras, index: int, chunk: Optional[int] = None,
+                 step: Optional[float] = None) -> Dict[str, torch.Tensor]:
     """Render camera ``index`` to ``{key: [H, W, C]}`` (trainer.py:477-530 with
-    final_eval.py:54-68), with the schedules at ``EVAL_STEP``."""
+    final_eval.py:54-68), with the schedules at ``step``: the trained step
+    of the parameters (the reference passes ``state.step``), or
+    ``UNTRAINED_STEP`` when there is none."""
     set_fp32_precision()
     chunk = chunk or model.config.eval_num_rays_per_chunk
     device = next(model.parameters()).device
@@ -61,7 +64,7 @@ def render_image(model, cameras: Cameras, index: int, chunk: Optional[int] = Non
         raise ValueError(f"cameras on {cameras.device}, model on {device}")
     h, w = int(cameras.height[index]), int(cameras.width[index])
     bundle = cameras.generate_image_rays(index)
-    sched = model.schedules(EVAL_STEP)
+    sched = model.schedules(UNTRAINED_STEP if step is None else step)
     outs = {k: [] for k in IMAGE_KEYS}
     for rb, n_real in _chunked(bundle, chunk):
         out = model.get_outputs(rb, sched=sched, train=False)

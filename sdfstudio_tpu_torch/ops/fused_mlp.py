@@ -31,21 +31,15 @@ double backward.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
+from sdfstudio_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts  # noqa: F401
+
 ACTIVATIONS = {"none": 0, "relu": 1, "softplus100": 2}
-
-# Launches of each kernel wrapper, counted where the kernel is enqueued.
-LAUNCHES: Dict[str, int] = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _act(x: torch.Tensor, name: str) -> torch.Tensor:

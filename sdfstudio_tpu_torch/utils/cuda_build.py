@@ -112,6 +112,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sst_fused_mlp_bwd_smem_limit.restype = ci
     lib.sst_fused_mlp_bwd_max_layers.argtypes = []
     lib.sst_fused_mlp_bwd_max_layers.restype = ci
+    ll = ctypes.c_longlong
+    for name in ("sst_row_gather_take", "sst_row_gather_loop"):
+        getattr(lib, name).argtypes = [vp, vp, vp, ci, ci, ll, vp]
+        getattr(lib, name).restype = ci
+    lib.sst_row_gather_smem_limit.argtypes = []
+    lib.sst_row_gather_smem_limit.restype = ci
+    lib.sst_row_gather_take_staged.argtypes = [ci, ci]
+    lib.sst_row_gather_take_staged.restype = ci
+    lib.sst_row_gather_loop_smem_bytes.argtypes = [ci, ci]
+    lib.sst_row_gather_loop_smem_bytes.restype = ll
     return lib
 
 

@@ -1,21 +1,23 @@
-"""The fused-MLP CUDA kernels, forward and backward, against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+fused MLP, forward and backward, and the row gathers ``take`` and ``loop``.
 
 Every test here needs an NVIDIA card (marked ``cuda``) and skips elsewhere.
 The file imports no JAX, so on a machine with the card but without JAX it
 runs without the repository's conftest:
 
-    python -m pytest tests/test_torch_kernel_cuda.py --noconftest -q -m cuda
+    python -m pytest tests/test_torch_kernel_cuda.py --noconftest -m cuda
 
 Tolerance: both sides are f32 with TF32 off; only the order of the sums
 differs, so the error stays within a few K * 2^-24 of the output scale:
-1e-4 relative to max|plain| + 1.
+1e-4 relative to max|plain| + 1. A gather is a copy: the row gathers must
+equal their plain versions exactly, NaN rows included.
 """
 import numpy as np
 import pytest
 import torch
 
 from sdfstudio_tpu_torch.ops import fused_mlp as fm
+from sdfstudio_tpu_torch.ops import row_gather as rg
 
 pytestmark = pytest.mark.cuda
 
@@ -168,3 +170,77 @@ def test_fused_mlp_autograd_wiring(card):
     assert torch.autograd.gradcheck(
         lambda a, w0, w1, b0, b1: fm.fused_mlp(a, [w0, w1], [b0, b1], "none", "none"),
         inputs, eps=1e-2, atol=1e-3, rtol=1e-3)
+
+
+# (kernel, R, F, M): the probes' shapes, p8's table, odd row counts, F in
+# {1, 2, 3, 4}, tables in shared memory and through L2
+_GATHER_CASES = [
+    ("take", 1 << 14, 2, 4_194_304),  # pl-take, staged in shared memory
+    ("take", 1 << 19, 2, 4_194_304),  # pl-take, through L2
+    ("take", 2_841_000, 4, 3_145_728),  # p8's permutohedral table, one train step's gathers
+    ("take", 1000, 1, 1001),
+    ("take", 12_000, 4, 12_345),  # 192 KB, staged, float4 rows
+    ("take", 50_000, 4, 777),  # 800 KB, through L2
+    ("take", 100, 3, 999),
+    ("take", 3, 2, 5),
+    ("loop", 1 << 14, 2, 1 << 20),  # pl-loop
+    ("loop", 1000, 1, 1001),
+    ("loop", 12_000, 4, 12_345),
+    ("loop", 100, 3, 999),
+    ("loop", 3, 2, 5),
+]
+
+
+def _gather_case(R, F, M, device, seed=0):
+    """A random table and indices in [0, R], with R, 0 and R-1 among them."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal((R, F)).astype(np.float32)).to(device)
+    idx = rng.integers(0, R + 1, M).astype(np.int32)
+    idx[: min(M, 3)] = [R, 0, R - 1][: min(M, 3)]
+    return table, torch.from_numpy(idx).to(device)
+
+
+@pytest.mark.parametrize("kind,R,F,M", _GATHER_CASES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_row_gather_kernel_matches_plain(card, kind, R, F, M, offset):
+    """``offset`` 1 shifts the table by one float, so no row is aligned for
+    a vector load and the kernel takes its scalar path."""
+    table, idx = _gather_case(R, F, M, card)
+    if offset:
+        buf = torch.empty(R * F + 1, device=card)
+        buf[1:] = table.reshape(-1)
+        table = buf[1:].view(R, F)
+    kern, plain = (rg.take, rg.take_plain) if kind == "take" else (rg.loop, rg.loop_plain)
+    before = rg.LAUNCHES[f"row_gather_{kind}"]
+    got = kern(table, idx)
+    want = plain(table, idx)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES[f"row_gather_{kind}"] == before + 1
+    assert got.shape == (M, F) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got).any()) == (kind == "take")
+
+
+def test_row_gather_refuses_what_it_cannot_take(card):
+    table, idx = _gather_case(64, 2, 10, card)
+    for fn in (rg.take, rg.loop):
+        with pytest.raises(ValueError, match="float32 table and int32"):
+            fn(table.double(), idx)
+        with pytest.raises(ValueError, match="float32 table and int32"):
+            fn(table, idx.long())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(table.t().contiguous().t(), idx)
+        with pytest.raises(ValueError, match="is on"):
+            fn(table, idx.cpu())
+        with pytest.raises(ValueError, match="table \\[R, F\\] and idx \\[M\\]"):
+            fn(table.reshape(-1), idx)
+    before = dict(rg.LAUNCHES)
+    assert rg.take(table, idx[:0]).shape == (0, 2) and rg.LAUNCHES == before
+    # the loop kernel keeps its table in shared memory: 2^16 x 1 floats + the
+    # tile's indices exceed the 227 KB a block may use
+    big, big_idx = _gather_case(1 << 16, 1, 10, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        rg.loop(big, big_idx)
+    assert rg.LAUNCHES == before
+    torch.testing.assert_close(rg.take(big, big_idx), rg.take_plain(big, big_idx), rtol=0, atol=0,
+                               equal_nan=True)

@@ -179,9 +179,11 @@ def _same_render(out, ref):
            np.asarray(ref["depth"]) * acc, rtol=0, atol=4.0 * SLICE_TOL["atol"])
 
 
-def _cameras(h=8, w=10):
+def _cameras(h=8, w=10, facing=False):
     c2w = np.array([[0.0, 0.5384, -0.8427, 1.8761], [1.0, 0.0, 0.0, 0.0],
                     [0.0, -0.8427, -0.5384, 1.1988]], np.float32)
+    if facing:  # turned about its x axis to look at the origin, where the surface is
+        c2w[:, 1:3] *= -1.0
     kw = dict(fx=11.0, fy=11.5, cx=w / 2, cy=h / 2, width=w, height=h)
     return JCameras.create(c2w[None], **kw), TCameras.create(c2w[None], device="cpu", **kw)
 
@@ -198,7 +200,7 @@ def test_render_image_matches_jax(models):
     jmodel, jparams, _, tmodel = models
     jc, tc = _cameras()
     ref = jax.jit(
-        lambda p, rb: jmodel.get_outputs(p, rb, rng=None, sched=jmodel.schedules(1e6), train=False)
+        lambda p, rb: jmodel.get_outputs(p, rb, rng=None, sched=jmodel.schedules(1e9), train=False)
     )(jparams, jc.generate_image_rays(0))
     out = render_image(tmodel, tc, 0, chunk=32)
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -208,6 +210,24 @@ def test_render_image_matches_jax(models):
     gt = torch.rand(8, 10, 3, generator=torch.Generator().manual_seed(0))
     ref_psnr = -10.0 * np.log10(np.mean((np.asarray(ref["rgb"]).reshape(8, 10, 3) - gt.numpy()) ** 2))
     assert abs(float(psnr(out["rgb"], gt)) - ref_psnr) < 1e-3
+
+
+def test_render_image_renders_at_the_trained_step(models):
+    """``render_image(step=20_000)`` renders with the schedules of step
+    20,000 (cos anneal 0.4 for anneal_end 50,000), as the reference's
+    ``Trainer.render_image`` renders at ``state.step``; the same view at the
+    untrained default (1e9, cos anneal 1) differs."""
+    jmodel, jparams, _, tmodel = models
+    jc, tc = _cameras(facing=True)
+    ref = jax.jit(
+        lambda p, rb: jmodel.get_outputs(p, rb, rng=None, sched=jmodel.schedules(20_000.0),
+                                         train=False)
+    )(jparams, jc.generate_image_rays(0))
+    out = render_image(tmodel, tc, 0, chunk=32, step=20_000)
+    _same_render(out, ref)
+    assert float(np.asarray(ref["accumulation"]).max()) > 0.5  # the view sees the surface
+    late = render_image(tmodel, tc, 0, chunk=32)
+    assert float((out["rgb"] - late["rgb"]).abs().max()) > 1e-2
 
 
 def test_params_from_jax_rejects_missing_extra_and_misshaped(models):
