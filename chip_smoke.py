@@ -6,7 +6,10 @@
 Phases, each printing its own line with wall-clock seconds:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. build: the CUDA kernels from a clean ``sdfstudio_tpu_torch/_build/``;
+2. build: the CUDA kernels from a clean ``sdfstudio_tpu_torch/_build/``,
+   with ptxas's registers and spills per kernel and, from ``cuobjdump
+   -sass`` of the built library, each kernel's count of tensor-core
+   instructions (``HGMMA``, Hopper's warpgroup MMA);
 3. slice: a full-width ``neus-facto-tpu-p8`` model from the port's seeded
    initialiser renders one 384x384 view through ``render_image`` in
    1024-ray chunks. Geometric init makes the SDF close to a sphere; the
@@ -30,7 +33,8 @@ Phases, each printing its own line with wall-clock seconds:
    the kernels and with ``fused_mlp`` swapped for its plain versions, and
    the losses and every group's gradient compared; the three backward calls
    of that step are captured and the backward kernel is compared with
-   ``fused_mlp_bwd_plain`` and timed; one step runs under
+   ``fused_mlp_bwd_plain`` and timed, and run twice more on the color call,
+   whose results must be the same bits; one step runs under
    ``torch.profiler``;
 6. probe: the gather-probe entry points, ``probe_gather2`` and
    ``probe_prims``, run in process with ``--quick`` at the reference's
@@ -74,13 +78,14 @@ SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".parity", "dtu
 TRAIN_RAYS = 2048  # the parity protocol's rays per batch (parity.py NUM_RAYS)
 TRAIN_STEPS = 40  # steps 10-39 update the proposal nets on even steps only
 CHECK_STEPS = 12  # steps taken one at a time; update step 10 and frozen step 11 are checked
-# backward kernel against fused_mlp_bwd_plain, both f32 on the card: the
+# backward kernel against fused_mlp_bwd_plain, both at f32 accuracy on the
+# card (the plain side in f32 with TF32 off, the kernel in 3xTF32): the
 # relative Frobenius error ||kernel - plain|| / ||plain|| of dx, each dW and
 # each db. dW sums up to 524,288 rows in other orders, and where a
 # pre-activation lies within rounding of 0 the two forwards may take the
 # relu's two sides, which moves that row's delta by its full value. Measured
-# at most 5.2e-7 (NVIDIA H100 80GB HBM3, 700 W); the bound keeps room for
-# such rows: 1e-4.
+# at most 5.2e-7 for the FP32-core kernels (NVIDIA H100 80GB HBM3, 700 W);
+# the bound keeps room for such rows: 1e-4.
 BWD_TOL = 1e-4
 # the kernel step against the plain step (losses, relative; each group's
 # gradient, relative Frobenius): the proposal densities differ by rounding
@@ -89,6 +94,7 @@ BWD_TOL = 1e-4
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-4
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet)
+TF32_TC_PEAK = 495e12  # H100 SXM, dense TF32 FLOP/s of the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # bytes/s
 # the gather probes' kernel shapes (probe_gather2.py main): (kernel, R, F, M)
 PROBE_GATHERS = [("take", 1 << 14, 2, 4_194_304), ("take", 1 << 19, 2, 4_194_304),
@@ -106,6 +112,52 @@ def log(phase: str, msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def ptxas_report(build_log: str) -> dict:
+    """``-Xptxas=-v`` output as {kernel: {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}}, the kernel named by its demangled-looking stem
+    (``fused_mlp_fwd_kernel<4>``)."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1] if "'" in line else line
+            stem = next((k for k in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_rows_kernel",
+                                     "fused_mlp_bwd_fix_kernel", "fused_mlp_bwd_dw_narrow_kernel",
+                                     "fused_mlp_bwd_dw_kernel", "fused_mlp_bwd_reduce_kernel",
+                                     "split_kernel", "take", "loop") if k in mangled), mangled[-40:])
+            tmpl = mangled.split("ILi")[1].split("E")[0] if "ILi" in mangled else ""
+            name = f"{stem}<{tmpl}>" if tmpl else stem
+            while name in out:
+                name += "'"
+            out[name] = {}
+        elif name is not None and "spill stores" in line:
+            parts = line.split(",")
+            out[name]["spill_stores"] = int(parts[1].split()[0])
+            out[name]["spill_loads"] = int(parts[2].split()[0])
+        elif name is not None and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split("registers")[0])
+    return out
+
+
+def sass_counts(lib_path) -> dict:
+    """Tensor-core instructions per kernel of the built library, from
+    ``cuobjdump -sass`` (beside ``nvcc``): {kernel: {"HGMMA": n, "HMMA": n}}."""
+    from sdfstudio_tpu_torch.utils.cuda_build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True, capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[name][op] += 1
+    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -178,17 +230,30 @@ def mlp_work(x, weights):
 
 
 def mlp_bwd_work(x, weights, need_dx):
-    """(FLOP, bytes) of one backward call: the forward that rebuilds the
-    activations (they are not inputs), every dW, the delta chain through each
-    layer after the first, and dx when it is needed; x, g, W, b read once,
-    dx, dW, db written once."""
+    """(FLOP, bytes, scratch bytes) of one backward call: the forward that
+    rebuilds the activations (they are not inputs), every dW, the delta chain
+    through each layer after the first, and dx when it is needed; the bytes
+    are the function's own: x, g, W, b read once, dx, dW, db written once.
+    The scratch bytes are the design's Z / D traffic (each hidden
+    pre-activation and every delta, csrc/fused_mlp_bwd.cu, written once and
+    read once): the function does not need them, so they stay out of the
+    bound and are reported beside it."""
     n = x.shape[0]
     dims = [x.shape[-1]] + [w.shape[1] for w in weights]
     prods = [a * b for a, b in zip(dims[:-1], dims[1:])]
     flop = 2.0 * n * (2 * sum(prods) + sum(prods[1:]) + (prods[0] if need_dx else 0))
     params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    scratch = 2 * 4.0 * n * (sum(dims[1:-1]) + sum(dims[1:]))
     nbytes = 4.0 * (n * dims[0] * (2 if need_dx else 1) + n * dims[-1] + 2 * params)
-    return flop, nbytes, dims, n
+    return flop, nbytes, scratch, dims, n
+
+
+def bounds(flop, nbytes):
+    """The least time on the card: at the reference's f32 accuracy the
+    tensor cores take three tf32 passes (3xTF32), and the FP32 cores one;
+    bytes at the HBM rate. (bound_ms, bound_ms_fp32, bound_by) in ms."""
+    tc, fp32, mem = 3 * flop / TF32_TC_PEAK, flop / FP32_PEAK, nbytes / HBM_RATE
+    return max(tc, mem) * 1e3, max(fp32, mem) * 1e3, "operations" if tc >= mem else "bytes"
 
 
 def _union_us(intervals) -> float:
@@ -494,19 +559,32 @@ def train_phase(fm) -> dict:
             p_ms = cuda_time_ms(lambda: fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx), reps)
             fk_ms = cuda_time_ms(lambda: fm.fused_mlp(x, ws, bs, act, out_act), reps)
             fp_ms = cuda_time_ms(lambda: fm.fused_mlp_plain(x, ws, bs, act, out_act), reps)
-        flop, nbytes, dims, n = mlp_bwd_work(x, ws, need_dx)
-        bound_ms = max(flop / FP32_PEAK, nbytes / HBM_RATE) * 1e3
+            if name == "color":
+                # the fixed split count and reduction order make the kernel
+                # repeat itself bit for bit
+                again = [fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx) for _ in range(2)]
+                torch.cuda.synchronize()
+                flat = [[t for t in ([r[0]] if need_dx else []) + list(r[1]) + list(r[2])]
+                        for r in [kern] + again]
+                same_bits = all(torch.equal(a_, b_) for other in flat[1:]
+                                for a_, b_ in zip(flat[0], other))
+                log("kernel", f"backward kernel on the color call three times: bitwise equal "
+                    f"dx, dW, db: {same_bits}")
+                check(same_bits, "the backward kernel gave different bits on the same inputs")
+        flop, nbytes, scratch, dims, n = mlp_bwd_work(x, ws, need_dx)
+        bound_ms, bound_fp32, bound_by = bounds(flop, nbytes)
         rec = {"call": name, "rows": n, "dims": dims, "act": act, "need_dx": need_dx, "flop": flop,
-               "bytes": nbytes, "max_abs_err": max_abs, "rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": bound_ms,
-               "bound_by": "operations" if flop / FP32_PEAK >= nbytes / HBM_RATE else "bytes"}
+               "bytes": nbytes, "scratch_bytes": scratch, "max_abs_err": max_abs, "rel_err": rel,
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_ms_fp32": bound_fp32,
+               "bound_by": bound_by, "bound_ms_with_scratch": bounds(flop, nbytes + scratch)[0]}
         bwd_calls.append(rec)
         log("kernel", json.dumps(rec))
         for n_, e in rel.items():
             check(e <= BWD_TOL, f"{name} {n_}: backward kernel vs plain rel error {e} > {BWD_TOL}")
         fflop, fbytes, _, _ = mlp_work(x, ws)
+        fb, fb32, _ = bounds(fflop, fbytes)
         fwd_calls.append({"call": name, "rows": n, "ms": fk_ms, "plain_ms": fp_ms,
-                          "bound_ms": max(fflop / FP32_PEAK, fbytes / HBM_RATE) * 1e3})
+                          "bound_ms": fb, "bound_ms_fp32": fb32})
     fm.LAUNCHES.update(before)  # comparison launches are not the main path's
 
     # where a step's time goes: one traced step (an update step)
@@ -551,10 +629,21 @@ def main() -> int:
     t = time.perf_counter()
     _, build_log = cuda_build.build(force=True, verbose=True)
     build_s = time.perf_counter() - t
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("build", line.strip())
+    ptxas = ptxas_report(build_log)
+    log("build", f"ptxas (registers, spill stores and loads in bytes, per kernel): {json.dumps(ptxas)}")
     log("build", f"nvcc built {cuda_build.LIB_PATH.name} in {build_s:.2f} s")
+    sass = {}
+    for fn_name, c in sass_counts(cuda_build.LIB_PATH).items():
+        for kernel in ("fused_mlp_fwd", "fused_mlp_bwd", "row_gather", "split_kernel"):
+            if kernel in fn_name:
+                tot = sass.setdefault(kernel, {"HGMMA": 0, "HMMA": 0, "functions": 0})
+                tot["HGMMA"] += c["HGMMA"]
+                tot["HMMA"] += c["HMMA"]
+                tot["functions"] += 1
+    log("build", f"tensor-core instructions in the SASS (cuobjdump -sass): {json.dumps(sass)}")
+    check(sass.get("fused_mlp_fwd", {}).get("HGMMA", 0) > 0
+          and sass.get("fused_mlp_bwd", {}).get("HGMMA", 0) > 0,
+          f"the fused-MLP kernels issue no wgmma: {sass}")
     cuda_build.load_library()
 
     # 3. slice --------------------------------------------------------------
@@ -681,15 +770,15 @@ def main() -> int:
             k_ms = cuda_time_ms(lambda: fm.fused_mlp(x, ws, bs, act, out_act))
             p_ms = cuda_time_ms(lambda: fm.fused_mlp_plain(x, ws, bs, act, out_act))
         flop, nbytes, dims, n = mlp_work(x, ws)
-        bound_ms = max(flop / FP32_PEAK, nbytes / HBM_RATE) * 1e3
+        bound_ms, bound_fp32, bound_by = bounds(flop, nbytes)
         rec = {"call": name, "rows": n, "dims": dims, "act": act, "flop": flop, "bytes": nbytes,
                "max_abs_err": err, "rel_err": err / scale, "ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": bound_ms,
-               "bound_by": "operations" if flop / FP32_PEAK >= nbytes / HBM_RATE else "bytes"}
+               "bound_ms": bound_ms, "bound_ms_fp32": bound_fp32, "bound_by": bound_by}
         per_call.append(rec)
         log("kernel", json.dumps(rec))
-        # f32 on both sides (no TF32): only the summation order differs, so
-        # the error stays within a few K * 2^-24 of the output scale
+        # f32 accuracy on both sides (the plain side with TF32 off, the
+        # kernel in 3xTF32, whose products keep ~21 bits of each operand):
+        # the error stays within a few K * 2^-22 of the output scale
         check(err / scale <= KERNEL_TOL, f"{name}: kernel vs plain error {err / scale} > {KERNEL_TOL}")
     fm.LAUNCHES["fused_mlp_fwd"] = before  # comparison launches are not the main path's
 
@@ -735,12 +824,15 @@ def main() -> int:
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
+        "bound_ms_fp32": sum(r["bound_ms_fp32"] for r in per_call),
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in per_call) else "bytes",
         "library_ms": None,
         "per_chunk_calls": per_call,
         "image_ms": warm_ms,
         "image_device_idle_share_traced": profile["device_idle_share"],
         "build_s": build_s,
+        "sass": sass.get("fused_mlp_fwd"),
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(("fused_mlp_fwd", "split"))},
         "train_step_calls": train["fwd_calls"],
     }, {
         "name": "fused_mlp_bwd",
@@ -752,9 +844,13 @@ def main() -> int:
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
+        "bound_ms_fp32": sum(r["bound_ms_fp32"] for r in bwd),
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in bwd) else "bytes",
+        "bound_ms_with_scratch": sum(r["bound_ms_with_scratch"] for r in bwd),
         "library_ms": None,
         "per_step_calls": bwd,
+        "sass": sass.get("fused_mlp_bwd"),
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("fused_mlp_bwd")},
         "train_step_ms": train["step_ms"],
         "train_rays_per_s": train["rays_per_s"],
         "train_synced_step_median_ms": train["synced_step_median_ms"],

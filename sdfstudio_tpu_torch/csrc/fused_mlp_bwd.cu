@@ -1,4 +1,5 @@
-// Fully-fused MLP backward for Hopper (sm_90a), FP32 on the CUDA cores.
+// Fully-fused MLP backward for Hopper (sm_90a): 3xTF32 on the tensor cores
+// (wgmma), weights staged by the TMA unit.
 //
 // Replaces the Pallas TPU kernel sdfstudio_tpu/ops/pallas_mlp.py::
 // _fused_mlp_padded_bwd (inner `kernel`, bound to the forward by defvjp).
@@ -10,320 +11,379 @@
 //     dW_l = a_l^T delta_l,  db_l = sum_rows delta_l,  dx = delta_0 W_0^T
 // with a_0 = x, a_l = act(pre_{l-1}), and act' taken from the pre-activation
 // as pallas_mlp.py:74-79 does (relu: pre > 0; softplus100: sigmoid(100 pre);
-// none: 1).
+// none: 1), at f32 accuracy (3xTF32, tf32_mma.cuh).
 //
 // What bounds it on an H100: arithmetic. dW costs what the forward costs
-// (2 n sum d_l d_{l+1}) and dx as much again for every layer but the first,
-// against a few floats of HBM traffic per row, far above the FP32 ridge.
+// (2 n sum d_l d_{l+1}) and the delta chain as much again for every layer
+// but the first, plus the forward it rebuilds; in 3xTF32 at 165 TFLOP/s of
+// f32-accurate products that is still far above the ridge. The design also
+// pays bytes: the Z / D scratch below, written once and read back.
 //
-// Design. The TPU kernel sums dW and db across a grid that runs in order
-// into outputs with a constant index; Hopper blocks run in parallel and in
-// no order, so the work is split in three launches:
-//   1. rows kernel, one block per 64 rows (as the forward kernel): it
-//      recomputes the forward in shared memory (the TPU kernel does the
-//      same: its residuals are only (x, W, b)), storing each hidden
-//      pre-activation to a global scratch Z_l, then runs the delta chain
-//      back through W_l^T in shared memory, storing each delta_l to a
-//      scratch D_l, and writes dx. The weights stream through shared memory
-//      in 16 x 128 slices as in the forward (the color net's 580 KB do not
-//      fit a block); W_l^T is read by a transposed, still coalesced, load.
-//      dx is skipped when the caller does not need it (the proposal nets'
-//      input is a positional encoding of positions that need no gradient).
-//   2. dW kernel, a split-K product: block (tile, split) sums
-//      act(Z_{l-1})^T D_l over its share of the rows for a 64 x 128 tile of
-//      dW_l in registers, plus db_l for the tiles in the first k row, and
-//      writes one partial. Heads of at most 8 columns take a narrow path
-//      (lane = k, warp = row stride, a fixed-order reduction over warps).
-//   3. reduce kernel: sums the partials over the splits in a fixed order,
-//      so the result is the same from run to run (no atomics).
-// Trade-off: this version pays twice. It recomputes the forward (its FLOPs
-// again: 60.8 of the 174.6 GFLOP of a 2048-ray step of neus-facto-tpu-p8),
-// and it also writes every hidden pre-activation Z and every delta D to a
-// transient HBM scratch that the dW kernel reads back: 1.07 GB for the
-// first proposal net's call, 1.88 GB over a step's three calls. Saving Z in
-// the forward instead would hold ~0.94 GB from the forward to the backward
-// but drop the rebuild; fusing the dW partials into the rows kernel would
-// keep D off HBM. Tensor cores (TF32/bf16 wgmma) and TMA are later work:
-// this version is the plain FP32 reference point.
+// Design. The TPU kernel sums dW and db across a grid that runs in order;
+// Hopper blocks run in parallel and in no order, so the work is a few
+// launches (after the split pre-pass of the weights, fused_mlp_chain.cuh):
+//   1. rows kernel, forward: one block per 128 rows rebuilds the forward on
+//      the tensor cores (the TPU kernel does the same: its residuals are
+//      only (x, W, b)), storing each hidden pre-activation to a scratch Z_l
+//      [n, d_{l+1}] and the last layer's delta to D_{L-1}. It lists the rows
+//      with a pre-activation too close to 0 for 3xTF32 to be sure of the
+//      relu's side (the fix below).
+//   2. fix kernel: the listed rows' forward again, exactly as the plain
+//      version computes it in f32 (a k-ordered FMA chain, then the bias), on
+//      the CUDA cores; it overwrites their Z. A few rows in a hundred.
+//   3. rows kernel, backward: from D_{L-1}, the delta chain back through
+//      W_l^T on the tensor cores (the wgmma B operand is W_l as stored, which
+//      is K-major for this product), storing each delta_l to a scratch D_l,
+//      and dx when the caller needs it (the proposal nets' input needs none).
+//   4. dW kernel, a split-K product on the tensor cores: block (tile, split)
+//      sums a_l^T D_l over its share of the rows (at most 2048) for a
+//      64 x 128 tile of dW_l, plus db_l in the tiles of the first k row, and
+//      writes one partial. wgmma's tf32 operands must be K-major, and K is
+//      the rows here, so each 32-row chunk of a_l = act(Z_{l-1}) (or x) and
+//      of D_l arrives by cp.async two chunks ahead, is split into hi and lo
+//      and stored transposed into shared memory. No bulk copy: the operand
+//      has to pass through registers for act() and the split anyway, and
+//      x's rows (39, 51, 321 floats) are not 16-byte aligned. The dW of a
+//      head (at most 8 columns) is a narrow kernel on the FP32 cores.
+//   5. reduce kernel: sums the partials over the splits in a fixed order,
+//      so the result is the same bits from run to run (no atomics; the fix
+//      list's order varies, but each row is computed the same way).
+// Still paid: the rebuild (60.8 of 174.6 GFLOP of a 2048-ray step of
+// neus-facto-tpu-p8) and the Z / D scratch, 1.88 GB written and read back a
+// step.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_mlp_chain.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 16;
-constexpr int BM = 64;         // rows per block of the rows kernel
-constexpr int THREADS = 256;
-constexpr int TX = 16, TY = 16;  // thread grid
-constexpr int TM = 4, TN = 8;    // per-thread tile: rows ty + 16 i, cols tx + 16 j
-constexpr int NC = TX * TN;      // 128 output columns per pass
-constexpr int BK = 16;           // K depth of a weight slice
-constexpr int WLD = NC + 4;      // row stride of the weight slice (transposed stores)
-constexpr int WREG = BK * NC / THREADS;  // 8 prefetch registers per thread
-constexpr int NARROW = 8;        // N <= NARROW -> row-dot / narrow paths
-constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
-// dW kernel
-constexpr int GK = 64;           // k extent of a dW tile (rows ty + 16 i)
-constexpr int GN = 128;          // n extent (cols tx + 16 j)
-constexpr int BR = 16;           // rows per chunk of the split-K loop
+using namespace sst;
+
+// dW kernels
+constexpr int DW_THREADS = 128;  // one warpgroup
+constexpr int GM = 64;           // dW tile rows (layer inputs)
+constexpr int GN = 128;          // dW tile columns (layer outputs)
+constexpr int BR = 32;           // rows of the sum per chunk: 4 k8 steps
+constexpr int A_FLOATS = GM * BR;
+constexpr int B_FLOATS = GN * BR;
+constexpr int RAW_FLOATS = A_FLOATS + B_FLOATS;  // one chunk as read, f32
+constexpr int BUF_FLOATS = 2 * RAW_FLOATS;       // one chunk split into hi and lo
+constexpr int RAW_STAGES = 2;
+// two raw chunks in flight and one split chunk: 96 KB, two blocks an SM
+constexpr int DW_SMEM = (RAW_STAGES * RAW_FLOATS + BUF_FLOATS) * 4;
+constexpr int NARROW = 8;        // dW of a head of at most 8 columns: FP32 cores
 constexpr int NK = 32;           // k extent of a narrow dW tile (one lane each)
 constexpr int kTargetBlocks = 4 * 132;
 constexpr int kMaxSplits = 256;
 constexpr int kMinRowsPerSplit = 256;
-constexpr int kSmemPerSM = 233472;  // shared memory of one SM (228 KB)
-constexpr int kSmemPerBlockReserved = 1024;  // the runtime's share of each resident block
+// the tensor cores sum a split's rows in one accumulator; shorter sums,
+// added in f32 by the reduce kernel, keep dW's error at a few 1e-6
+constexpr int kMaxRowsPerSplit = 2048;
+// a row with a forward pre-activation within this fraction of the row's
+// scale of 0 is recomputed exactly (the rows kernel's fix)
+constexpr float kFlipBand = 1.f / 16384;
 
-static_assert(TY * TM == BM, "thread grid must cover the row block");
-static_assert(BM * 4 == THREADS, "row-dot path uses 4 threads per row");
-static_assert(TY * 4 == GK && TX * TN == GN, "dW tile must match the thread grid");
-
-struct BwdArgs {
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];
-  float* z[kMaxLayers];  // pre-activation of layer l, [n_rows, dims[l+1]], l < n_layers - 1
-  float* d[kMaxLayers];  // delta of layer l, [n_rows, dims[l+1]]
-  int64_t off[kMaxLayers];  // offset of dW_l in a flat result; db_l follows it
-  int items[kMaxLayers + 1];  // prefix count of dW tiles per layer
+struct DwArgs {
+  const float* z[kMaxLayers];
+  const float* d[kMaxLayers];
+  int64_t off[kMaxLayers];    // offset of dW_l in a flat result; db_l follows it
+  int items[kMaxLayers + 1];  // prefix count of tensor-core dW tiles per layer
+  int narrow[kMaxLayers + 1];  // prefix count of narrow dW tiles per layer
   int dims[kMaxLayers + 1];
-  int n_layers;
-  int n_rows;
-  int act;
-  int out_act;
-  int ld;  // row stride (floats) of the shared activation buffers
-  int splits;
-  int rows_per_split;
+  int n_layers, n_rows, act, splits, rows_per_split;
   int64_t total;  // floats in one flat result (every dW_l and db_l)
 };
 
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
-__host__ __device__ inline int cdiv(int v, int m) { return (v + m - 1) / m; }
-
-__device__ __forceinline__ float apply_act(float v, int act) {
-  if (act == 1) return fmaxf(v, 0.f);
-  if (act == 2) {
-    const float t = 100.f * v;
-    return (fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)))) * 0.01f;
-  }
-  return v;
-}
-
-// derivative of the activation from its pre-activation (pallas_mlp.py:74-79)
-__device__ __forceinline__ float act_grad(float pre, int act) {
-  if (act == 1) return pre > 0.f ? 1.f : 0.f;
-  if (act == 2) return 1.f / (1.f + expf(-100.f * pre));
-  return 1.f;
-}
-
-// element (k, n) of the K x N matrix a layer multiplies by: W itself
-// ([K, N]) or, with TRANS, W^T of a W stored [N, K]
-template <bool TRANS>
-__device__ __forceinline__ float wload(const float* __restrict__ W, int K, int N, int k, int n) {
-  return TRANS ? __ldg(W + (size_t)n * K + k) : __ldg(W + (size_t)k * N + n);
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void load_w_slice(float (&r)[WREG], const float* __restrict__ W,
-                                             int K, int N, int k0, int n0, int tid) {
-#pragma unroll
-  for (int s = 0; s < WREG; ++s) {
-    const int i = tid + s * THREADS;
-    // neighbouring threads walk the contiguous axis of W in both layouts
-    const int kk = TRANS ? i % BK : i / NC, nn = TRANS ? i / BK : i % NC;
-    const int k = k0 + kk, n = n0 + nn;
-    r[s] = (k < K && n < N) ? wload<TRANS>(W, K, N, k, n) : 0.f;
-  }
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void store_w_slice(const float (&r)[WREG], float* wt, int tid) {
-#pragma unroll
-  for (int s = 0; s < WREG; ++s) {
-    const int i = tid + s * THREADS;
-    const int kk = TRANS ? i % BK : i / NC, nn = TRANS ? i / BK : i % NC;
-    wt[kk * WLD + nn] = r[s];
-  }
-}
-
-// acc[r, n] = sum_k in[r, k] M(k, n) for the block's BM rows, handed to
-// epi(r, n, acc) once per output. `in` must be zero in columns K ..
-// round_up(K, BK). Ends with a __syncthreads.
-template <bool TRANS, class Epi>
-__device__ __forceinline__ void block_layer(const float* in, int ld, const float* __restrict__ W,
-                                            int K, int N, float* wt, int tid, Epi epi) {
-  if (N <= NARROW) {
-    const int r = tid >> 2, part = tid & 3;
-    float acc[NARROW];
-#pragma unroll
-    for (int j = 0; j < NARROW; ++j) acc[j] = 0.f;
-    for (int k = part; k < K; k += 4) {
-      const float av = in[r * ld + k];
-#pragma unroll
-      for (int j = 0; j < NARROW; ++j)
-        if (j < N) acc[j] = fmaf(av, wload<TRANS>(W, K, N, k, j), acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < NARROW; ++j) {
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 1);
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 2);
-    }
-    if (part == 0) {
-#pragma unroll
-      for (int j = 0; j < NARROW; ++j)
-        if (j < N) epi(r, j, acc[j]);
-    }
-    __syncthreads();
+template <int MAXT>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_mlp_bwd_rows_kernel(const __grid_constant__ ChainArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring ring = setup_ring<MAXT>(smem, a.stages);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == CONSUMER_WARPS) {
+    if (lane == 0) produce(a, ring);
     return;
   }
-  const int tx = tid % TX, ty = tid / TX;
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    float wr[WREG];
-    load_w_slice<TRANS>(wr, W, K, N, 0, n0, tid);
-    store_w_slice<TRANS>(wr, wt, tid);
-    __syncthreads();
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      const bool more = k0 + BK < K;
-      if (more) load_w_slice<TRANS>(wr, W, K, N, k0 + BK, n0, tid);
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = in[(ty + i * TY) * ld + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = wt[kk * WLD + tx + j * TX];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  const int wg = warp >> 2, wwarp = warp & 3;
+  float* act = ring.buf + (size_t)a.stages * ring.stage_floats + (size_t)wg * WG_ROWS * a.ld;
+  const int row0 = blockIdx.x * BM + wg * WG_ROWS;
+  load_rows(a.init, a.init_w, a.init_ones != 0, act, a.ld, row0, a.n_rows, wwarp, lane);
+  const uint32_t act_s = smem_u32(act);
+  const int ld = a.ld, n_rows = a.n_rows, hid = a.act, out = a.out_act;
+  // per tile: Z or D (and dx) to device memory, the next job's input in
+  // place. The accumulator already holds the bias (plan_chain's bias row).
+  // The last layer reads g and the delta chain reads Z, every pair's loads
+  // in flight before the first is used.
+  auto epi = [&](const Job& jb, int T, const float(&acc)[32], int ww, int ln) {
+    const int N = jb.N, col0 = (jb.t0 + T) * TILE_N;
+    float* out_p = jb.out;
+    // pairs (c, c + 1) are 8-byte aligned in device memory
+    const bool even = (N & 1) == 0 && (reinterpret_cast<uintptr_t>(out_p) & 7) == 0;
+    auto store = [&](int row, int c, float v0, float v1) {
+      float* dst = out_p + (size_t)row * N + c;
+      if (even && c + 1 < N) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        if (c < N) dst[0] = v0;
+        if (c + 1 < N) dst[1] = v1;
       }
-      __syncthreads();
-      if (more) {
-        store_w_slice<TRANS>(wr, wt, tid);
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n < N) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i) epi(ty + i * TY, n, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// zero columns N .. round_up(N, BK) of a shared buffer: the K padding of
-// the next layer's input
-__device__ __forceinline__ void zero_pad(float* buf, int ld, int N, int tid) {
-  const int pad = round_up(N, BK) - N;
-  for (int i = tid; i < BM * pad; i += THREADS) buf[(i / pad) * ld + N + i % pad] = 0.f;
-  __syncthreads();
-}
-
-// MIN_BLOCKS = 2 caps registers at 128 so that two blocks share an SM where
-// their shared memory allows it (the proposal nets); the color net's 180 KB
-// leave room for one block, which then keeps the registers it wants rather
-// than spill for an occupancy it cannot have.
-template <int MIN_BLOCKS>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-fused_mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                          float* __restrict__ dx, const BwdArgs a) {
-  extern __shared__ float smem[];
-  const int ld = a.ld;
-  float* in = smem;
-  float* out = smem + BM * ld;
-  float* wt = smem + 2 * BM * ld;  // [BK][WLD]
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  const int rows = min(BM, a.n_rows - row0);
-  const int L = a.n_layers;
-
-  {
-    const int d_in = a.dims[0];
-    const int kp = round_up(d_in, BK);
-    for (int i = tid; i < BM * kp; i += THREADS) {
-      const int r = i / kp, c = i % kp;
-      in[r * ld + c] = (r < rows && c < d_in) ? x[(size_t)(row0 + r) * d_in + c] : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // forward, keeping pre-activations in Z; the last layer's epilogue turns
-  // its pre-activation straight into delta_{L-1}
-  for (int l = 0; l < L; ++l) {
-    const int K = a.dims[l], N = a.dims[l + 1];
-    const float* __restrict__ B = a.b[l];
-    if (l < L - 1) {
-      float* Z = a.z[l];
-      const int act = a.act;
-      block_layer<false>(in, ld, a.w[l], K, N, wt, tid, [&](int r, int n, float acc) {
-        const float v = acc + __ldg(B + n);
-        if (r < rows) Z[(size_t)(row0 + r) * N + n] = v;
-        out[r * ld + n] = apply_act(v, act);
+    };
+    if (jb.kind == kFwdHidden) {
+      with_act(hid, [&](auto A) {
+        tile_pairs(acc, ww, ln, col0, [&](int, int r, int c, float v0, float v1) {
+          if (row0 + r < n_rows) store(row0 + r, c, v0, v1);  // Z
+          const uint32_t dst = act_s + (uint32_t)(r * ld + c) * 4;
+          if (c + 1 < N) {
+            sts2(dst, apply_act(v0, decltype(A)::value), apply_act(v1, decltype(A)::value));
+          } else if (c < N) {
+            sts(dst, apply_act(v0, decltype(A)::value));
+          }
+        });
+      });
+    } else if (jb.kind == kDx) {
+      tile_pairs(acc, ww, ln, col0, [&](int, int r, int c, float v0, float v1) {
+        if (row0 + r < n_rows) store(row0 + r, c, v0, v1);
       });
     } else {
-      float* D = a.d[l];
-      const int out_act = a.out_act;
-      block_layer<false>(in, ld, a.w[l], K, N, wt, tid, [&](int r, int n, float acc) {
-        const float v = acc + __ldg(B + n);
-        const size_t e = (size_t)(row0 + r) * N + n;
-        const float dl = r < rows ? g[e] * act_grad(v, out_act) : 0.f;
-        if (r < rows) D[e] = dl;
-        out[r * ld + n] = dl;
+      // delta: g * out_act'(pre) for the last layer, acc * act'(Z) before it
+      const float* in = jb.in;
+      float2 sv[16];
+      tile_pairs(acc, ww, ln, col0, [&](int p, int r, int c, float, float) {
+        const int row = row0 + r;
+        const float* src = in + (size_t)row * N + c;
+        // Z was written by this kernel: a coherent load, not the read-only path
+        sv[p].x = row < n_rows && c < N ? __ldcg(src) : 0.f;
+        sv[p].y = row < n_rows && c + 1 < N ? __ldcg(src + 1) : 0.f;
+      });
+      const bool last = jb.kind == kFwdLast;
+      with_act(last ? out : hid, [&](auto A) {
+        tile_pairs(acc, ww, ln, col0, [&](int p, int r, int c, float v0, float v1) {
+          const bool valid = row0 + r < n_rows;
+          constexpr int a_ = decltype(A)::value;
+          const float d0 = !valid ? 0.f : last ? sv[p].x * act_grad(v0, a_) : v0 * act_grad(sv[p].x, a_);
+          const float d1 = !valid ? 0.f : last ? sv[p].y * act_grad(v1, a_) : v1 * act_grad(sv[p].y, a_);
+          if (valid) store(row0 + r, c, d0, d1);  // D
+          const uint32_t dst = act_s + (uint32_t)(r * ld + c) * 4;
+          if (c + 1 < N) {
+            sts2(dst, d0, d1);
+          } else if (c < N) {
+            sts(dst, d0);
+          }
+        });
       });
     }
-    zero_pad(out, ld, N, tid);
-    float* t = in;
-    in = out;
-    out = t;
-  }
+  };
+  // The relu's derivative is decided by the sign of a forward layer's
+  // pre-activation. 3xTF32 errs up to a few 1e-6 of a row's scale where the
+  // plain version's f32 errs ~1e-7, so where a pre-activation lies that close
+  // to 0 the two could take the relu's two sides, and that moves the row's
+  // delta by its full value: one such entry of the color net moves dx by
+  // ~3e-4 of its norm. So a row with any pre-activation within kFlipBand of
+  // the row's scale (the largest |value| this thread holds of it) goes on the
+  // fix list, and fused_mlp_bwd_fix_kernel recomputes its chain exactly
+  // before the delta chain reads Z: a few rows in a hundred.
+  uint32_t flagged = 0;  // this warp's listed rows
+  auto fix = [&](const Job& jb, auto& acc, int ww, int ln) {
+    if (!((jb.kind == kFwdHidden && hid == 1) || (jb.kind == kFwdLast && out == 1))) return;
+    constexpr int NT = sizeof(acc) / sizeof(acc[0]);
+    float m[2] = {0.f, 0.f};  // rows g and g + 8
+#pragma unroll
+    for (int T = 0; T < NT; ++T)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (T < jb.nt) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], fabsf(acc[T][i]));
+    bool near[2] = {false, false};
+#pragma unroll
+    for (int T = 0; T < NT; ++T)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const int c = (jb.t0 + T) * TILE_N + 8 * (i >> 2) + 2 * (ln & 3) + (i & 1);
+        near[h] |= T < jb.nt && c < jb.N && fabsf(acc[T][i]) < kFlipBand * m[h];
+      }
+    // lane L holds rows L / 4 and L / 4 + 8 of the warp's 16; a row already
+    // listed by an earlier layer is listed once
+    const uint32_t lo = __ballot_sync(0xffffffffu, near[0]), hi = __ballot_sync(0xffffffffu, near[1]);
+    uint32_t rows = 0;
+    for (int g = 0; g < 8; ++g) {
+      if ((lo >> (4 * g)) & 0xf) rows |= 1u << g;
+      if ((hi >> (4 * g)) & 0xf) rows |= 1u << (g + 8);
+    }
+    const uint32_t fresh = rows & ~flagged;
+    flagged |= rows;
+    const int row = row0 + ww * 16 + ln;
+    if (ln < 16 && ((fresh >> ln) & 1) && row < n_rows) a.fix_list[atomicAdd(a.fix_count, 1)] = row;
+  };
+  consume<MAXT>(a, act, ring, wwarp, lane, fix, epi);
+}
 
-  // delta chain back through W_l^T
-  for (int l = L - 1; l >= 1; --l) {
-    const int K = a.dims[l + 1], N = a.dims[l];
-    const float* Z = a.z[l - 1];
-    float* D = a.d[l - 1];
-    const int act = a.act;
-    block_layer<true>(in, ld, a.w[l], K, N, wt, tid, [&](int r, int n, float acc) {
-      const size_t e = (size_t)(row0 + r) * N + n;
-      const float dl = r < rows ? acc * act_grad(Z[e], act) : 0.f;
-      if (r < rows) D[e] = dl;
-      out[r * ld + n] = dl;
-    });
-    zero_pad(out, ld, N, tid);
-    float* t = in;
-    in = out;
-    out = t;
-  }
+__device__ __forceinline__ void store_split4(float* hi, float* lo, const float (&v)[4]) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(v[i], h[i], l[i]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
 
-  if (dx != nullptr) {
-    const int K = a.dims[1], N = a.dims[0];
-    block_layer<true>(in, ld, a.w[0], K, N, wt, tid, [&](int r, int n, float acc) {
-      if (r < rows) dx[(size_t)(row0 + r) * N + n] = acc;
-    });
+// The exact forward of the listed rows (the rows kernel's fix list), as the
+// plain version computes it: each pre-activation a k-ordered FMA chain from
+// 0, then the bias. A block takes FIX_ROWS rows and keeps their activations
+// in shared memory; thread n computes column n of every row, reading each
+// weight once. It overwrites those rows' Z and, for a relu output, their
+// last delta. The rows' order in the list does not matter: each row is
+// computed the same way wherever it lands.
+constexpr int FIX_ROWS = 32;
+constexpr int FIX_THREADS = 256;
+
+__global__ void __launch_bounds__(FIX_THREADS)
+fused_mlp_bwd_fix_kernel(const __grid_constant__ ChainArgs a, const float* __restrict__ x) {
+  extern __shared__ __align__(16) float hs[];  // [2][FIX_ROWS][ld]: this layer's input, its output
+  const int cnt = *a.fix_count;
+  const int first = blockIdx.x * FIX_ROWS;
+  if (first >= cnt) return;
+  const int rows = min(FIX_ROWS, cnt - first);
+  const int ld = a.ld;
+  float* in = hs;
+  float* outb = hs + FIX_ROWS * ld;
+  const int K0 = a.dims[0];
+  for (int i = threadIdx.x; i < rows * K0; i += FIX_THREADS) {
+    const int r = i / K0, k = i - r * K0;
+    in[r * ld + k] = __ldg(x + (size_t)a.fix_list[first + r] * K0 + k);
+  }
+  __syncthreads();
+  for (int j = 0; j < a.n_jobs; ++j) {
+    const Job jb = a.jobs[j];
+    const bool last = jb.kind == kFwdLast;
+    if (last && a.out_act != 1) break;
+    const int K = jb.K, N = jb.N;
+    for (int n = threadIdx.x; n < N; n += FIX_THREADS) {
+      float z[FIX_ROWS];
+#pragma unroll
+      for (int r = 0; r < FIX_ROWS; ++r) z[r] = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float w = __ldg(jb.w + (size_t)k * N + n);
+#pragma unroll
+        for (int r = 0; r < FIX_ROWS; ++r) z[r] = fmaf(in[r * ld + k], w, z[r]);
+      }
+      const float b = __ldg(jb.bias + n);
+#pragma unroll
+      for (int r = 0; r < FIX_ROWS; ++r) {
+        if (r >= rows) break;
+        const float v = z[r] + b;
+        const size_t e = (size_t)a.fix_list[first + r] * N + n;
+        if (last) {
+          jb.out[e] = __ldg(jb.in + e) * act_grad(v, a.out_act);  // D
+        } else {
+          jb.out[e] = v;  // Z
+          outb[r * ld + n] = apply_act(v, a.act);
+        }
+      }
+    }
+    __syncthreads();
+    float* t = in;
+    in = outb;
+    outb = t;
+    if (last) break;
   }
 }
 
-// A_l(r, k): the input of layer l, x or act(Z_{l-1})
-__device__ __forceinline__ float layer_input(const BwdArgs& a, const float* __restrict__ x, int l,
-                                             int r, int k) {
-  const int K = a.dims[l];
-  return l == 0 ? __ldg(x + (size_t)r * K + k) : apply_act(a.z[l - 1][(size_t)r * K + k], a.act);
+// the dW of a head (at most NARROW columns, NJ of them loaded: 1, 4 or 8):
+// lane = k, warp w takes rows r_beg + w, + 4, ..., U rows a step with every
+// load of the step in flight; a fixed-order sum over the warps
+template <int NJ>
+__global__ void __launch_bounds__(DW_THREADS)
+fused_mlp_bwd_dw_narrow_kernel(const float* __restrict__ x, float* __restrict__ partial,
+                               const __grid_constant__ DwArgs a) {
+  __shared__ float red[DW_THREADS / 32][NK * NJ + NJ];
+  const int tid = threadIdx.x, item = blockIdx.x, split = blockIdx.y;
+  int l = 0;
+  while (item >= a.narrow[l + 1]) ++l;
+  const int K = a.dims[l], N = a.dims[l + 1];
+  const int r_beg = split * a.rows_per_split;
+  const int r_end = min(a.n_rows, r_beg + a.rows_per_split);
+  const float* __restrict__ D = a.d[l];
+  float* P = partial + (size_t)split * a.total + a.off[l];
+  float* Pb = P + (size_t)K * N;
+  const int lane = tid & 31, w = tid >> 5;
+  const int k = (item - a.narrow[l]) * NK + lane;
+  const bool first = item == a.narrow[l];
+  float acc[NJ], bacc = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
+  constexpr int U = NJ == 1 ? 16 : 8, STRIDE = DW_THREADS / 32;
+  // the layer's input: x, or Z_{l-1} to which the activation is applied
+  // after the loads, so none of them waits for another
+  const float* __restrict__ A = l == 0 ? x : a.z[l - 1];
+  with_act(l == 0 ? 0 : a.act, [&](auto AC) {
+    for (int r = r_beg + w; r < r_end; r += U * STRIDE) {
+      float av[U], dv[U][NJ];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int rr = r + u * STRIDE;
+        const bool ok = rr < r_end;
+        av[u] = ok && k < K ? __ldg(A + (size_t)rr * K + k) : 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dv[u][j] = ok && j < N ? __ldg(D + (size_t)rr * N + j) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float in = apply_act(av[u], decltype(AC)::value);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[j] = fmaf(in, dv[u][j], acc[j]);
+          if (first && j == lane) bacc += dv[u][j];
+        }
+      }
+    }
+  });
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) red[w][lane * NJ + j] = acc[j];
+  if (lane < NJ) red[w][NK * NJ + lane] = bacc;
+  __syncthreads();
+  for (int i = tid; i < NK * NJ + NJ; i += DW_THREADS) {
+    float s = 0.f;
+    for (int v = 0; v < DW_THREADS / 32; ++v) s += red[v][i];  // fixed order
+    if (i < NK * NJ) {
+      const int kk = (item - a.narrow[l]) * NK + i / NJ, j = i % NJ;
+      if (kk < K && j < N) P[(size_t)kk * N + j] = s;
+    } else if (first && i - NK * NJ < N) {
+      Pb[i - NK * NJ] = s;
+    }
+  }
 }
 
-// two blocks an SM: the tile loop, capped at 128 registers, spills a few
-// bytes and gains the second block's latency hiding
-__global__ void __launch_bounds__(THREADS, 2)
-fused_mlp_bwd_dw_kernel(const float* __restrict__ x, float* __restrict__ partial, const BwdArgs a) {
-  __shared__ float As[BR][GK];
-  __shared__ float Ds[BR][GN];
-  __shared__ float red[THREADS / 32][NK * NARROW + NARROW];
+// rows r0 .. r0 + BR of a row-major [n, width] source, columns c0 .. c0 + W,
+// into dst [BR][W] by cp.async, 0 outside the source; 16-byte copies where
+// the rows allow them
+template <int W>
+__device__ __forceinline__ void load_raw(uint32_t dst, const float* __restrict__ src, int width,
+                                         int c0, int r0, int r_end, int tid) {
+  if ((width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int v = tid; v < BR * W / 4; v += DW_THREADS) {
+      const int r = v / (W / 4), c = (v % (W / 4)) * 4;
+      const int gr = r0 + r, gc = c0 + c;
+      const int left = (width - gc) * 4;
+      const int bytes = gr < r_end && left > 0 ? (left < 16 ? left : 16) : 0;
+      cp_async16(dst + (uint32_t)(r * W + c) * 4, bytes ? src + (size_t)gr * width + gc : src, bytes);
+    }
+  } else {
+    for (int e = tid; e < BR * W; e += DW_THREADS) {
+      const int r = e / W, c = e % W;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < r_end && gc < width;
+      cp_async4(dst + (uint32_t)(r * W + c) * 4, ok ? src + (size_t)gr * width + gc : src, ok);
+    }
+  }
+}
+
+// dW on the tensor cores: a 64 x 128 tile of dW_l = a_l^T D_l over the
+// split's rows, 32 rows a chunk. Each chunk of a_l (x, or Z_{l-1} to which
+// the activation is applied here) and of D_l arrives by cp.async two chunks
+// ahead, is split into tf32 hi and lo and stored K-major (rows of the sum
+// contiguous), and takes 3 x 4 wgmma m64n128k8.
+__global__ void __launch_bounds__(DW_THREADS, 2)
+fused_mlp_bwd_dw_kernel(const float* __restrict__ x, float* __restrict__ partial,
+                        const __grid_constant__ DwArgs a) {
+  extern __shared__ __align__(128) float sm[];
   const int tid = threadIdx.x;
   const int item = blockIdx.x, split = blockIdx.y;
   int l = 0;
@@ -332,111 +392,89 @@ fused_mlp_bwd_dw_kernel(const float* __restrict__ x, float* __restrict__ partial
   const int r_beg = split * a.rows_per_split;
   const int r_end = min(a.n_rows, r_beg + a.rows_per_split);
   const float* __restrict__ D = a.d[l];
+  const float* __restrict__ A = l == 0 ? x : a.z[l - 1];
+  const int act = l == 0 ? 0 : a.act;
   float* P = partial + (size_t)split * a.total + a.off[l];
   float* Pb = P + (size_t)K * N;
-
-  if (N <= NARROW) {
-    // narrow head: lane = k, warp w takes rows r_beg + w, + 8, ...
-    const int lane = tid & 31, w = tid >> 5;
-    const int k = (item - a.items[l]) * NK + lane;
-    const bool first = item == a.items[l];
-    float acc[NARROW], bacc = 0.f;
-#pragma unroll
-    for (int j = 0; j < NARROW; ++j) acc[j] = 0.f;
-    for (int r = r_beg + w; r < r_end; r += THREADS / 32) {
-      const float av = k < K ? layer_input(a, x, l, r, k) : 0.f;
-#pragma unroll
-      for (int j = 0; j < NARROW; ++j)
-        if (j < N) acc[j] = fmaf(av, __ldg(D + (size_t)r * N + j), acc[j]);
-      if (first && lane < N) bacc += __ldg(D + (size_t)r * N + lane);
-    }
-#pragma unroll
-    for (int j = 0; j < NARROW; ++j) red[w][lane * NARROW + j] = acc[j];
-    if (lane < NARROW) red[w][NK * NARROW + lane] = bacc;
-    __syncthreads();
-    for (int i = tid; i < NK * NARROW + NARROW; i += THREADS) {
-      float s = 0.f;
-      for (int v = 0; v < THREADS / 32; ++v) s += red[v][i];  // fixed order
-      if (i < NK * NARROW) {
-        const int kk = (item - a.items[l]) * NK + i / NARROW, j = i % NARROW;
-        if (kk < K && j < N) P[(size_t)kk * N + j] = s;
-      } else if (first && i - NK * NARROW < N) {
-        Pb[i - NK * NARROW] = s;
-      }
-    }
-    return;
-  }
-
   const int nnt = cdiv(N, GN);
-  const int kt = (item - a.items[l]) / nnt, nt = (item - a.items[l]) % nnt;
-  const int k0 = kt * GK, n0 = nt * GN;
-  const int tx = tid % TX, ty = tid / TX;
-  float acc[4][TN];
+  const int mt = (item - a.items[l]) / nnt, ntile = (item - a.items[l]) % nnt;
+  const int m0 = mt * GM, n0 = ntile * GN;
+  float* ahi = sm + RAW_STAGES * RAW_FLOATS;
+  float* alo = ahi + A_FLOATS;
+  float* bhi = alo + A_FLOATS;
+  float* blo = bhi + B_FLOATS;
+  const uint32_t raw0 = smem_u32(sm);
+  auto fetch = [&](int c) {  // chunk c into raw stage c % RAW_STAGES
+    const int r0 = r_beg + c * BR;
+    if (r0 < r_end) {
+      const uint32_t st = raw0 + (uint32_t)((c % RAW_STAGES) * RAW_FLOATS) * 4;
+      load_raw<GM>(st, A, K, m0, r0, r_end, tid);
+      load_raw<GN>(st + A_FLOATS * 4, D, N, n0, r0, r_end, tid);
+    }
+    cp_async_commit();
+  };
+  const int chunks = cdiv(r_end - r_beg, BR);
+  for (int c = 0; c < RAW_STAGES; ++c) fetch(c);
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   float bacc = 0.f;
-  constexpr int AREG = BR * GK / THREADS, DREG = BR * GN / THREADS;
-  float ar[AREG], dr[DREG];
-  auto load = [&](int r0) {
+  // the conversion's thread map: A quads q = tid / 64 + 2 i (4 rows each) of
+  // input m0 + tid % 64; D quads q = 0..7 of output n0 + tid
+  const int fa = tid & 63, qa = tid >> 6;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<RAW_STAGES - 1>();  // chunk c has landed (this thread's copies)
+    __syncthreads();                  // everyone's, and chunk c - 1's products are done
+    const float* raw = sm + (c % RAW_STAGES) * RAW_FLOATS;
+    // transposed stores, K-major: element (m, r) of a k8 step at
+    // ((m / 8) * 2 + (r % 8) / 4) * 32 + (m % 8) * 4 + r % 4
+    with_act(act, [&](auto AC) {
 #pragma unroll
-    for (int s = 0; s < AREG; ++s) {
-      const int i = tid + s * THREADS, r = r0 + i / GK, k = k0 + i % GK;
-      ar[s] = (r < r_end && k < K) ? layer_input(a, x, l, r, k) : 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const int q = qa + 2 * i;
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = apply_act(raw[(4 * q + j) * GM + fa], decltype(AC)::value);
+        const int o = ((q >> 1) * (GM / 8) + (fa >> 3)) * 64 + (q & 1) * 32 + (fa & 7) * 4;
+        store_split4(ahi + o, alo + o, v);
+      }
+    });
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = raw[A_FLOATS + (4 * q + j) * GN + tid];
+      const int o = ((q >> 1) * (GN / 8) + (tid >> 3)) * 64 + (q & 1) * 32 + (tid & 7) * 4;
+      store_split4(bhi + o, blo + o, v);
+      if (mt == 0) bacc += (v[0] + v[1]) + (v[2] + v[3]);
     }
+    fence_proxy_async();
+    __syncthreads();  // the split chunk is complete and its raw stage is free
+    fetch(c + RAW_STAGES);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < DREG; ++s) {
-      const int i = tid + s * THREADS, r = r0 + i / GN, n = n0 + i % GN;
-      dr[s] = (r < r_end && n < N) ? __ldg(D + (size_t)r * N + n) : 0.f;
+    for (int ks = 0; ks < BR / 8; ++ks) {
+      const uint64_t dah = make_desc(ahi + ks * GM * 8, kLBO, kSBO);
+      const uint64_t dal = make_desc(alo + ks * GM * 8, kLBO, kSBO);
+      const uint64_t dbh = make_desc(bhi + ks * GN * 8, kLBO, kSBO);
+      const uint64_t dbl = make_desc(blo + ks * GN * 8, kLBO, kSBO);
+      wgmma_ss_n128(acc, dal, dbh);
+      wgmma_ss_n128(acc, dah, dbl);
+      wgmma_ss_n128(acc, dah, dbh);
     }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int s = 0; s < AREG; ++s) {
-      const int i = tid + s * THREADS;
-      As[i / GK][i % GK] = ar[s];
-    }
-#pragma unroll
-    for (int s = 0; s < DREG; ++s) {
-      const int i = tid + s * THREADS;
-      Ds[i / GN][i % GN] = dr[s];
-    }
-  };
-  load(r_beg);
-  for (int r0 = r_beg; r0 < r_end; r0 += BR) {
-    store();
-    __syncthreads();
-    if (r0 + BR < r_end) load(r0 + BR);  // in flight during the FMAs
-#pragma unroll
-    for (int rr = 0; rr < BR; ++rr) {
-      float av[4], dv[TN];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[rr][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) dv[j] = Ds[rr][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
-    }
-    if (kt == 0 && tid < GN) {
-#pragma unroll
-      for (int rr = 0; rr < BR; ++rr) bacc += Ds[rr][tid];
-    }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty + i * TY;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n < N) P[(size_t)k * N + n] = acc[i][j];
-    }
+  for (int i = 0; i < 64; ++i) {
+    const int k = m0 + warp * 16 + gq + 8 * ((i >> 1) & 1);
+    const int n = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    if (k < K && n < N) P[(size_t)k * N + n] = acc[i];
   }
-  if (kt == 0 && tid < GN && n0 + tid < N) Pb[n0 + tid] = bacc;
+  if (mt == 0 && n0 + tid < N) Pb[n0 + tid] = bacc;
 }
 
 __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial,
@@ -449,30 +487,28 @@ __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-int rows_smem_bytes(const int* dims, int n_layers, int* ld_out) {
-  int kmax = 0;
-  for (int l = 0; l <= n_layers; ++l) kmax = dims[l] > kmax ? dims[l] : kmax;
-  const int ld = round_up(kmax, BK) + 1;
-  if (ld_out) *ld_out = ld;
-  return (2 * BM * ld + BK * WLD) * (int)sizeof(float);
-}
+// floats of one Z or D region, rounded up so every region starts 16-byte aligned
+inline int64_t region(int n_rows, int width) { return ((int64_t)n_rows * width + 3) / 4 * 4; }
 
-// Fills everything but the pointers; returns the floats of scratch (Z and D).
-int64_t plan(const int* dims, int n_layers, int n_rows, BwdArgs* a) {
+// Fills everything of the dW launch but the pointers; returns the floats of
+// scratch (Z and D).
+int64_t plan_dw(const int* dims, int n_layers, int n_rows, DwArgs* a) {
   for (int l = 0; l <= n_layers; ++l) a->dims[l] = dims[l];
   a->n_layers = n_layers;
   a->n_rows = n_rows;
   int64_t total = 0;
-  a->items[0] = 0;
+  a->items[0] = a->narrow[0] = 0;
   for (int l = 0; l < n_layers; ++l) {
     const int K = dims[l], N = dims[l + 1];
     a->off[l] = total;
     total += (int64_t)K * N + N;
-    const int tiles = N <= NARROW ? cdiv(K, NK) : cdiv(K, GK) * cdiv(N, GN);
-    a->items[l + 1] = a->items[l] + tiles;
+    a->items[l + 1] = a->items[l] + (N <= NARROW ? 0 : cdiv(K, GM) * cdiv(N, GN));
+    a->narrow[l + 1] = a->narrow[l] + (N <= NARROW ? cdiv(K, NK) : 0);
   }
   a->total = total;
-  int splits = cdiv(kTargetBlocks, a->items[n_layers]);
+  int splits = cdiv(kTargetBlocks, a->items[n_layers] + a->narrow[n_layers]);
+  const int by_len = cdiv(n_rows, kMaxRowsPerSplit);
+  splits = splits > by_len ? splits : by_len;
   splits = splits < kMaxSplits ? splits : kMaxSplits;
   const int by_rows = n_rows / kMinRowsPerSplit;
   splits = splits < by_rows ? splits : by_rows;
@@ -480,83 +516,168 @@ int64_t plan(const int* dims, int n_layers, int n_rows, BwdArgs* a) {
   a->rows_per_split = round_up(cdiv(n_rows, splits), BR);
   a->splits = cdiv(n_rows, a->rows_per_split);
   int64_t scratch = 0;
-  for (int l = 0; l < n_layers; ++l) scratch += (int64_t)n_rows * dims[l + 1] * (l < n_layers - 1 ? 2 : 1);
-  rows_smem_bytes(dims, n_layers, &a->ld);
-  return scratch;
+  for (int l = 0; l < n_layers; ++l)
+    scratch += region(n_rows, dims[l + 1]) * (l < n_layers - 1 ? 2 : 1);
+  return scratch + region(n_rows, 1) + 4;  // the fix list and its count (ints)
+}
+
+template <int MAXT>
+cudaError_t launch_rows(const ChainArgs& a, int smem, cudaStream_t st) {
+  auto kern = fused_mlp_bwd_rows_kernel<MAXT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<cdiv(a.n_rows, BM), THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rows(int maxt, const ChainArgs& a, int smem, cudaStream_t st) {
+  return maxt == 2 ? launch_rows<2>(a, smem, st)
+       : maxt == 4 ? launch_rows<4>(a, smem, st)
+                   : launch_rows<5>(a, smem, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-int sst_fused_mlp_bwd_max_layers() { return kMaxLayers; }
-
 int sst_fused_mlp_bwd_smem_limit() { return kSmemLimit; }
 
 // out[0] = partial splits, out[1] = floats of the flat result (dW_0, db_0,
-// dW_1, db_1, ...), out[2] = floats of scratch, out[3] = shared memory of
-// the rows kernel in bytes.
-void sst_fused_mlp_bwd_workspace(const void* dims, int n_layers, int n_rows, int64_t* out) {
-  BwdArgs a;
-  const int64_t scratch = plan(static_cast<const int*>(dims), n_layers, n_rows, &a);
+// dW_1, db_1, ...), out[2] = floats of the Z / D scratch, out[3] = shared
+// memory of the rows kernel in bytes, out[4] = floats of the split scratch,
+// out[5] = status (as sst_fused_mlp_fwd_workspace's).
+void sst_fused_mlp_bwd_workspace(const void* dims, int n_layers, int n_rows, int need_dx,
+                                 int64_t* out) {
+  const int* d = static_cast<const int*>(dims);
+  const ChainPlan p = plan_chain(d, n_layers, true, need_dx != 0);
+  out[5] = p.status;
+  if (p.status != 0) return;
+  DwArgs a;
+  out[2] = plan_dw(d, n_layers, n_rows, &a);
   out[0] = a.splits;
   out[1] = a.total;
-  out[2] = scratch;
-  out[3] = rows_smem_bytes(static_cast<const int*>(dims), n_layers, nullptr);
+  out[3] = p.smem;
+  out[4] = p.split_floats;
 }
 
-// x [n_rows, dims[0]], g [n_rows, dims[n_layers]], dx (may be null) like x;
-// w_ptrs / b_ptrs: host arrays of device pointers to W_l and b_l; scratch,
-// partial and result are device buffers of the sizes the workspace call
-// gives (scratch and partial floats, result `total` floats). All f32 and
-// contiguous; dims is a host int32 array. Enqueues three kernels on
-// `stream` and returns the first CUDA error.
+// x [n_rows, dims[0]], g [n_rows, dims[n_layers]], dx (null when not
+// needed) like x; w_ptrs / b_ptrs: host arrays of device pointers to W_l and
+// b_l; split, scratch, partial and result are device buffers of the sizes
+// the workspace call gives (split, scratch and splits * total floats, and
+// `total` floats). All f32 and contiguous; dims is a host int32 array.
+// Enqueues the kernels on `stream` and returns the first CUDA error.
 int sst_fused_mlp_bwd(const void* x, const void* g, void* dx, const void* w_ptrs,
-                      const void* b_ptrs, void* scratch, void* partial, void* result,
+                      const void* b_ptrs, void* split, void* scratch, void* partial, void* result,
                       const void* dims, int n_layers, int n_rows, int act, int out_act,
                       void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || n_rows < 1) return (int)cudaErrorInvalidValue;
+  if (n_rows < 1) return (int)cudaErrorInvalidValue;
   const int* d = static_cast<const int*>(dims);
-  BwdArgs a;
-  plan(d, n_layers, n_rows, &a);
-  const uint64_t* wp = static_cast<const uint64_t*>(w_ptrs);
-  const uint64_t* bp = static_cast<const uint64_t*>(b_ptrs);
+  ChainPlan p = plan_chain(d, n_layers, true, dx != nullptr);
+  if (p.status != 0 || p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  bind_chain(p, w_ptrs, b_ptrs, static_cast<float*>(split));
+  DwArgs da;
+  plan_dw(d, n_layers, n_rows, &da);
+  // the scratch: Z_l for every layer but the last, then D_l for every layer
+  float* z[kMaxLayers] = {};
+  float* dl[kMaxLayers] = {};
   float* s = static_cast<float*>(scratch);
+  for (int l = 0; l < n_layers - 1; ++l) {
+    z[l] = s;
+    s += region(n_rows, d[l + 1]);
+  }
   for (int l = 0; l < n_layers; ++l) {
-    a.w[l] = reinterpret_cast<const float*>(wp[l]);
-    a.b[l] = reinterpret_cast<const float*>(bp[l]);
-    if (l < n_layers - 1) {
-      a.z[l] = s;
-      s += (size_t)n_rows * d[l + 1];
+    dl[l] = s;
+    s += region(n_rows, d[l + 1]);
+  }
+  int* fix_list = reinterpret_cast<int*>(s);
+  int* fix_count = reinterpret_cast<int*>(s + region(n_rows, 1));
+  for (int l = 0; l < n_layers; ++l) {
+    da.z[l] = z[l];
+    da.d[l] = dl[l];
+  }
+  for (int j = 0; j < p.args.n_jobs; ++j) {
+    Job& jb = p.args.jobs[j];
+    const int l = jb.layer;
+    jb.w = reinterpret_cast<const float*>(static_cast<const uint64_t*>(w_ptrs)[l]);
+    jb.bias = reinterpret_cast<const float*>(static_cast<const uint64_t*>(b_ptrs)[l]);
+    if (jb.kind == kFwdHidden) {
+      jb.out = z[l];
+    } else if (jb.kind == kFwdLast) {
+      jb.out = dl[l];
+      jb.in = static_cast<const float*>(g);
+    } else if (jb.kind == kDelta) {
+      jb.out = dl[l - 1];
+      jb.in = z[l - 1];
     } else {
-      a.z[l] = nullptr;
+      jb.out = static_cast<float*>(dx);
     }
   }
-  for (int l = 0; l < n_layers; ++l) {
-    a.d[l] = s;
-    s += (size_t)n_rows * d[l + 1];
-  }
-  a.act = act;
-  a.out_act = out_act;
-  const int smem = rows_smem_bytes(d, n_layers, nullptr);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  p.args.n_rows = n_rows;
+  p.args.act = act;
+  p.args.out_act = out_act;
+  p.args.fix_list = fix_list;
+  p.args.fix_count = fix_count;
+  da.act = act;
+  const float* xp = static_cast<const float*>(x);
+  // the rows pass in three launches: the forward rebuilt (it lists the rows
+  // to fix), the listed rows' exact forward, the delta chain from the last
+  // layer's delta
+  int n_fwd = 0;
+  while (n_fwd < p.args.n_jobs &&
+         (p.args.jobs[n_fwd].kind == kFwdHidden || p.args.jobs[n_fwd].kind == kFwdLast))
+    ++n_fwd;
+  ChainArgs fwd = p.args, back = p.args;
+  fwd.n_jobs = n_fwd;
+  fwd.init = xp;
+  fwd.init_w = d[0];
+  fwd.init_ones = 1;
+  back.n_jobs = p.args.n_jobs - n_fwd;
+  for (int j = 0; j < back.n_jobs; ++j) back.jobs[j] = p.args.jobs[n_fwd + j];
+  back.init = dl[n_layers - 1];
+  back.init_w = d[n_layers];
+  back.init_ones = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool two = 2 * (smem + kSmemPerBlockReserved) <= kSmemPerSM;
-  auto rows_kernel = two ? fused_mlp_bwd_rows_kernel<2> : fused_mlp_bwd_rows_kernel<1>;
-  cudaError_t err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
+  cudaError_t err = cudaMemsetAsync(fix_count, 0, sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  rows_kernel<<<cdiv(n_rows, BM), THREADS, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<float*>(dx), a);
+  err = launch_split(p, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_rows(p.maxt, fwd, p.smem, st);
+  if (err != cudaSuccess) return (int)err;
+  const int fix_smem = 2 * FIX_ROWS * p.args.ld * (int)sizeof(float);
+  err = cudaFuncSetAttribute(fused_mlp_bwd_fix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             fix_smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_mlp_bwd_fix_kernel<<<cdiv(n_rows, FIX_ROWS), FIX_THREADS, fix_smem, st>>>(fwd, xp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fused_mlp_bwd_dw_kernel<<<dim3(a.items[n_layers], a.splits), THREADS, 0, st>>>(
-      static_cast<const float*>(x), static_cast<float*>(partial), a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((a.total + THREADS - 1) / THREADS);
-  fused_mlp_bwd_reduce_kernel<<<blocks < 1024 ? blocks : 1024, THREADS, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(result), a.splits, a.total);
+  if (back.n_jobs > 0) {
+    err = launch_rows(p.maxt, back, p.smem, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (da.items[n_layers] > 0) {
+    err = cudaFuncSetAttribute(fused_mlp_bwd_dw_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    fused_mlp_bwd_dw_kernel<<<dim3(da.items[n_layers], da.splits), DW_THREADS, DW_SMEM, st>>>(
+        xp, static_cast<float*>(partial), da);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (da.narrow[n_layers] > 0) {
+    int widest = 1;  // the widest head that takes the narrow path
+    for (int l = 0; l < n_layers; ++l)
+      if (d[l + 1] <= NARROW && d[l + 1] > widest) widest = d[l + 1];
+    auto narrow = widest == 1 ? fused_mlp_bwd_dw_narrow_kernel<1>
+                : widest <= 4 ? fused_mlp_bwd_dw_narrow_kernel<4>
+                              : fused_mlp_bwd_dw_narrow_kernel<NARROW>;
+    narrow<<<dim3(da.narrow[n_layers], da.splits), DW_THREADS, 0, st>>>(
+        xp, static_cast<float*>(partial), da);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (int)((da.total + 255) / 256);
+  fused_mlp_bwd_reduce_kernel<<<blocks < 1024 ? blocks : 1024, 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(result), da.splits, da.total);
   return (int)cudaGetLastError();
 }
 

@@ -12,15 +12,34 @@ with ``act`` in relu | softplus100 | none and weights in the JAX layout
 ``W_i [d_i, d_{i+1}]``; the backward gives ``dx``, every ``dW_i`` and every
 ``db_i`` from the cotangent of ``y``.
 
-On this card both are bound by arithmetic, not bytes: at the slice's shapes
-they do 140..900 FLOP per byte of HBM traffic, far above the FP32 ridge of
-an H100 (67 TFLOP/s over 3.35 TB/s). The forward kernel
-(``csrc/fused_mlp_fwd.cu``) keeps each 64-row block's activations in shared
-memory across the whole chain and streams the weights through shared memory
-in K slices; the backward (``csrc/fused_mlp_bwd.cu``) recomputes the forward
-the same way, runs the delta chain back through ``W^T``, and sums dW / db
-over the rows as a split-K product reduced in a fixed order. Both accumulate
-on the FP32 cores, matching the TPU kernel's Precision.HIGHEST.
+Design. Both kernels run on Hopper's tensor cores: ``wgmma`` m64nNk8 in
+tf32, with every product taken as three tf32 passes (``lo*hi + hi*lo +
+hi*hi`` of each operand split into tf32 ``hi`` and ``lo``, 3xTF32), which
+keeps the TPU kernel's Precision.HIGHEST: f32 accuracy. Per call, a
+pre-pass kernel splits the weights once into a scratch in the tensor cores'
+shared-memory layout; a block of 128 rows then keeps its activations in
+shared memory across the whole chain while a producer warp streams the
+weight slices in with bulk copies (the TMA unit) through a ring of 2-8
+stages under mbarriers (``csrc/fused_mlp_chain.cuh``). The forward
+(``csrc/fused_mlp_fwd.cu``) is that chain; the backward
+(``csrc/fused_mlp_bwd.cu``) rebuilds the forward the same way, runs the
+delta chain back through ``W^T``, and sums dW / db over the rows as a
+split-K product on the tensor cores, reduced in a fixed order, so its
+results repeat bit for bit. Where a rebuilt pre-activation lies too close
+to 0 for 3xTF32 to be sure which side of the relu the f32 reference takes,
+its row's forward is recomputed exactly in f32 on the CUDA cores first.
+The dW of a head (at most 8 columns) stays on the FP32 cores.
+
+Bound. Both are bound by arithmetic: at the slice's shapes they do
+140..900 FLOP per byte of HBM traffic. At f32 accuracy the least time is
+``3 * FLOP / 495 TFLOP/s`` (three dense tf32 passes on an H100), the
+FP32-core bound ``FLOP / 67 TFLOP/s`` is 2.5x that; the backward also
+writes and reads back its Z / D scratch.
+
+Limits: at most 16 layers; hidden widths up to 320 (five 64-column tiles
+of accumulators per warpgroup); and the widest layer's activations for 128
+rows plus two ring stages must fit the 227 KB of shared memory a block may
+use (input widths up to about 430). The wrapper raises on anything else.
 
 ``fused_mlp`` takes the plain version for tensors on the CPU, launches the
 kernels for CUDA tensors, and raises on anything else. Under autograd it is
@@ -207,6 +226,19 @@ def _vp(a) -> ctypes.c_void_p:
     return ctypes.cast(a, ctypes.c_void_p)
 
 
+def _refuse(what: str, lib, dims, status: int, smem: int, limit_fn) -> None:
+    """Raise on what the kernels' tiling cannot take (the workspace status)."""
+    if status == 1:
+        raise ValueError(f"{what}: {len(dims) - 1} layers exceed the kernel's limit of "
+                         f"{lib.sst_fused_mlp_fwd_max_layers()}")
+    if status == 2:
+        raise ValueError(f"{what}: widths {list(dims)} have a hidden width above the kernel's "
+                         f"limit of {lib.sst_fused_mlp_fwd_max_width()}")
+    if smem > limit_fn():
+        raise ValueError(f"{what}: widths {list(dims)} need {smem} B of shared memory per block, "
+                         f"above the card's {limit_fn()} B")
+
+
 def _launch(x, weights, biases, activation, out_activation) -> torch.Tensor:
     """The forward kernel on 2-D ``x [n, d_in]``."""
     _check_cuda([("x", x)] + [(f"W{i}", w) for i, w in enumerate(weights)]
@@ -220,20 +252,17 @@ def _launch(x, weights, biases, activation, out_activation) -> torch.Tensor:
     if n == 0:
         return y
     n_layers = len(weights)
-    if n_layers > lib.sst_fused_mlp_fwd_max_layers():
-        raise ValueError(f"fused_mlp: {n_layers} layers exceed the kernel's limit")
     dims, w_ptrs, b_ptrs = _layer_args(weights, biases, x.shape[1])
-    smem = lib.sst_fused_mlp_fwd_smem_bytes(_vp(dims), n_layers)
-    if smem > lib.sst_fused_mlp_fwd_smem_limit():
-        raise ValueError(
-            f"fused_mlp: widths {list(dims)} need {smem} B of shared memory per block, "
-            f"above the card's {lib.sst_fused_mlp_fwd_smem_limit()} B"
-        )
+    ws = (ctypes.c_int64 * 3)()
+    lib.sst_fused_mlp_fwd_workspace(_vp(dims), n_layers, _vp(ws))
+    split_n, smem, status = (int(v) for v in ws)
+    _refuse("fused_mlp", lib, dims, status, smem, lib.sst_fused_mlp_fwd_smem_limit)
+    split = torch.empty(max(split_n, 1), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sst_fused_mlp_fwd(
-            x.data_ptr(), y.data_ptr(), _vp(w_ptrs), _vp(b_ptrs), _vp(dims), n_layers, n,
-            ACTIVATIONS[activation], ACTIVATIONS[out_activation], stream,
+            x.data_ptr(), y.data_ptr(), _vp(w_ptrs), _vp(b_ptrs), split.data_ptr(), _vp(dims),
+            n_layers, n, ACTIVATIONS[activation], ACTIVATIONS[out_activation], stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: cudaError {err}")
@@ -263,37 +292,32 @@ def fused_mlp_bwd(
 
     lib = load_library()
     n, n_layers = x.shape[0], len(weights)
-    if n_layers > lib.sst_fused_mlp_bwd_max_layers():
-        raise ValueError(f"fused_mlp_bwd: {n_layers} layers exceed the kernel's limit")
     dims, w_ptrs, b_ptrs = _layer_args(weights, biases, x.shape[1])
-    sizes = (ctypes.c_int64 * 4)()
-    lib.sst_fused_mlp_bwd_workspace(_vp(dims), n_layers, max(n, 1), _vp(sizes))
-    splits, total, scratch_n, smem = (int(v) for v in sizes)
-    if smem > lib.sst_fused_mlp_bwd_smem_limit():
-        raise ValueError(
-            f"fused_mlp_bwd: widths {list(dims)} need {smem} B of shared memory per block, "
-            f"above the card's {lib.sst_fused_mlp_bwd_smem_limit()} B"
-        )
+    ws = (ctypes.c_int64 * 6)()
+    lib.sst_fused_mlp_bwd_workspace(_vp(dims), n_layers, max(n, 1), int(need_dx), _vp(ws))
+    splits, total, scratch_n, smem, split_n, status = (int(v) for v in ws)
+    _refuse("fused_mlp_bwd", lib, dims, status, smem, lib.sst_fused_mlp_bwd_smem_limit)
     dev = x.device
     flat = torch.empty(total, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
     if n == 0:
         flat.zero_()
     else:
+        split = torch.empty(max(split_n, 1), dtype=torch.float32, device=dev)
         scratch = torch.empty(scratch_n, dtype=torch.float32, device=dev)
         partial = torch.empty(splits * total, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.sst_fused_mlp_bwd(
                 x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
-                _vp(w_ptrs), _vp(b_ptrs), scratch.data_ptr(), partial.data_ptr(),
-                flat.data_ptr(), _vp(dims), n_layers, n,
+                _vp(w_ptrs), _vp(b_ptrs), split.data_ptr(), scratch.data_ptr(),
+                partial.data_ptr(), flat.data_ptr(), _vp(dims), n_layers, n,
                 ACTIVATIONS[activation], ACTIVATIONS[out_activation], stream,
             )
         if err != 0:
             raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError {err}")
         LAUNCHES["fused_mlp_bwd"] += 1
-    # flat holds dW_0, db_0, dW_1, db_1, ... (csrc/fused_mlp_bwd.cu, plan())
+    # flat holds dW_0, db_0, dW_1, db_1, ... (csrc/fused_mlp_bwd.cu, plan_dw())
     dws, dbs, off = [], [], 0
     for w in weights:
         k, m = w.shape

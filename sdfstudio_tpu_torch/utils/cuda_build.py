@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels: ``nvcc`` into a plain-C shared
 library, loaded with ``ctypes``.
 
-Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
-all started together, and linked into ``_build/libsst_kernels.so``. The
-library is rebuilt when the hash of the sources or flags changes, and built
-at first use, never at import. No PyTorch header is compiled, so a build
-takes seconds rather than the minutes ``torch.utils.cpp_extension`` needs.
+Every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers they include) is
+compiled for ``sm_90a`` by its own ``nvcc`` process, all started together,
+and linked into ``_build/libsst_kernels.so``. The library is rebuilt when
+the hash of the sources or flags changes, and built at first use, never at
+import. No PyTorch header is compiled: a build takes about a minute, most
+of it ptxas on the fused-MLP kernels' instantiations, where
+``torch.utils.cpp_extension`` spends minutes on PyTorch's headers alone.
 """
 from __future__ import annotations
 
@@ -96,22 +98,18 @@ def build(force: bool = False, verbose: bool = False) -> Tuple[Path, str]:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sst_fused_mlp_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.sst_fused_mlp_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.sst_fused_mlp_fwd.restype = ci
-    lib.sst_fused_mlp_fwd_smem_bytes.argtypes = [vp, ci]
-    lib.sst_fused_mlp_fwd_smem_bytes.restype = ci
-    lib.sst_fused_mlp_fwd_smem_limit.argtypes = []
-    lib.sst_fused_mlp_fwd_smem_limit.restype = ci
-    lib.sst_fused_mlp_fwd_max_layers.argtypes = []
-    lib.sst_fused_mlp_fwd_max_layers.restype = ci
-    lib.sst_fused_mlp_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.sst_fused_mlp_fwd_workspace.argtypes = [vp, ci, vp]
+    lib.sst_fused_mlp_fwd_workspace.restype = None
+    for name in ("sst_fused_mlp_fwd_smem_limit", "sst_fused_mlp_fwd_max_layers",
+                 "sst_fused_mlp_fwd_max_width", "sst_fused_mlp_bwd_smem_limit"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
+    lib.sst_fused_mlp_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.sst_fused_mlp_bwd.restype = ci
-    lib.sst_fused_mlp_bwd_workspace.argtypes = [vp, ci, ci, vp]
+    lib.sst_fused_mlp_bwd_workspace.argtypes = [vp, ci, ci, ci, vp]
     lib.sst_fused_mlp_bwd_workspace.restype = None
-    lib.sst_fused_mlp_bwd_smem_limit.argtypes = []
-    lib.sst_fused_mlp_bwd_smem_limit.restype = ci
-    lib.sst_fused_mlp_bwd_max_layers.argtypes = []
-    lib.sst_fused_mlp_bwd_max_layers.restype = ci
     ll = ctypes.c_longlong
     for name in ("sst_row_gather_take", "sst_row_gather_loop"):
         getattr(lib, name).argtypes = [vp, vp, vp, ci, ci, ll, vp]

@@ -7,10 +7,12 @@ runs without the repository's conftest:
 
     python -m pytest tests/test_torch_kernel_cuda.py --noconftest -m cuda
 
-Tolerance: both sides are f32 with TF32 off; only the order of the sums
-differs, so the error stays within a few K * 2^-24 of the output scale:
-1e-4 relative to max|plain| + 1. A gather is a copy: the row gathers must
-equal their plain versions exactly, NaN rows included.
+Tolerance: the plain side is f32 with TF32 off; the kernels take every
+product in 3xTF32 (three tf32 tensor-core passes of operands split into hi
+and lo, ~21 bits each), so the error stays within a few K * 2^-22 of the
+output scale: 1e-4 relative to max|plain| + 1 (``chip_smoke.py``'s
+KERNEL_TOL), and 1e-4 for the backward (BWD_TOL). A gather is a copy: the
+row gathers must equal their plain versions exactly, NaN rows included.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,9 @@ from sdfstudio_tpu_torch.ops import fused_mlp as fm
 from sdfstudio_tpu_torch.ops import row_gather as rg
 
 pytestmark = pytest.mark.cuda
+
+KERNEL_TOL = 1e-4  # chip_smoke.py
+BWD_TOL = 1e-4  # chip_smoke.py
 
 _ACTS = [("relu", "none"), ("softplus100", "relu"), ("none", "softplus100")]
 
@@ -87,6 +92,11 @@ def test_kernel_refuses_what_it_cannot_take(card):
         fm.fused_mlp(*_case([1000, 16, 2], 10, card))
     with pytest.raises(ValueError, match="shared memory"):
         fm.fused_mlp_bwd(*_case([1000, 16, 2], 10, card), torch.zeros(10, 2, device=card))
+    # a hidden layer's accumulators must fit five 64-column tiles
+    with pytest.raises(ValueError, match="limit of 320"):
+        fm.fused_mlp(*_case([8, 321, 2], 10, card))
+    with pytest.raises(ValueError, match="limit of 320"):
+        fm.fused_mlp_bwd(*_case([8, 321, 2], 10, card), torch.zeros(10, 2, device=card))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fm.fused_mlp_bwd(x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs],
                          torch.zeros(10, 2))
@@ -170,6 +180,95 @@ def test_fused_mlp_autograd_wiring(card):
     assert torch.autograd.gradcheck(
         lambda a, w0, w1, b0, b1: fm.fused_mlp(a, [w0, w1], [b0, b1], "none", "none"),
         inputs, eps=1e-2, atol=1e-3, rtol=1e-3)
+
+
+# the edges of the tiling: rows around the 64-row warpgroup and 128-row
+# block, the p8 input widths (39, 51, 321) and one that is not a multiple
+# of 8 (45), heads of 1 and 3 columns, every activation
+_EDGE_ROWS = [0, 1, 63, 64, 65, 127, 1000]
+_EDGE_NETS = [
+    ([39, 128, 128, 1], "relu", "none"),
+    ([51, 128, 128, 1], "softplus100", "relu"),
+    ([321, 256, 256, 3], "none", "softplus100"),
+    ([45, 72, 3], "relu", "softplus100"),
+]
+
+
+@pytest.mark.parametrize("n", _EDGE_ROWS)
+@pytest.mark.parametrize("dims,act,out_act", _EDGE_NETS)
+def test_kernel_tiling_edges(card, dims, act, out_act, n):
+    x, ws, bs = _case(dims, n, card, seed=n)
+    before = fm.LAUNCHES["fused_mlp_fwd"]
+    y = fm.fused_mlp(x, ws, bs, act, out_act)
+    ref = fm.fused_mlp_plain(x, ws, bs, act, out_act)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_mlp_fwd"] == before + (1 if n else 0)
+    assert y.shape == (n, dims[-1])
+    if n:
+        assert float((y - ref).abs().max()) / (float(ref.abs().max()) + 1.0) <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("n", _EDGE_ROWS)
+@pytest.mark.parametrize("dims,act,out_act", _EDGE_NETS)
+def test_bwd_kernel_tiling_edges(card, dims, act, out_act, n, need_dx):
+    """As test_bwd_kernel_matches_plain, at the tiling's edges."""
+    x, ws, bs = _case(dims, n, card, seed=n, margin=True)
+    g = torch.from_numpy(np.random.default_rng(n + 1).standard_normal((n, dims[-1])).astype(np.float32)).to(card)
+    before = fm.LAUNCHES["fused_mlp_bwd"]
+    dx, dws, dbs = fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx)
+    rdx, rdws, rdbs = fm.fused_mlp_bwd_plain(x.double(), [w.double() for w in ws],
+                                             [b.double() for b in bs], g.double(), act, out_act,
+                                             need_dx)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_mlp_bwd"] == before + (1 if n else 0)
+    assert (dx is None) == (not need_dx)
+    pairs = list(zip(dws, rdws)) + list(zip(dbs, rdbs)) + ([(dx, rdx)] if need_dx else [])
+    for got, ref in pairs:
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        if ref.numel():  # dx of no rows is empty
+            err = float((got.double() - ref).abs().max())
+            assert err / (float(ref.abs().max()) + 1e-6) <= BWD_TOL
+
+
+def test_bwd_kernel_repeats_bit_for_bit(card):
+    """A fixed split count and a fixed reduction order, no atomics: two calls
+    on the same inputs give the same bits of dx, every dW and every db."""
+    x, ws, bs = _case([321, 256, 256, 3], 5000, card)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal((5000, 3)).astype(np.float32)).to(card)
+    first = fm.fused_mlp_bwd(x, ws, bs, g, "relu", "none", True)
+    second = fm.fused_mlp_bwd(x, ws, bs, g, "relu", "none", True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for a_, b_ in zip(first[1] + first[2], second[1] + second[2]):
+        assert torch.equal(a_, b_)
+
+
+def _rel_fro(a, b):
+    return float(torch.linalg.vector_norm(a - b)) / max(float(torch.linalg.vector_norm(b)), 1e-30)
+
+
+def test_color_net_matches_plain_at_smoke_tolerances(card):
+    """The color net (321 -> 256 -> 256 -> 3) at the main path's exact shapes
+    against the plain versions in f32 on the card, with ``chip_smoke.py``'s
+    measures: the forward of a 1024-ray render chunk (49,152 rows) within
+    KERNEL_TOL of max |plain| + 1, the backward of a 2048-ray train step
+    (98,304 rows, dx needed) within BWD_TOL in relative Frobenius norm, on
+    inputs that keep the relu's jump away (``_case(margin=True)``): a random
+    init puts ~50 of these 5e7 pre-activations within rounding of 0, and
+    each one the two sides round across moves its row's delta by its full
+    value, ~1e-3 of the norm."""
+    x, ws, bs = _case([321, 256, 256, 3], 98304, card, seed=5)
+    y = fm.fused_mlp(x[:49152], ws, bs, "relu", "none")
+    ref = fm.fused_mlp_plain(x[:49152], ws, bs, "relu", "none")
+    assert float((y - ref).abs().max()) / (float(ref.abs().max()) + 1.0) <= KERNEL_TOL
+    x, ws, bs = _case([321, 256, 256, 3], 98304, card, seed=5, margin=True)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal((98304, 3)).astype(np.float32)).to(card)
+    kern = fm.fused_mlp_bwd(x, ws, bs, g, "relu", "none", True)
+    plain = fm.fused_mlp_bwd_plain(x, ws, bs, g, "relu", "none", True)
+    torch.cuda.synchronize()
+    for got, want in zip([kern[0], *kern[1], *kern[2]], [plain[0], *plain[1], *plain[2]]):
+        assert _rel_fro(got, want) <= BWD_TOL
 
 
 # (kernel, R, F, M): the probes' shapes, p8's table, odd row counts, F in
