@@ -42,9 +42,12 @@ Phases, each printing its own line with wall-clock seconds:
    kernels are counted. Each kernel is then held to its plain version on
    random tables at the probe's shapes (``take`` at R = 2^14 and 2^19,
    ``loop`` at 2^14) and at p8's own table (the gathers of one train step),
-   on indices that include R: a gather is a copy, so the two must agree
-   exactly, NaN rows included. Kernel, plain version and ``index_select``
-   are timed with CUDA events over many warm launches;
+   on indices that include R and -1: a gather is a copy, so the two must
+   agree exactly, NaN rows included. Kernel, plain version and
+   ``index_select`` are timed with CUDA events over many warm launches, and
+   the kernel's device time per launch is read from ``torch.profiler``
+   beside it (the gap between the two is the launch's); each case reports
+   its share of the bytes bound and the design the kernel took;
 7. the ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It imports torch, numpy, the standard library and ``sdfstudio_tpu_torch``
@@ -59,6 +62,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -141,8 +145,11 @@ def ptxas_report(build_log: str) -> dict:
 
 
 def sass_counts(lib_path) -> dict:
-    """Tensor-core instructions per kernel of the built library, from
-    ``cuobjdump -sass`` (beside ``nvcc``): {kernel: {"HGMMA": n, "HMMA": n}}."""
+    """Per kernel of the built library, from ``cuobjdump -sass`` (beside
+    ``nvcc``): its tensor-core instructions, {"HGMMA": n, "HMMA": n}, and
+    under "mem" each form of its global loads and stores and bulk copies
+    with its count ({"STG.E.EF.128": n, ...}): a cache hint shows in the
+    form (EF: evict-first)."""
     from sdfstudio_tpu_torch.utils.cuda_build import find_nvcc
 
     cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -152,11 +159,15 @@ def sass_counts(lib_path) -> dict:
     for line in out.splitlines():
         if "Function : " in line:
             name = line.split("Function : ", 1)[1].strip()
-            counts[name] = {"HGMMA": 0, "HMMA": 0}
+            counts[name] = {"HGMMA": 0, "HMMA": 0, "mem": {}}
         elif name is not None:
             for op in ("HGMMA", "HMMA"):
                 if f" {op}." in line:
                     counts[name][op] += 1
+            m = re.search(r"\b((?:LDG|STG|UBLKCP)[\w.]*)", line)
+            if m:
+                mem = counts[name]["mem"]
+                mem[m.group(1)] = mem.get(m.group(1), 0) + 1
     return counts
 
 
@@ -349,10 +360,32 @@ def cuda_time_many_ms(fn, reps: int = GATHER_REPS, warmup: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
+def profiled_device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time of one launch of ``fn()``'s kernel, whose name holds
+    ``kernel``, over ``reps`` launches traced by ``torch.profiler``, and the
+    number of launches the trace holds (it can miss the first few): beside
+    the events' mean of back-to-back launches it shows the gap between
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == cuda and kernel in e.name]
+    check(reps // 2 <= len(durs) <= reps,
+          f"the profiler saw {len(durs)} {kernel} launches of {reps}")
+    return sum(durs) / len(durs) / 1e3, len(durs)
+
+
 def probe_phase() -> dict:
     """Run the gather-probe entry points, count their kernel launches, and
-    hold each row-gather kernel to its plain version; time kernel, plain
-    version and ``index_select``. Returns what the ``kernels`` line reports."""
+    hold each row-gather kernel to its plain version; time kernel (by events
+    and by the profiler's device time), plain version and ``index_select``.
+    Returns what the ``kernels`` line reports."""
     from sdfstudio_tpu_torch.ops import row_gather as rg
     from sdfstudio_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
     from sdfstudio_tpu_torch.scripts.benchmarking import probe_gather2, probe_prims
@@ -384,6 +417,7 @@ def probe_phase() -> dict:
         idx = torch.randint(0, R, (M,), generator=gen, device="cuda", dtype=torch.int32)
         edge = idx.clone()
         edge[::997] = R  # one past the table: NaN for take, row R-1 for loop
+        edge[5::1009] = -1  # row R-1 for both
         edge[1], edge[2] = 0, R - 1
         got, want = kern(table, edge), plain(table, edge)
         torch.cuda.synchronize()
@@ -393,14 +427,20 @@ def probe_phase() -> dict:
         nan_rows = int(nan_p.any(-1).sum())
         expected_nan = int((edge == R).sum()) if kind == "take" else 0
         ms = cuda_time_many_ms(lambda: kern(table, idx))
+        device_ms, traced = profiled_device_ms(lambda: kern(table, idx), f"{kind}_kernel")
         plain_ms = cuda_time_many_ms(lambda: plain(table, idx))
         library_ms = cuda_time_many_ms(lambda: torch.index_select(table, 0, idx))
         nbytes = 4.0 * (M + R * F + M * F)  # idx and table read once, out written once
-        rec = {"kernel": kind, "case": which, "R": R, "F": F, "M": M,
-               "staged": kind == "loop" or bool(lib.sst_row_gather_take_staged(R, F)),
+        bound_ms = nbytes / HBM_RATE * 1e3
+        # take reads every table through L1 and L2; loop stages the table
+        # and each round's indices in shared memory
+        design = ({"staged": False, "rows_per_thread": lib.sst_row_gather_take_rows(F)}
+                  if kind == "take" else {"staged": True})
+        rec = {"kernel": kind, "case": which, "R": R, "F": F, "M": M, **design,
                "max_abs_err": max_abs, "nan_rows": nan_rows, "same_nan": same_nan, "ms": ms,
+               "device_ms": device_ms, "traced_launches": traced, "launch_gap_ms": ms - device_ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
-               "bound_ms": nbytes / HBM_RATE * 1e3, "bound_by": "bytes",
+               "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
                "rows_per_s": M / ms * 1e3, "library_rows_per_s": M / library_ms * 1e3}
         recs.append(rec)
         log("probe", json.dumps(rec))
@@ -633,7 +673,8 @@ def main() -> int:
     log("build", f"ptxas (registers, spill stores and loads in bytes, per kernel): {json.dumps(ptxas)}")
     log("build", f"nvcc built {cuda_build.LIB_PATH.name} in {build_s:.2f} s")
     sass = {}
-    for fn_name, c in sass_counts(cuda_build.LIB_PATH).items():
+    sass_counts_all = sass_counts(cuda_build.LIB_PATH)
+    for fn_name, c in sass_counts_all.items():
         for kernel in ("fused_mlp_fwd", "fused_mlp_bwd", "row_gather", "split_kernel"):
             if kernel in fn_name:
                 tot = sass.setdefault(kernel, {"HGMMA": 0, "HMMA": 0, "functions": 0})
@@ -644,6 +685,24 @@ def main() -> int:
     check(sass.get("fused_mlp_fwd", {}).get("HGMMA", 0) > 0
           and sass.get("fused_mlp_bwd", {}).get("HGMMA", 0) > 0,
           f"the fused-MLP kernels issue no wgmma: {sass}")
+    # the row gathers' memory instructions with their cache hints
+    gather_mem = {}
+    for fn_name, c in sass_counts_all.items():
+        for kernel in ("take_kernel", "loop_kernel"):
+            if kernel in fn_name:
+                tot = gather_mem.setdefault(kernel, {})
+                for form, n in c["mem"].items():
+                    tot[form] = tot.get(form, 0) + n
+    log("build", f"row-gather global loads, stores and bulk copies by form (cuobjdump -sass): "
+        f"{json.dumps(gather_mem)}")
+    for kernel, forms in gather_mem.items():
+        stores = {f: n for f, n in forms.items() if f.startswith("STG")}
+        check(stores and all(".EF" in f for f in stores),
+              f"{kernel}: a store without the evict-first hint: {stores}")
+    check(any(f.startswith("LDG") and ".EF" in f for f in gather_mem.get("take_kernel", {})),
+          f"take_kernel loads no index evict-first: {gather_mem.get('take_kernel')}")
+    check(any(f.startswith("UBLKCP") for f in gather_mem.get("loop_kernel", {})),
+          f"loop_kernel stages nothing by bulk copy: {gather_mem.get('loop_kernel')}")
     cuda_build.load_library()
 
     # 3. slice --------------------------------------------------------------
@@ -805,8 +864,10 @@ def main() -> int:
             "launches_train": train["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in at_probe),
+            "device_ms": sum(r["device_ms"] for r in at_probe),
             "plain_ms": sum(r["plain_ms"] for r in at_probe),
             "bound_ms": sum(r["bound_ms"] for r in at_probe),
+            "bound_share": sum(r["bound_ms"] for r in at_probe) / sum(r["ms"] for r in at_probe),
             "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in at_probe),
             "per_shape": mine,

@@ -14,8 +14,12 @@ make (``idx + s % 2``): ``take`` gives a row of NaN there (``jnp.take``'s
 fill mode), ``loop`` gives row R-1 (its ref read clamps). Both read -1 as row
 R-1. The contract is indices in [0, R].
 
-On this card both are bound by the latency of random row reads, not by
-arithmetic; ``csrc/row_gather.cu`` says how each kernel is laid out. The
+On this card both are bound by bytes; what keeps them from that bound is
+the random row reads (their latency, and the rate at which L2 or HBM serve
+32-byte sectors). ``csrc/row_gather.cu`` says how each kernel is laid out.
+The kernel settles each choice of path (vector width, slots, bulk copies)
+from the shapes and the pointers' alignment, and caches its launch
+attributes once per device. The
 wrappers take the plain version for tensors on the CPU, launch the kernel
 for CUDA tensors, and raise on anything else.
 """
@@ -24,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from sdfstudio_tpu_torch.ops.launches import LAUNCHES
+
+_NO_FIT = -1  # sst_row_gather_loop: the table does not fit a block's shared memory
 
 
 def take_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -62,14 +68,13 @@ def _launch(name: str, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if M == 0:
         return out
     with torch.cuda.device(table.device):
-        if name == "row_gather_loop":
-            need, limit = lib.sst_row_gather_loop_smem_bytes(R, F), lib.sst_row_gather_smem_limit()
-            if need > limit:
-                raise ValueError(f"loop: a table of {R} x {F} floats needs {need} B of shared "
-                                 f"memory, above the card's {limit} B per block")
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = getattr(lib, f"sst_{name}")(table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, F, M,
                                           stream)
+        if err == _NO_FIT:  # loop only; nothing was launched
+            need, limit = lib.sst_row_gather_loop_smem_bytes(R, F), lib.sst_row_gather_smem_limit()
+            raise ValueError(f"loop: a table of {R} x {F} floats needs {need} B of shared "
+                             f"memory, above the card's {limit} B per block")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1

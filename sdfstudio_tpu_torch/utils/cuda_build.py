@@ -116,8 +116,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = ci
     lib.sst_row_gather_smem_limit.argtypes = []
     lib.sst_row_gather_smem_limit.restype = ci
-    lib.sst_row_gather_take_staged.argtypes = [ci, ci]
-    lib.sst_row_gather_take_staged.restype = ci
+    lib.sst_row_gather_take_rows.argtypes = [ci]
+    lib.sst_row_gather_take_rows.restype = ci
     lib.sst_row_gather_loop_smem_bytes.argtypes = [ci, ci]
     lib.sst_row_gather_loop_smem_bytes.restype = ll
     return lib

@@ -274,11 +274,11 @@ def test_color_net_matches_plain_at_smoke_tolerances(card):
 # (kernel, R, F, M): the probes' shapes, p8's table, odd row counts, F in
 # {1, 2, 3, 4}, tables in shared memory and through L2
 _GATHER_CASES = [
-    ("take", 1 << 14, 2, 4_194_304),  # pl-take, staged in shared memory
+    ("take", 1 << 14, 2, 4_194_304),  # pl-take, a table that L1 holds
     ("take", 1 << 19, 2, 4_194_304),  # pl-take, through L2
     ("take", 2_841_000, 4, 3_145_728),  # p8's permutohedral table, one train step's gathers
     ("take", 1000, 1, 1001),
-    ("take", 12_000, 4, 12_345),  # 192 KB, staged, float4 rows
+    ("take", 12_000, 4, 12_345),  # 192 KB, float4 rows
     ("take", 50_000, 4, 777),  # 800 KB, through L2
     ("take", 100, 3, 999),
     ("take", 3, 2, 5),
@@ -287,6 +287,10 @@ _GATHER_CASES = [
     ("loop", 12_000, 4, 12_345),
     ("loop", 100, 3, 999),
     ("loop", 3, 2, 5),
+    ("take", 100_000, 8, 4099),  # F = 8: two float4 a row, through L2
+    ("take", 5000, 8, 4099),  # F = 8, a table in L1
+    ("loop", 5000, 8, 4099),
+    ("loop", 1000, 2, 2_000_003),  # more tiles than one round of the card's blocks
 ]
 
 
@@ -318,6 +322,73 @@ def test_row_gather_kernel_matches_plain(card, kind, R, F, M, offset):
     assert got.shape == (M, F) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
     assert bool(torch.isnan(got).any()) == (kind == "take")
+
+
+def _batch(F):
+    from sdfstudio_tpu_torch.utils.cuda_build import load_library
+
+    return load_library().sst_row_gather_take_rows(F)
+
+
+# M around the rows a ``take`` thread owns (B, from the library: four
+# 16-byte slots), which a ``loop`` walker owns too
+_BATCH_ROWS = {"1": lambda b: 1, "B-1": lambda b: b - 1, "B": lambda b: b, "B+1": lambda b: b + 1,
+               "5B+3": lambda b: 5 * b + 3, "1024B+3": lambda b: 1024 * b + 3}
+
+
+@pytest.mark.parametrize("kind", ["take", "loop"])
+@pytest.mark.parametrize("m", list(_BATCH_ROWS))
+@pytest.mark.parametrize("F", [1, 2, 4])
+@pytest.mark.parametrize("idx_offset", [0, 1])
+def test_row_gather_batch_edges(card, kind, m, F, idx_offset):
+    """Row counts that end inside a batch, indices R and -1 as the last row
+    of one batch and the first of the next, and (``idx_offset`` 1) an index
+    tensor that starts 4 bytes past a 16-byte boundary, so its loads cannot
+    be 16-byte vectors and a bulk copy of it cannot start at its start."""
+    B = _batch(F)
+    M, R = _BATCH_ROWS[m](B), 1000
+    table, idx = _gather_case(R, F, M, card, seed=M)
+    for j, v in ((B - 1, R), (B, -1), (2 * B - 1, -1), (2 * B, R)):
+        if j < M:
+            idx[j] = v
+    if idx_offset:
+        buf = torch.empty(M + 4, dtype=torch.int32, device=card)
+        buf[1:M + 1] = idx
+        idx = buf[1:M + 1]
+        assert idx.data_ptr() % 16 == 4
+    kern, plain = (rg.take, rg.take_plain) if kind == "take" else (rg.loop, rg.loop_plain)
+    before = rg.LAUNCHES[f"row_gather_{kind}"]
+    got = kern(table, idx)
+    want = plain(table, idx)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES[f"row_gather_{kind}"] == before + 1
+    assert got.shape == (M, F)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_row_gather_at_the_shared_memory_limits(card):
+    """``take`` at tables of the card's shared-memory limit per block and
+    one row over it (both read through L1 and L2; a table that size would
+    no longer fit a block if it were staged), and ``loop`` at a table whose
+    bytes and a round's indices fill that limit exactly; one row more is
+    refused."""
+    from sdfstudio_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library()
+    limit, F = lib.sst_row_gather_smem_limit(), 2
+    for R in (limit // (4 * F), limit // (4 * F) + 1):
+        table, idx = _gather_case(R, F, 100_003, card, seed=R)
+        torch.testing.assert_close(rg.take(table, idx), rg.take_plain(table, idx), rtol=0, atol=0,
+                                   equal_nan=True)
+    R = (limit - lib.sst_row_gather_loop_smem_bytes(0, F)) // (4 * F)
+    assert lib.sst_row_gather_loop_smem_bytes(R, F) == limit
+    table, idx = _gather_case(R, F, 100_003, card, seed=R)
+    torch.testing.assert_close(rg.loop(table, idx), rg.loop_plain(table, idx), rtol=0, atol=0)
+    before = dict(rg.LAUNCHES)
+    table, idx = _gather_case(R + 1, F, 10, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        rg.loop(table, idx)
+    assert rg.LAUNCHES == before
 
 
 def test_row_gather_refuses_what_it_cannot_take(card):

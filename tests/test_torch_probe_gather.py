@@ -85,6 +85,22 @@ def test_row_gather_matches_pallas_kernel_bit_for_bit(pallas_kernels, kind, M, R
         np.testing.assert_array_equal(ref[at_r], np.broadcast_to(table[R - 1], ref[at_r].shape))
 
 
+@pytest.mark.parametrize("kind,M", [("take", 2048), ("loop", 1024)])
+def test_row_gather_reads_minus_one_as_the_last_row(pallas_kernels, kind, M):
+    """Index -1 reads row R-1 in both kernels, as in the JAX kernels (run
+    interpreted); here beside index R, each as the last row of one of the
+    card kernels' batches (8 rows a ``take`` thread, runs of 4 rows a
+    ``loop`` walker) and the first row of the next."""
+    probe = jprobe_gather2.probe_pallas_take if kind == "take" else jprobe_gather2.probe_pallas_loop
+    probe(M, 64, 2, 1)
+    table, idx = _gather_inputs(M, 64, 2, seed=M)
+    idx[[3, 4, 7, 8, 15, 16, M - 1]] = [-1, 64, 64, -1, -1, 64, -1]
+    ref = np.asarray(pallas_kernels[0](jnp.asarray(idx), jnp.asarray(table)))
+    port = (rg.take if kind == "take" else rg.loop)(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(port.numpy(), ref)
+    np.testing.assert_array_equal(ref[idx == -1], np.broadcast_to(table[63], ref[idx == -1].shape))
+
+
 def test_row_gather_wrappers_refuse_what_the_kernels_cannot_take():
     table, idx = torch.zeros(8, 2), torch.zeros(4, dtype=torch.int32)
     for fn in (rg.take, rg.loop):
@@ -213,3 +229,17 @@ def test_probe_entry_points_default_to_cuda():
     for main in (probe_gather2.main, probe_prims.main):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--quick", "--shrink", "12"])
+
+
+def test_row_gather_designs_needs_the_card(monkeypatch, capsys):
+    """The design timings run on the card only: without one the script
+    builds nothing and exits 2, and it lists the two floors and the staged
+    design among the designs it times."""
+    from sdfstudio_tpu_torch.scripts.benchmarking import row_gather_designs as rgd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(rgd, "_build", lambda *a: pytest.fail("built without a card"))
+    assert rgd.main([]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
+    labels = [d[0] for d in rgd.DESIGNS]
+    assert sum(d[4] for d in rgd.DESIGNS) == 4 and any("staged" in x for x in labels)
