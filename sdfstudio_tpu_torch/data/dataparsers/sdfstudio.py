@@ -2,11 +2,15 @@
 ``sdfstudio_tpu/data/dataparsers/sdfstudio.py``): ``meta_data.json`` with
 ``scene_box`` and per-frame ``rgb_path`` / ``camtoworld`` / ``intrinsics``.
 
-Ported: what the parity protocol's training of ``neus-facto-tpu-p8`` reads
-(sdfstudio.py:53-182 with the parser's defaults: every frame, no masks, no
-priors, poses as given). The other options of the JAX parser (mono
-priors, sensor depth, foreground masks, SfM points, pairs, validation
-splits, pose re-orientation and re-scaling) are not ported.
+Ported: what the parity protocol's training and evaluation of
+``neus-facto-tpu-p8`` read (sdfstudio.py:53-182 with the parser's defaults:
+no masks, no priors, poses as given) and the train / eval split of
+sdfstudio.py:53-62 (``skip_every_for_val_split``, ``train_val_no_overlap``).
+With the defaults both splits hold every frame: the eval split is the
+training views, as in the reference (and ``PARITY.json``'s ``holdout`` 0).
+The other options of the JAX parser (mono priors, sensor depth, foreground
+masks, SfM points, pairs, pose re-orientation and re-scaling) are not
+ported.
 """
 from __future__ import annotations
 
@@ -30,8 +34,23 @@ class DataparserOutputs:
     scene_box: SceneBox
 
 
-def parse(data: Path) -> DataparserOutputs:
-    """The frames of ``data/meta_data.json``, its scene box and its cameras."""
+def split_indices(num_frames: int, split: str, skip_every_for_val_split: int = 1,
+                  train_val_no_overlap: bool = False) -> List[int]:
+    """The frames of ``split`` (sdfstudio.py:56-60): an eval split takes
+    every ``skip_every_for_val_split``-th frame; the train split takes them
+    all, or with ``train_val_no_overlap`` all but those."""
+    indices = list(range(num_frames))
+    if split != "train" and skip_every_for_val_split >= 1:
+        indices = indices[::skip_every_for_val_split]
+    elif train_val_no_overlap:
+        indices = [i for i in indices if i % skip_every_for_val_split != 0]
+    return indices
+
+
+def parse(data: Path, split: str = "train", skip_every_for_val_split: int = 1,
+          train_val_no_overlap: bool = False) -> DataparserOutputs:
+    """The frames of ``split`` in ``data/meta_data.json``, its scene box and
+    their cameras."""
     data = Path(data)
     meta_path = data / "meta_data.json"
     if not meta_path.is_file():
@@ -39,7 +58,8 @@ def parse(data: Path) -> DataparserOutputs:
     meta = json.loads(meta_path.read_text())
     if meta.get("camera_model", "OPENCV") != "OPENCV":
         raise NotImplementedError(f"camera model {meta['camera_model']} is not ported")
-    frames = meta["frames"]
+    sel = split_indices(len(meta["frames"]), split, skip_every_for_val_split, train_val_no_overlap)
+    frames = [meta["frames"][i] for i in sel]
     intr = np.stack([np.asarray(f["intrinsics"], np.float32) for f in frames])
     c2ws = np.stack([np.asarray(f["camtoworld"], np.float32) for f in frames])
     # OpenCV -> nerfstudio camera convention (sdfstudio.py:120-121)

@@ -78,6 +78,10 @@ class GroupAdam:
         torch._foreach_div_(upd, denom)
         torch._foreach_add_(self.params, upd, alpha=-lr)
 
+    def state(self) -> Dict:
+        """The group's Adam state, ``{"count", "mu", "nu"}`` (``load_state``'s arguments)."""
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
     def load_state(self, count: int, mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor]) -> None:
         with torch.no_grad():
             for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):

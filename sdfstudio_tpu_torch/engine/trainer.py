@@ -1,5 +1,6 @@
 """Trainer (counterpart of ``sdfstudio_tpu/engine/trainer.py``): the training
-step of ``_train_step_impl`` (trainer.py:309-436) and the loop around it.
+step of ``_train_step_impl`` (trainer.py:309-436), the loop around it,
+checkpoints and the final evaluation.
 
 One step: the schedules at the step before it increments, a uniform pixel
 batch from the device-resident image stack, rays, the model forward with
@@ -10,34 +11,55 @@ gradients, their Adam moments decay and count advances, and their
 parameters stay as they are (trainer.py:403-418).
 
 Metrics stay on the device, one vector per step, and are read back once per
-log interval. Gradient accumulation (``accumulate_grad_steps > 1``),
-checkpoint save/load and the final evaluation are not ported yet (ROADMAP).
+log interval. Checkpoints (trainer.py:736-805) lie as JAX lays them out,
+``<base_dir>/sdfstudio_models/step-{step:09d}/`` with ``step.txt`` written
+last; the port's own format is one ``torch.save`` file holding the model's
+``state_dict``, every group's Adam state, the step and the generator's
+state, so a resumed run takes the same steps as a straight one. The loader
+also reads a JAX packed checkpoint (``packed.npz``) through
+``utils/convert.py::load_jax_checkpoint``; JAX's PRNG key has no
+counterpart, so the generator then keeps its seed. A run that reaches
+``max_num_iterations`` with ``final_eval_output`` set ends with the final
+evaluation in the same process (trainer.py:632-647). Gradient accumulation
+(``accumulate_grad_steps > 1``) is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
+import shutil
 import time
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from sdfstudio_tpu_torch.data.datamanager import VanillaDataManager
-from sdfstudio_tpu_torch.engine.final_eval import set_fp32_precision
+from sdfstudio_tpu_torch.engine.final_eval import run_final_eval, set_fp32_precision
 from sdfstudio_tpu_torch.engine.optimizers import GroupAdam, OptimizerGroupConfig, build_optimizers
 from sdfstudio_tpu_torch.samplers.spaced import Rng
+from sdfstudio_tpu_torch.utils.convert import load_jax_checkpoint
 
 PROPOSAL_GROUP = "proposal_networks"
 SEED = 42  # the batch and jitter generator's seed (trainer.py:162, PRNGKey(42))
 STEPS_PER_LOG = 10  # trainer.py:45's default, which p8 keeps
+CHECKPOINT_FILE = "checkpoint.pt"  # the port's format, in a step directory
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The fields of ``TrainerConfig`` (trainer.py:37-107) this port reads."""
+    """The fields of ``TrainerConfig`` (trainer.py:37-107) this port reads.
+    The final evaluation judges the geometry against the DTU-like scene's
+    analytic surface, the one judge ported (``final_eval_gt`` "dtu-like")."""
 
+    steps_per_save: int = 1000
     max_num_iterations: int = 1000000
+    save_only_latest_checkpoint: bool = True
+    load_dir: Optional[Path] = None
+    load_step: Optional[int] = None
     accumulate_grad_steps: int = 1
+    final_eval_output: str = ""
+    final_eval_resolution: int = 256
 
 
 def loss_and_metrics(
@@ -78,7 +100,8 @@ def apply_grads(
 
 
 class Trainer:
-    """Owns the model's optimizers, the step count and the batch generator."""
+    """Owns the model's optimizers, the step count, the batch generator and
+    the checkpoints under ``base_dir`` (none are written without one)."""
 
     def __init__(
         self,
@@ -86,6 +109,8 @@ class Trainer:
         model: torch.nn.Module,
         datamanager: VanillaDataManager,
         optimizer_groups: Dict[str, OptimizerGroupConfig],
+        base_dir: Optional[Path] = None,
+        method_name: str = "",
     ):
         if config.accumulate_grad_steps != 1:
             raise NotImplementedError(
@@ -95,6 +120,8 @@ class Trainer:
         self.model = model
         self.datamanager = datamanager
         self.optimizer_groups = optimizer_groups
+        self.ckpt_dir = Path(base_dir) / "sdfstudio_models" if base_dir is not None else None
+        self.method_name = method_name
         self.optimizers: Dict[str, GroupAdam] = {}
         self.step = 0
         self.generator: Optional[torch.Generator] = None
@@ -105,6 +132,8 @@ class Trainer:
         self.optimizers = build_optimizers(self.optimizer_groups, self.model)
         self.generator = torch.Generator(device=self.datamanager.device).manual_seed(SEED)
         self.step = 0
+        if self.config.load_dir is not None:
+            self.load_checkpoint(self.config.load_dir, self.config.load_step)
 
     def train_step(self) -> torch.Tensor:
         """One step; returns its metrics as one device vector (``metric_keys``)."""
@@ -124,10 +153,15 @@ class Trainer:
         self.metric_keys = sorted(out)
         return torch.stack([out[k].reshape(()).to(torch.float32) for k in self.metric_keys])
 
-    def train(self) -> Dict[str, float]:
-        """Run to ``max_num_iterations`` steps, reading the metrics back and
-        printing them once per ``STEPS_PER_LOG``; returns the last row."""
-        end = self.config.max_num_iterations
+    def train(self, num_iterations: Optional[int] = None) -> Dict[str, float]:
+        """Run to ``num_iterations`` (default ``max_num_iterations``) steps,
+        reading the metrics back and printing them once per
+        ``STEPS_PER_LOG`` and saving every ``steps_per_save`` steps and at
+        the end; then, at ``max_num_iterations``, the final evaluation if
+        ``final_eval_output`` is set (trainer.py:582-647). Returns the last
+        metrics row."""
+        cfg = self.config
+        end = num_iterations or cfg.max_num_iterations
         history: List[torch.Tensor] = []
         last: Dict[str, float] = {}
         start, t0 = self.step, time.perf_counter()
@@ -139,5 +173,62 @@ class Trainer:
                 last = dict(zip(self.metric_keys, rows[-1].tolist()))
                 rate = (self.step - start) / (time.perf_counter() - t0)
                 print(f"step {self.step}/{end} " + " ".join(f"{k}={v:.5g}" for k, v in last.items())
-                    + f" ({rate:.2f} steps/s)")
+                    + f" ({rate:.2f} steps/s)", flush=True)
+            if self.ckpt_dir is not None and (self.step % cfg.steps_per_save == 0 or self.step == end):
+                self.save_checkpoint(self.step)
+        if cfg.final_eval_output and end >= cfg.max_num_iterations:
+            run_final_eval(self, self.method_name, self.step, Path(cfg.final_eval_output),
+                           cfg.final_eval_resolution)
         return last
+
+    def save_checkpoint(self, step: int) -> Path:
+        """Write ``step-{step:09d}/`` under ``ckpt_dir``, ``step.txt`` last;
+        with ``save_only_latest_checkpoint`` the older step directories go
+        (trainer.py:736-759)."""
+        path = self.ckpt_dir / f"step-{step:09d}"
+        path.mkdir(parents=True, exist_ok=True)
+        torch.save({
+            "step": step,
+            "model": self.model.state_dict(),
+            "optimizers": {name: opt.state() for name, opt in self.optimizers.items()},
+            "generator": self.generator.get_state(),
+        }, path / CHECKPOINT_FILE)
+        (path / "step.txt").write_text(str(step))
+        if self.config.save_only_latest_checkpoint:
+            for p in sorted(self.ckpt_dir.glob("step-*")):
+                if p != path:
+                    shutil.rmtree(p)
+        print(f"saved checkpoint {path}", flush=True)
+        return path
+
+    def load_checkpoint(self, load_dir, load_step: Optional[int] = None) -> None:
+        """Resume from ``load_dir/step-{load_step:09d}/``, by default the
+        newest step directory that has its ``step.txt`` (a directory without
+        one is a save that did not finish; trainer.py:770-805). Reads the
+        port's format or a JAX packed checkpoint."""
+        load_dir = Path(load_dir)
+        if load_step is None:
+            steps = sorted(int(p.name.split("-")[1]) for p in load_dir.glob("step-*")
+                           if (p / "step.txt").exists())
+            if not steps:
+                raise FileNotFoundError(f"no complete checkpoint under {load_dir}")
+            load_step = steps[-1]
+        path = load_dir / f"step-{load_step:09d}"
+        if not (path / "step.txt").exists():
+            raise FileNotFoundError(f"no complete checkpoint at {path}")
+        if (path / "packed.npz").exists():
+            step = load_jax_checkpoint(self.model, self.optimizers, path)
+        else:
+            ckpt = torch.load(path / CHECKPOINT_FILE, map_location="cpu", weights_only=True)
+            if set(ckpt["optimizers"]) != set(self.optimizers):
+                raise ValueError(f"{path}: optimizer groups {sorted(ckpt['optimizers'])}, "
+                                 f"expected {sorted(self.optimizers)}")
+            self.model.load_state_dict(ckpt["model"])
+            for name, opt in self.optimizers.items():
+                opt.load_state(**ckpt["optimizers"][name])
+            self.generator.set_state(ckpt["generator"])
+            step = ckpt["step"]
+        if step != load_step:
+            raise ValueError(f"{path} holds step {step}")
+        self.step = step
+        print(f"loaded checkpoint from {path} at step {step}", flush=True)

@@ -171,6 +171,17 @@ class SDFField(nn.Module):
                 h = softplus_beta100(h)
         return h
 
+    @torch.no_grad()
+    def sdf(self, x: torch.Tensor) -> torch.Tensor:
+        """The SDF at positions ``x`` [..., 3] in [-2, 2] (``sdf_fn``,
+        sdf_field.py:549-556, through ``geonetwork`` :305-313): the encode
+        without its jacobian and the geometry MLP, no gradient. Mesh
+        extraction evaluates it on every point of its grid."""
+        checks.check_positions(x, "SDFField.geonetwork positions")
+        feature = self.encoding((x + 2.0) / 4.0, want_jac=False)
+        layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
+        return self.geo_mlp(x, feature, layers)[..., 0]
+
     def geonetwork_with_gradient(self, x: torch.Tensor, train: bool = False):
         """(geonetwork output, d sdf/dx) from one encode (sdf_field.py:323-362,
         ``"vjp"``): one reverse pass through the MLP, whose input gradient wrt

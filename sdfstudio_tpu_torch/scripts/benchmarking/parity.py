@@ -1,0 +1,114 @@
+"""The ``neus-facto-tpu-p8`` arm of the quality-parity protocol on the card
+(counterpart of ``sdfstudio_tpu/scripts/benchmarking/parity.py``;
+``docs/parity-protocol.md``):
+
+    python -m sdfstudio_tpu_torch.scripts.benchmarking.parity \\
+        [--segment 5000] [--budget-seconds S] [--device cuda|cpu]
+
+Trains ``neus-facto-tpu-p8`` for 20,000 steps of 2048 rays on the committed
+scene ``.parity/dtu_like`` (never regenerated; every view trains and every
+view is evaluated, ``holdout`` 0, as ``PARITY.json`` was made), then runs
+the trainer's final evaluation (eval-split PSNR and SSIM, Chamfer-L1 of the
+256^3 mesh against the analytic surface) and writes ``PARITY_CUDA.json`` in
+``PARITY.json``'s schema, judged against ``PARITY.json``'s control with the
+same criteria: PSNR at most 0.3 dB below it, Chamfer-L1 at most 10% above.
+
+Training runs in segments of ``--segment`` steps in this one process, each
+ending in a checkpoint under ``.parity/cuda_runs/``; a new invocation
+resumes from the newest one. ``--budget-seconds`` stops before a segment
+that would start after that much wall time, so one call of bounded length
+makes progress.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+from sdfstudio_tpu_torch.scripts.train import setup_trainer
+
+REPO = Path(__file__).resolve().parents[3]
+PARITY_DIR = REPO / ".parity"
+DATA_DIR = PARITY_DIR / "dtu_like"
+RUNS_DIR = PARITY_DIR / "cuda_runs"
+CONTROL = REPO / "PARITY.json"
+ATTESTATION = REPO / "PARITY_CUDA.json"
+METHOD = "neus-facto-tpu-p8"
+ITERS = 20000
+NUM_RAYS = 2048
+PSNR_TOL_DB = 0.3  # parity.py:57-58
+CHAMFER_TOL = 0.10
+
+
+def arm_base_dir(method: str) -> Path:
+    """The JAX layout: output/experiment/method/timestamp (parity.py:72-74)."""
+    return RUNS_DIR / "parity" / method / "parity"
+
+
+def latest_step(method: str) -> int:
+    ckpt_dir = arm_base_dir(method) / "sdfstudio_models"
+    steps = [int(p.name.split("-")[1]) for p in ckpt_dir.glob("step-*") if (p / "step.txt").exists()]
+    return max(steps, default=0)
+
+
+def write_attestation(preset: dict, control: dict) -> dict:
+    """``PARITY.json``'s schema and pass rule (parity.py:247-267)."""
+    ok_psnr = preset["psnr"] >= control["psnr"] - PSNR_TOL_DB
+    ok_chamfer = preset["chamfer_l1"] <= control["chamfer_l1"] * (1 + CHAMFER_TOL)
+    rec = {
+        "method": preset["method"],
+        "pass": bool(ok_psnr and ok_chamfer),
+        "preset": {"psnr": preset["psnr"], "chamfer_l1": preset["chamfer_l1"],
+                   "iters": preset["iters"]},
+        "control": {"psnr": control["psnr"], "chamfer_l1": control["chamfer_l1"],
+                    "iters": control["iters"]},
+        "scene": "dtu_like",
+        "holdout": 0,
+        "criteria": {"psnr_tol_db": PSNR_TOL_DB, "chamfer_tol": CHAMFER_TOL},
+    }
+    ATTESTATION.write_text(json.dumps(rec, indent=2) + "\n")
+    print(f"[parity] attestation -> {ATTESTATION}: pass={rec['pass']}", flush=True)
+    return rec
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m sdfstudio_tpu_torch.scripts.benchmarking.parity")
+    ap.add_argument("--segment", type=int, default=5000, help="steps per checkpointed segment")
+    ap.add_argument("--budget-seconds", type=float, default=None,
+                    help="start no segment after this much wall time (re-run to resume)")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    t_start = time.time()
+    if not (DATA_DIR / "meta_data.json").is_file():
+        raise FileNotFoundError(f"the committed parity scene is missing: {DATA_DIR}")
+    control = json.loads(CONTROL.read_text())["control"]
+    base = arm_base_dir(METHOD)
+    metrics = base / "parity_metrics.json"
+    start = latest_step(METHOD)
+    trainer = setup_trainer(
+        METHOD, DATA_DIR, max_num_iterations=ITERS, num_rays=NUM_RAYS, device=args.device,
+        output_dir=base, steps_per_save=args.segment, final_eval_output=str(metrics),
+        load_dir=base / "sdfstudio_models" if start > 0 else None, load_step=start or None,
+    )
+    if metrics.exists() and start >= ITERS and json.loads(metrics.read_text())["iters"] == start:
+        rec = json.loads(metrics.read_text())
+    else:
+        metrics.unlink(missing_ok=True)
+        while trainer.step < ITERS or not metrics.exists():
+            if args.budget_seconds and time.time() - t_start > args.budget_seconds:
+                print(f"[parity] budget spent at step {trainer.step}; re-run to resume", flush=True)
+                return 0
+            end = min(trainer.step + args.segment, ITERS)
+            t0 = time.time()
+            trainer.train(end)  # at ITERS it also runs the final evaluation
+            print(f"[parity] {METHOD}: segment -> {end} done in {time.time() - t0:.0f}s", flush=True)
+        rec = json.loads(metrics.read_text())
+    print(f"[parity] {METHOD}: {json.dumps(rec)}", flush=True)
+    write_attestation(rec, control)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

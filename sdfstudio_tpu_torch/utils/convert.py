@@ -21,14 +21,22 @@ the port's per-group Adam (engine/optimizers.py): for each group, the
 parameters. The chain's ``ScaleByScheduleState`` count must equal Adam's,
 because the port reads the schedule at Adam's count. The optax objects are
 read by their attributes, so this module imports nothing of JAX.
+
+``load_jax_checkpoint(model, optimizers, path)`` does both from a JAX
+packed checkpoint directory (``step-XXXXXXXXX/``, written by the JAX
+trainer's ``save_checkpoint``, trainer.py:744-767), read by
+``utils/jax_checkpoint.py`` with numpy alone, and returns its step.
 """
 from __future__ import annotations
 
 import re
+from pathlib import Path
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from sdfstudio_tpu_torch.utils.jax_checkpoint import read_packed
 
 _PLACEHOLDERS = {"field_background.dummy"}
 
@@ -107,3 +115,15 @@ def opt_state_from_jax(optimizers: Mapping, opt_state) -> None:
             return [torch.from_numpy(np.array(flat[n], dtype=np.float32)).to(dev) for n in opt.names]
 
         opt.load_state(count, tensors(mu), tensors(nu))
+
+
+def load_jax_checkpoint(model: torch.nn.Module, optimizers: Mapping, path) -> int:
+    """Load a JAX packed checkpoint directory into ``model`` and
+    ``optimizers`` ({group: GroupAdam}) in place; returns its step
+    (``step.txt``). Its ``rng`` key is dropped (utils/jax_checkpoint.py)."""
+    path = Path(path)
+    step = int((path / "step.txt").read_text())
+    tree, _ = read_packed(path)
+    params_from_jax(model, tree["params"])
+    opt_state_from_jax(optimizers, tree["opt_state"])
+    return step

@@ -1,4 +1,4 @@
-"""The committed 20k ``neus-facto-tpu-p8`` checkpoint, rendered by JAX and by the port.
+"""The committed 20k checkpoints, read and rendered by JAX and by the port.
 
 The JAX side builds its trainer from the method config, with the parity
 scene resolved against the repository root (the run's ``config.yml`` holds
@@ -12,7 +12,16 @@ Tolerance: the slice tolerance of tests/test_torch_model.py (3e-4 on rgb,
 accumulation and normal; depth compared weighted by accumulation), for the
 same reason: sample positions agree to a few f32 ulps of the ray distance,
 not to the bit, and NeuS alpha scales a position change by inv_s |grad sdf|.
+
+The port's numpy reader of packed checkpoints (``utils/jax_checkpoint.py``)
+is held to the JAX trainer's restore of both committed 20k checkpoints (the
+p8 carrier and the ``neus-facto`` control) leaf for leaf: the same paths in
+the same order and the same bits. A port trainer resumed from the p8
+directory (``Trainer.load_checkpoint``, through ``load_jax_checkpoint``)
+renders the same rays as JAX, and its Adam state is bit for bit what
+``opt_state_from_jax`` makes of JAX's own restore.
 """
+import json
 import pathlib
 
 import jax
@@ -21,32 +30,113 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-RUN = REPO / ".parity/runs/parity/neus-facto-tpu-p8/parity/sdfstudio_models"
+SCENE = REPO / ".parity" / "dtu_like"
+RUNS = {m: REPO / f".parity/runs/parity/{m}/parity/sdfstudio_models"
+        for m in ("neus-facto-tpu-p8", "neus-facto")}
+RUN = RUNS["neus-facto-tpu-p8"]
 STEP = 20000
 TOL = 3e-4
 
 
-@pytest.fixture(scope="module")
-def restored(tmp_path_factory):
-    if not (RUN / f"step-{STEP:09d}" / "packed.npz").exists():
-        pytest.fail(f"committed checkpoint missing under {RUN}")
+def _jax_restore(method, out_dir):
+    """The JAX trainer of ``method``, restored from its committed 20k checkpoint."""
+    if not (RUNS[method] / f"step-{STEP:09d}" / "packed.npz").exists():
+        pytest.fail(f"committed checkpoint missing under {RUNS[method]}")
     from sdfstudio_tpu.configs.methods import get_method_config
     from sdfstudio_tpu.engine.setup import setup_trainer
 
-    config = get_method_config("neus-facto-tpu-p8")
-    config.data = REPO / ".parity" / "dtu_like"
-    config.output_dir = tmp_path_factory.mktemp("p8_ckpt")
+    config = get_method_config(method)
+    config.data = SCENE
+    config.output_dir = out_dir
     trainer = setup_trainer(config, test_mode=True)
     trainer.setup()
-    trainer._load_checkpoint(RUN, STEP)
+    trainer._load_checkpoint(RUNS[method], STEP)
     return trainer
 
 
-def test_checkpoint_renders_the_same_in_jax_and_the_port(restored):
-    from sdfstudio_tpu_torch.configs.methods import build_model
+@pytest.fixture(scope="module")
+def restored(tmp_path_factory):
+    return _jax_restore("neus-facto-tpu-p8", tmp_path_factory.mktemp("p8_ckpt"))
+
+
+@pytest.fixture(scope="module")
+def port_resumed():
+    """The port's trainer for p8 on the CPU, resumed from the JAX checkpoint."""
+    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+
+    return setup_trainer("neus-facto-tpu-p8", SCENE, num_rays=64, device="cpu", load_dir=RUN,
+                         load_step=STEP)
+
+
+def _state(trainer):
+    return {"params": trainer.state.params, "opt_state": trainer.state.opt_state,
+            "model_state": trainer.state.model_state, "rng": trainer.state.rng}
+
+
+@pytest.mark.parametrize("method", sorted(RUNS))
+def test_packed_reader_matches_the_jax_loader_leaf_for_leaf(method, request, tmp_path):
+    """``read_packed`` (numpy only) against the JAX trainer's restore: the
+    same leaf paths in flatten order, and each leaf's dtype, shape and bits."""
+    from sdfstudio_tpu_torch.utils.jax_checkpoint import read_packed
+
+    trainer = (request.getfixturevalue("restored") if method == "neus-facto-tpu-p8"
+               else _jax_restore(method, tmp_path))
+    ref = jax.tree_util.tree_flatten_with_path(_state(trainer))[0]
+    tree, leaves = read_packed(RUNS[method] / f"step-{STEP:09d}")
+    assert [p for p, _ in leaves] == [jax.tree_util.keystr(p) for p, _ in ref]
+    assert len(leaves) == {"neus-facto-tpu-p8": 112, "neus-facto": 106}[method]
+    for (path, ours), (_, theirs) in zip(leaves, ref):
+        theirs = np.asarray(theirs)
+        assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, path
+        assert ours.tobytes() == theirs.tobytes(), path
+    # the tree is rebuilt with optax's field names
+    chain = tree["opt_state"].inner_states["field"].inner_state
+    assert int(chain[0].count) == int(chain[1].count) == STEP
+    masked = tree["opt_state"].inner_states["field_background"].inner_state[0].mu["field"]
+    assert type(masked["deviation"]).__name__ == "MaskedNode"
+
+
+def test_packed_reader_refuses_what_it_does_not_know(tmp_path):
+    import shutil
+
+    from sdfstudio_tpu_torch.utils.jax_checkpoint import parse_treedef, read_packed
+
+    with pytest.raises(ValueError, match="unknown node type OtherState"):
+        parse_treedef("PyTreeDef({'a': CustomNode(namedtuple[OtherState], [*])})")
+    src = RUN / f"step-{STEP:09d}"
+    dst = tmp_path / "step"
+    dst.mkdir()
+    shutil.copy(src / "packed.npz", dst / "packed.npz")
+    meta = json.loads((src / "structure.json").read_text())
+    meta["leaves"][3]["shape"] = [meta["leaves"][3]["shape"][0] + 1]
+    (dst / "structure.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="floats holds|float_idx holds"):
+        read_packed(dst)
+    meta = json.loads((src / "structure.json").read_text())
+    meta["treedef"] = meta["treedef"].replace("'rng': *", "'rng': None")
+    (dst / "structure.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="treedef has 111 leaves"):
+        read_packed(dst)
+
+
+def test_port_resumes_from_the_jax_checkpoint_with_its_adam_state(restored, port_resumed):
+    from sdfstudio_tpu_torch.engine.optimizers import build_optimizers
+    from sdfstudio_tpu_torch.utils.convert import opt_state_from_jax
+
+    assert port_resumed.step == STEP
+    ref = build_optimizers(port_resumed.optimizer_groups, port_resumed.model)
+    opt_state_from_jax(ref, jax.tree_util.tree_map(np.asarray, restored.state.opt_state))
+    for name, opt in port_resumed.optimizers.items():
+        assert opt.count == ref[name].count == STEP
+        for a, b in zip(opt.mu + opt.nu, ref[name].mu + ref[name].nu):
+            assert torch.equal(a, b), name
+    params = dict(port_resumed.model.named_parameters())
+    table = np.asarray(restored.state.params["field"]["encoding"]["hash_table"])
+    assert np.array_equal(params["field.encoding.hash_table"].detach().numpy(), table)
+
+
+def test_checkpoint_renders_the_same_in_jax_and_the_port(restored, port_resumed):
     from sdfstudio_tpu_torch.core.rays import RayBundle
-    from sdfstudio_tpu_torch.core.scene_box import SceneBox
-    from sdfstudio_tpu_torch.utils.convert import params_from_jax
 
     trainer = restored
     assert int(trainer.state.step) == STEP
@@ -59,15 +149,8 @@ def test_checkpoint_renders_the_same_in_jax_and_the_port(restored):
     )
     ref = trainer._render_chunk(trainer.state.params, jb, float(STEP), None)
 
-    sb = trainer.model.scene_box
-    model = build_model(
-        "neus-facto-tpu-p8",
-        SceneBox(aabb=np.asarray(sb.aabb), near=sb.near, far=sb.far, radius=sb.radius,
-                 collider_type=sb.collider_type),
-        num_train_data=trainer.datamanager.num_train_images,
-        device="cpu",
-    )
-    params_from_jax(model, jax.tree_util.tree_map(np.asarray, trainer.state.params))
+    # the port's model, loaded through load_jax_checkpoint by the trainer's resume
+    model = port_resumed.model
 
     def t(x):
         return torch.from_numpy(np.array(x))
@@ -76,7 +159,8 @@ def test_checkpoint_renders_the_same_in_jax_and_the_port(restored):
         origins=t(jb.origins), directions=t(jb.directions), pixel_area=t(jb.pixel_area),
         camera_indices=t(jb.camera_indices).long(), directions_norm=t(jb.directions_norm),
     )
-    out = model.get_outputs(tb, sched=model.schedules(STEP))
+    with torch.no_grad():
+        out = model.get_outputs(tb, sched=model.schedules(port_resumed.step))
 
     acc = np.asarray(ref["accumulation"])
     assert acc.max() > 0.9, "the rays should hit the scene"

@@ -1,6 +1,6 @@
 """The port and ``chip_smoke.py`` run on a machine without JAX.
 
-The card's machine has torch, numpy and the standard library, but no
+The card's machine has torch, numpy, scipy and the standard library, but no
 ``jax``, ``flax``, ``yaml``, ``PIL`` or the JAX package. A subprocess whose
 import system refuses those names imports every module of
 ``sdfstudio_tpu_torch`` and compiles ``chip_smoke.py``; an AST scan checks
@@ -13,7 +13,7 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "sdfstudio_tpu_torch"
-ALLOWED_TOP = {"torch", "numpy", "sdfstudio_tpu_torch"}
+ALLOWED_TOP = {"torch", "numpy", "scipy", "sdfstudio_tpu_torch"}
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
