@@ -1,8 +1,8 @@
 """Method registry (counterpart of ``sdfstudio_tpu/configs/methods.py``).
 
-Registers ``neus-facto-tpu-p8`` (methods.py:361-393) as a Python dataclass
-with its model, optimizer groups, trainer and data-manager settings; nothing
-is read from YAML.
+Registers ``neus-facto`` (methods.py:216-240) and ``neus-facto-tpu-p8``
+(methods.py:361-393) as Python dataclasses with their model, optimizer
+groups, trainer and data-manager settings; nothing is read from YAML.
 """
 from __future__ import annotations
 
@@ -36,7 +36,39 @@ def _adam(lr: float) -> OptimizerConfig:
     return OptimizerConfig(lr=lr, eps=1e-15)  # methods.py:62-63
 
 
+def _optimizers() -> Dict[str, OptimizerGroupConfig]:
+    """The optimizer groups both methods set (methods.py:234-238, 389-395).
+    Neither has a background field, so the JAX "field_background" group (a
+    placeholder) has no counterpart."""
+    return {
+        "proposal_networks": OptimizerGroupConfig(
+            _adam(1e-2), SchedulerConfig(kind="multistep", max_steps=20000)),
+        "field": OptimizerGroupConfig(
+            _adam(5e-4), SchedulerConfig(kind="neus", warm_up_end=500,
+                                         learning_rate_alpha=0.05, max_steps=20000)),
+    }
+
+
 method_configs = {
+    "neus-facto": MethodConfig(
+        "neus-facto",
+        NeuSFactoModel,
+        NeuSFactoModelConfig(
+            sdf_field=SDFFieldConfig(
+                num_layers=2,
+                num_layers_color=2,
+                hidden_dim=256,
+                bias=0.5,
+                beta_init=0.3,
+                inside_outside=False,
+            ),
+            background_model="none",
+            eval_num_rays_per_chunk=1024,
+        ),
+        optimizers=_optimizers(),
+        trainer=TrainerConfig(max_num_iterations=20001),
+        datamanager=DataManagerConfig(train_num_rays_per_batch=2048),
+    ),
     "neus-facto-tpu-p8": MethodConfig(
         "neus-facto-tpu-p8",
         NeuSFactoModel,
@@ -48,6 +80,7 @@ method_configs = {
                 bias=0.5,
                 beta_init=0.3,
                 inside_outside=False,
+                encoding_type="permuto",
                 num_levels=8,
                 hash_features_per_level=4,
                 max_res=512,
@@ -59,15 +92,7 @@ method_configs = {
             background_model="none",
             eval_num_rays_per_chunk=1024,
         ),
-        # methods.py:389-395; p8 has no background field, so the JAX
-        # "field_background" group (a placeholder) has no counterpart
-        optimizers={
-            "proposal_networks": OptimizerGroupConfig(
-                _adam(1e-2), SchedulerConfig(kind="multistep", max_steps=20000)),
-            "field": OptimizerGroupConfig(
-                _adam(5e-4), SchedulerConfig(kind="neus", warm_up_end=500,
-                                             learning_rate_alpha=0.05, max_steps=20000)),
-        },
+        optimizers=_optimizers(),
         trainer=TrainerConfig(max_num_iterations=20001),
         datamanager=DataManagerConfig(train_num_rays_per_batch=2048),
     ),

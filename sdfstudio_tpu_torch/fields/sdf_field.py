@@ -1,12 +1,12 @@
 """SDF field (counterpart of ``sdfstudio_tpu/fields/sdf_field.py``), eval
 and training forward.
 
-Ported: the permutohedral grid feature with its analytic jacobian, the
+Ported: the hash-grid or permutohedral grid feature with its analytic jacobian, the
 weight-normed geometry MLP with the ``"vjp"`` gradient
 (``geonetwork_with_gradient``, sdf_field.py:323-368), the color net through
 the fused kernel (``colors``, sdf_field.py:387-473) and ``get_outputs``
-(sdf_field.py:642-765) for the configuration options ``neus-facto-tpu-p8``
-uses. Other options raise.
+(sdf_field.py:642-765) for the configuration options ``neus-facto`` and
+``neus-facto-tpu-p8`` use. Other options raise.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from sdfstudio_tpu_torch.core.math import safe_normalize
 from sdfstudio_tpu_torch.core.rays import RaySamples
 from sdfstudio_tpu_torch.ops import density as density_ops
 from sdfstudio_tpu_torch.ops.contraction import contract
-from sdfstudio_tpu_torch.ops.encodings import NeRFEncoding
+from sdfstudio_tpu_torch.ops.encodings import HashEncoding, NeRFEncoding
 from sdfstudio_tpu_torch.ops.fused_mlp import fused_mlp
 from sdfstudio_tpu_torch.ops.mlp import (
     WNLinear,
@@ -38,11 +38,13 @@ from sdfstudio_tpu_torch.utils import checks
 @dataclasses.dataclass(frozen=True)
 class SDFFieldConfig:
     """The sizes and values of ``SDFFieldConfig`` (sdf_field.py:63-108) that
-    the eval path reads. The port implements the options
-    ``neus-facto-tpu-p8`` sets and no others: permutohedral grid feature
-    (``encoding_type="permuto"``, ``use_grid_feature=True``), positional
-    encoding, geometric init, weight norm, no appearance embedding at eval,
-    and the analytic ``"vjp"`` gradient."""
+    the port reads. The port implements the options ``neus-facto`` and
+    ``neus-facto-tpu-p8`` set and no others: the hash-grid
+    (``encoding_type="hash"``, f32 tables) or permutohedral
+    (``"permuto"``) grid feature with ``use_grid_feature=True``, positional
+    encoding, geometric init, weight norm, no appearance embedding, and the
+    analytic ``"vjp"`` gradient; other encodings and ``"bfloat16"`` tables
+    raise."""
 
     num_layers: int = 8
     hidden_dim: int = 256
@@ -60,6 +62,9 @@ class SDFFieldConfig:
     base_res: int = 16
     log2_hashmap_size: int = 19
     hash_features_per_level: int = 2
+    encoding_type: str = "hash"  # hash | permuto
+    hash_smoothstep: bool = True
+    hash_table_dtype: str = "float32"
 
 
 class SDFField(nn.Module):
@@ -74,13 +79,18 @@ class SDFField(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.spatial_distortion = spatial_distortion
-        self.encoding = PermutoEncoding(
-            num_levels=cfg.num_levels,
-            min_res=cfg.base_res,
-            max_res=cfg.max_res,
-            log2_hashmap_size=cfg.log2_hashmap_size,
-            features_per_level=cfg.hash_features_per_level,
-        )
+        if cfg.hash_table_dtype != "float32":
+            raise NotImplementedError(f"hash_table_dtype={cfg.hash_table_dtype!r} is not ported")
+        grid = dict(num_levels=cfg.num_levels, min_res=cfg.base_res, max_res=cfg.max_res,
+                    log2_hashmap_size=cfg.log2_hashmap_size,
+                    features_per_level=cfg.hash_features_per_level)
+        if cfg.encoding_type == "hash":
+            self.encoding = HashEncoding(smoothstep=cfg.hash_smoothstep, **grid)
+        elif cfg.encoding_type == "permuto":
+            self.encoding = PermutoEncoding(**grid)
+        else:
+            raise NotImplementedError(f"encoding_type={cfg.encoding_type!r} is not ported")
+        self.encode_range = f"sst/{cfg.encoding_type}_encode"  # the profiler range of the encode
         self.grid_dim = self.encoding.out_dim
         self.position_encoding = NeRFEncoding(
             3, cfg.position_encoding_max_degree, 0.0, cfg.position_encoding_max_degree - 1, False
@@ -198,7 +208,7 @@ class SDFField(nn.Module):
         itself only."""
         checks.check_positions(x, "SDFField.geonetwork positions")
         if train:
-            with record_function("sst/permuto_encode"):
+            with record_function(self.encode_range):
                 feature, fjac = self.grid_feature(x)
             layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
             with record_function("sst/geo_mlp_and_grad"):
@@ -207,7 +217,7 @@ class SDFField(nn.Module):
                 dx, dfeat = torch.autograd.grad(h[..., 0].sum(), (xg, feature), create_graph=True)
                 grad = dx + torch.einsum("...f,...fa->...a", dfeat, fjac)
             return h, grad
-        with torch.no_grad(), record_function("sst/permuto_encode"):
+        with torch.no_grad(), record_function(self.encode_range):
             feature, fjac = self.grid_feature(x)
         with torch.no_grad():
             layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
@@ -227,7 +237,7 @@ class SDFField(nn.Module):
         geo_features: torch.Tensor,
     ) -> torch.Tensor:
         """View-dependent colour (sdf_field.py:387-473), the whole chain in
-        the fused kernel. ``neus-facto-tpu-p8`` has no appearance embedding
+        the fused kernel. Neither ported method has an appearance embedding
         in training either (``use_appearance_embedding=False`` zeroes it), so
         the embedding input is zero in both modes. In training the kernel's
         input gradient reaches ``gradients`` and the geometry features."""

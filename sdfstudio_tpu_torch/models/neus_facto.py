@@ -13,7 +13,7 @@ from torch.profiler import record_function
 
 from sdfstudio_tpu_torch.components import losses as L
 from sdfstudio_tpu_torch.core.rays import RayBundle
-from sdfstudio_tpu_torch.fields.density_field import MLPDensityField
+from sdfstudio_tpu_torch.fields.density_field import HashMLPDensityField
 from sdfstudio_tpu_torch.models.neus import NeuSModel, NeuSModelConfig
 from sdfstudio_tpu_torch.ops import render as R
 from sdfstudio_tpu_torch.samplers.proposal import proposal_network_sampler
@@ -31,8 +31,8 @@ class NeuSFactoModelConfig(NeuSModelConfig):
     num_proposal_iterations: int = 2
     use_same_proposal_network: bool = False
     proposal_net_args_list: Tuple[Dict, ...] = (
-        {"field_type": "mlp", "hidden_dim": 128, "max_res": 64},
-        {"field_type": "mlp", "hidden_dim": 128, "max_res": 256},
+        {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 5, "max_res": 64},
+        {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 5, "max_res": 256},
     )
     use_proposal_weight_anneal: bool = True
     proposal_weights_anneal_slope: float = 10.0
@@ -49,8 +49,9 @@ class NeuSFactoModel(NeuSModel):
         if config.use_same_proposal_network:
             raise NotImplementedError("use_same_proposal_network is not ported yet")
         args = config.proposal_net_args_list
+        # each proposal field by its field_type (hash unless the args say "mlp")
         self.proposal_networks = nn.ModuleList(
-            MLPDensityField(
+            HashMLPDensityField(
                 aabb=scene_box.aabb,
                 spatial_distortion=config.scene_contraction_norm,
                 **args[min(i, len(args) - 1)],
@@ -118,7 +119,7 @@ class NeuSFactoModel(NeuSModel):
 
     def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict) -> Dict[str, torch.Tensor]:
         """neus_facto.py:237-257: the surface losses plus the interlevel loss
-        (p8 has no curvature term)."""
+        (neither ported method has a curvature term)."""
         loss_dict = super().get_loss_dict(outputs, batch, sched)
         loss_dict["interlevel_loss"] = self.config.interlevel_loss_mult * L.interlevel_loss_zip(
             outputs["weights_list"], outputs["ray_samples_list"]

@@ -12,6 +12,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_mlp_bwd": 0,
     "row_gather_take": 0,
     "row_gather_loop": 0,
+    "hash_encode_fwd": 0,
+    "hash_encode_bwd": 0,
 }
 
 

@@ -1,17 +1,22 @@
-"""The ``neus-facto-tpu-p8`` arm of the quality-parity protocol on the card
-(counterpart of ``sdfstudio_tpu/scripts/benchmarking/parity.py``;
-``docs/parity-protocol.md``):
+"""One arm of the quality-parity protocol on the card (counterpart of
+``sdfstudio_tpu/scripts/benchmarking/parity.py``; ``docs/parity-protocol.md``):
 
     python -m sdfstudio_tpu_torch.scripts.benchmarking.parity \\
-        [--segment 5000] [--budget-seconds S] [--device cuda|cpu]
+        [--method neus-facto-tpu-p8|neus-facto] [--segment 5000] \\
+        [--budget-seconds S] [--device cuda|cpu]
 
-Trains ``neus-facto-tpu-p8`` for 20,000 steps of 2048 rays on the committed
-scene ``.parity/dtu_like`` (never regenerated; every view trains and every
-view is evaluated, ``holdout`` 0, as ``PARITY.json`` was made), then runs
-the trainer's final evaluation (eval-split PSNR and SSIM, Chamfer-L1 of the
-256^3 mesh against the analytic surface) and writes ``PARITY_CUDA.json`` in
-``PARITY.json``'s schema, judged against ``PARITY.json``'s control with the
-same criteria: PSNR at most 0.3 dB below it, Chamfer-L1 at most 10% above.
+Trains the method (default ``neus-facto-tpu-p8``, the preset) for 20,000
+steps of 2048 rays on the committed scene ``.parity/dtu_like`` (never
+regenerated; every view trains and every view is evaluated, ``holdout`` 0,
+as ``PARITY.json`` was made), then runs the trainer's final evaluation
+(eval-split PSNR and SSIM, Chamfer-L1 of the 256^3 mesh against the
+analytic surface) and writes its arm into ``PARITY_CUDA.json``, judged
+against ``PARITY.json``'s control with the same criteria: PSNR at most 0.3
+dB below it, Chamfer-L1 at most 10% above. The preset's arm fills
+``PARITY.json``'s schema (``method``, ``pass``, ``preset``, ``control``,
+...); ``neus-facto``, the control method itself trained by the port, goes
+under ``control_cuda`` beside them. Each arm leaves the other's keys as
+they are.
 
 Training runs in segments of ``--segment`` steps in this one process, each
 ending in a checkpoint under ``.parity/cuda_runs/``; a new invocation
@@ -35,7 +40,7 @@ DATA_DIR = PARITY_DIR / "dtu_like"
 RUNS_DIR = PARITY_DIR / "cuda_runs"
 CONTROL = REPO / "PARITY.json"
 ATTESTATION = REPO / "PARITY_CUDA.json"
-METHOD = "neus-facto-tpu-p8"
+METHODS = ("neus-facto-tpu-p8", "neus-facto")
 ITERS = 20000
 NUM_RAYS = 2048
 PSNR_TOL_DB = 0.3  # parity.py:57-58
@@ -53,28 +58,35 @@ def latest_step(method: str) -> int:
     return max(steps, default=0)
 
 
-def write_attestation(preset: dict, control: dict) -> dict:
-    """``PARITY.json``'s schema and pass rule (parity.py:247-267)."""
-    ok_psnr = preset["psnr"] >= control["psnr"] - PSNR_TOL_DB
-    ok_chamfer = preset["chamfer_l1"] <= control["chamfer_l1"] * (1 + CHAMFER_TOL)
-    rec = {
-        "method": preset["method"],
-        "pass": bool(ok_psnr and ok_chamfer),
-        "preset": {"psnr": preset["psnr"], "chamfer_l1": preset["chamfer_l1"],
-                   "iters": preset["iters"]},
-        "control": {"psnr": control["psnr"], "chamfer_l1": control["chamfer_l1"],
-                    "iters": control["iters"]},
-        "scene": "dtu_like",
-        "holdout": 0,
-        "criteria": {"psnr_tol_db": PSNR_TOL_DB, "chamfer_tol": CHAMFER_TOL},
-    }
+def write_attestation(arm: dict, control: dict) -> dict:
+    """``PARITY.json``'s schema and pass rule (parity.py:247-267) for the
+    preset's arm; the ``control_cuda`` key for ``neus-facto``'s. The other
+    arm's keys in ``PARITY_CUDA.json`` stay as they are."""
+    ok = bool(arm["psnr"] >= control["psnr"] - PSNR_TOL_DB
+              and arm["chamfer_l1"] <= control["chamfer_l1"] * (1 + CHAMFER_TOL))
+    scores = {"psnr": arm["psnr"], "chamfer_l1": arm["chamfer_l1"], "iters": arm["iters"]}
+    rec = json.loads(ATTESTATION.read_text()) if ATTESTATION.exists() else {}
+    if arm["method"] == "neus-facto":
+        rec["control_cuda"] = {**scores, "pass": ok}
+    else:
+        rec.update({
+            "method": arm["method"],
+            "pass": ok,
+            "preset": scores,
+            "control": {"psnr": control["psnr"], "chamfer_l1": control["chamfer_l1"],
+                        "iters": control["iters"]},
+            "scene": "dtu_like",
+            "holdout": 0,
+            "criteria": {"psnr_tol_db": PSNR_TOL_DB, "chamfer_tol": CHAMFER_TOL},
+        })
     ATTESTATION.write_text(json.dumps(rec, indent=2) + "\n")
-    print(f"[parity] attestation -> {ATTESTATION}: pass={rec['pass']}", flush=True)
+    print(f"[parity] {arm['method']} -> {ATTESTATION}: pass={ok}", flush=True)
     return rec
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m sdfstudio_tpu_torch.scripts.benchmarking.parity")
+    ap.add_argument("--method", default=METHODS[0], choices=METHODS)
     ap.add_argument("--segment", type=int, default=5000, help="steps per checkpointed segment")
     ap.add_argument("--budget-seconds", type=float, default=None,
                     help="start no segment after this much wall time (re-run to resume)")
@@ -84,11 +96,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if not (DATA_DIR / "meta_data.json").is_file():
         raise FileNotFoundError(f"the committed parity scene is missing: {DATA_DIR}")
     control = json.loads(CONTROL.read_text())["control"]
-    base = arm_base_dir(METHOD)
+    method = args.method
+    base = arm_base_dir(method)
     metrics = base / "parity_metrics.json"
-    start = latest_step(METHOD)
+    start = latest_step(method)
     trainer = setup_trainer(
-        METHOD, DATA_DIR, max_num_iterations=ITERS, num_rays=NUM_RAYS, device=args.device,
+        method, DATA_DIR, max_num_iterations=ITERS, num_rays=NUM_RAYS, device=args.device,
         output_dir=base, steps_per_save=args.segment, final_eval_output=str(metrics),
         load_dir=base / "sdfstudio_models" if start > 0 else None, load_step=start or None,
     )
@@ -103,9 +116,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             end = min(trainer.step + args.segment, ITERS)
             t0 = time.time()
             trainer.train(end)  # at ITERS it also runs the final evaluation
-            print(f"[parity] {METHOD}: segment -> {end} done in {time.time() - t0:.0f}s", flush=True)
+            print(f"[parity] {method}: segment -> {end} done in {time.time() - t0:.0f}s", flush=True)
         rec = json.loads(metrics.read_text())
-    print(f"[parity] {METHOD}: {json.dumps(rec)}", flush=True)
+    print(f"[parity] {method}: {json.dumps(rec)}", flush=True)
     write_attestation(rec, control)
     return 0
 

@@ -7,8 +7,9 @@ and copies each leaf into the port model's parameter of the same path:
 * Flax ``WNLinear`` (``kernel [in, out]``, ``g [out]``, ``bias``) and
   ``_DenseParams`` (``kernel [in, out]``, ``bias``) keep their layout: the
   port's layers use ``[in, out]`` kernels too (ops/mlp.py:49-88, 142-155);
-* the permutohedral ``hash_table [rows, F]`` keeps its layout;
-* ``MLP_0/layer_j`` becomes ``mlp.layers.j``.
+* the hash-grid and permutohedral ``hash_table [rows, F]`` keep their layout;
+* a proposal field's ``MLP_0/layer_j`` becomes ``mlp.layers.j``, and its
+  ``HashEncoding_0/hash_table`` becomes ``encoding.hash_table``.
 
 It raises on any missing, extra or mis-shaped leaf. The JAX tree's
 ``field_background/dummy`` (a placeholder group, base_surface_model.py:104)
@@ -53,7 +54,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _port_key(jax_key: str) -> str:
-    key = jax_key.replace("MLP_0.", "mlp.")
+    key = jax_key.replace("MLP_0.", "mlp.").replace("HashEncoding_0.", "encoding.")
     return re.sub(r"layer_(\d+)", r"layers.\1", key)
 
 

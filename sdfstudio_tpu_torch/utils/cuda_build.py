@@ -120,6 +120,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sst_row_gather_take_rows.restype = ci
     lib.sst_row_gather_loop_smem_bytes.argtypes = [ci, ci]
     lib.sst_row_gather_loop_smem_bytes.restype = ll
+    ints, u32s = ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_uint32)
+    lib.sst_hash_encode_fwd.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ints, u32s, ints, ci, ci, vp]
+    lib.sst_hash_encode_fwd.restype = ci
+    lib.sst_hash_encode_bwd.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ints, u32s, ints, ci, ci, vp]
+    lib.sst_hash_encode_bwd.restype = ci
     return lib
 
 

@@ -8,17 +8,20 @@ train state through the trainer's own loader. The port takes the restored
 view 0 at the checkpoint's step. Nothing is written into the tree: the
 trainer's output directory is the test's temporary directory.
 
-Tolerance: the slice tolerance of tests/test_torch_model.py (3e-4 on rgb,
-accumulation and normal; depth compared weighted by accumulation), for the
-same reason: sample positions agree to a few f32 ulps of the ray distance,
-not to the bit, and NeuS alpha scales a position change by inv_s |grad sdf|.
+Tolerance: for p8 the slice tolerance of tests/test_torch_model.py (3e-4
+on rgb, accumulation and normal; depth compared weighted by accumulation),
+for the same reason: sample positions agree to a few f32 ulps of the ray
+distance, not to the bit, and NeuS alpha scales a position change by inv_s
+|grad sdf|. ``neus-facto``'s smoothstep hash grid has a continuous
+jacobian and renders these rays within ~1e-5 of JAX, so it is held to
+1e-4 throughout.
 
 The port's numpy reader of packed checkpoints (``utils/jax_checkpoint.py``)
 is held to the JAX trainer's restore of both committed 20k checkpoints (the
 p8 carrier and the ``neus-facto`` control) leaf for leaf: the same paths in
-the same order and the same bits. A port trainer resumed from the p8
-directory (``Trainer.load_checkpoint``, through ``load_jax_checkpoint``)
-renders the same rays as JAX, and its Adam state is bit for bit what
+the same order and the same bits. A port trainer resumed from each directory
+(``Trainer.load_checkpoint``, through ``load_jax_checkpoint``) renders the
+same rays as JAX, and its Adam state is bit for bit what
 ``opt_state_from_jax`` makes of JAX's own restore.
 """
 import json
@@ -55,17 +58,33 @@ def _jax_restore(method, out_dir):
 
 
 @pytest.fixture(scope="module")
-def restored(tmp_path_factory):
-    return _jax_restore("neus-facto-tpu-p8", tmp_path_factory.mktemp("p8_ckpt"))
+def jax_restored(tmp_path_factory):
+    """``method`` -> the JAX trainer restored from its committed checkpoint, made once."""
+    cache = {}
+
+    def get(method):
+        if method not in cache:
+            cache[method] = _jax_restore(method, tmp_path_factory.mktemp("ckpt"))
+        return cache[method]
+
+    return get
 
 
 @pytest.fixture(scope="module")
 def port_resumed():
-    """The port's trainer for p8 on the CPU, resumed from the JAX checkpoint."""
+    """``method`` -> the port's trainer on the CPU resumed from the JAX
+    checkpoint, made once."""
     from sdfstudio_tpu_torch.scripts.train import setup_trainer
 
-    return setup_trainer("neus-facto-tpu-p8", SCENE, num_rays=64, device="cpu", load_dir=RUN,
-                         load_step=STEP)
+    cache = {}
+
+    def get(method):
+        if method not in cache:
+            cache[method] = setup_trainer(method, SCENE, num_rays=64, device="cpu",
+                                          load_dir=RUNS[method], load_step=STEP)
+        return cache[method]
+
+    return get
 
 
 def _state(trainer):
@@ -74,13 +93,12 @@ def _state(trainer):
 
 
 @pytest.mark.parametrize("method", sorted(RUNS))
-def test_packed_reader_matches_the_jax_loader_leaf_for_leaf(method, request, tmp_path):
+def test_packed_reader_matches_the_jax_loader_leaf_for_leaf(method, jax_restored):
     """``read_packed`` (numpy only) against the JAX trainer's restore: the
     same leaf paths in flatten order, and each leaf's dtype, shape and bits."""
     from sdfstudio_tpu_torch.utils.jax_checkpoint import read_packed
 
-    trainer = (request.getfixturevalue("restored") if method == "neus-facto-tpu-p8"
-               else _jax_restore(method, tmp_path))
+    trainer = jax_restored(method)
     ref = jax.tree_util.tree_flatten_with_path(_state(trainer))[0]
     tree, leaves = read_packed(RUNS[method] / f"step-{STEP:09d}")
     assert [p for p, _ in leaves] == [jax.tree_util.keystr(p) for p, _ in ref]
@@ -119,10 +137,13 @@ def test_packed_reader_refuses_what_it_does_not_know(tmp_path):
         read_packed(dst)
 
 
-def test_port_resumes_from_the_jax_checkpoint_with_its_adam_state(restored, port_resumed):
+@pytest.mark.parametrize("method", sorted(RUNS))
+def test_port_resumes_from_the_jax_checkpoint_with_its_adam_state(method, jax_restored,
+                                                                  port_resumed):
     from sdfstudio_tpu_torch.engine.optimizers import build_optimizers
     from sdfstudio_tpu_torch.utils.convert import opt_state_from_jax
 
+    restored, port_resumed = jax_restored(method), port_resumed(method)
     assert port_resumed.step == STEP
     ref = build_optimizers(port_resumed.optimizer_groups, port_resumed.model)
     opt_state_from_jax(ref, jax.tree_util.tree_map(np.asarray, restored.state.opt_state))
@@ -133,12 +154,18 @@ def test_port_resumes_from_the_jax_checkpoint_with_its_adam_state(restored, port
     params = dict(port_resumed.model.named_parameters())
     table = np.asarray(restored.state.params["field"]["encoding"]["hash_table"])
     assert np.array_equal(params["field.encoding.hash_table"].detach().numpy(), table)
+    if method == "neus-facto":  # the hash proposal fields' tables
+        for i in ("0", "1"):
+            ref = restored.state.params["proposal_networks"][i]["HashEncoding_0"]["hash_table"]
+            got = params[f"proposal_networks.{i}.encoding.hash_table"].detach().numpy()
+            assert np.array_equal(got, np.asarray(ref))
 
 
-def test_checkpoint_renders_the_same_in_jax_and_the_port(restored, port_resumed):
+@pytest.mark.parametrize("method", sorted(RUNS))
+def test_checkpoint_renders_the_same_in_jax_and_the_port(method, jax_restored, port_resumed):
     from sdfstudio_tpu_torch.core.rays import RayBundle
 
-    trainer = restored
+    trainer, port_resumed = jax_restored(method), port_resumed(method)
     assert int(trainer.state.step) == STEP
     bundle = trainer.datamanager.eval_image_rays(0)
     # 16 pixels across the centre row of the 384x384 view
@@ -162,19 +189,22 @@ def test_checkpoint_renders_the_same_in_jax_and_the_port(restored, port_resumed)
     with torch.no_grad():
         out = model.get_outputs(tb, sched=model.schedules(port_resumed.step))
 
+    tol = TOL if method == "neus-facto-tpu-p8" else 1e-4
     acc = np.asarray(ref["accumulation"])
     assert acc.max() > 0.9, "the rays should hit the scene"
     for k in ("rgb", "accumulation"):
-        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=0, atol=TOL, err_msg=k)
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=0, atol=tol, err_msg=k)
     np.testing.assert_allclose(out["depth"].numpy() * out["accumulation"].numpy(),
-                               np.asarray(ref["depth"]) * acc, rtol=0, atol=4.0 * TOL)
-    # The analytic gradient of the piecewise-linear encode jumps at simplex
+                               np.asarray(ref["depth"]) * acc, rtol=0, atol=4.0 * tol)
+    # The analytic gradient of p8's piecewise-linear encode jumps at simplex
     # faces (cells of 1/512 of the box at the finest level): a sample that
     # sits within the ~6e-6 position disagreement of a face takes the other
     # side's jacobian, which moves that sample's normal by the jump times its
     # weight. Normals are therefore held to 2e-3 end to end, and to the
-    # field's own 1e-4 on identical samples below.
-    np.testing.assert_allclose(out["normal"].numpy(), np.asarray(ref["normal"]), rtol=0, atol=2e-3)
+    # field's own 1e-4 on identical samples below. The hash grid's
+    # smoothstep jacobian is continuous: neus-facto's normals take 1e-4.
+    np.testing.assert_allclose(out["normal"].numpy(), np.asarray(ref["normal"]), rtol=0,
+                               atol=2e-3 if method == "neus-facto-tpu-p8" else tol)
 
     jm = trainer.model
     sched = jm.schedules(float(STEP))

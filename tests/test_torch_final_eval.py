@@ -99,9 +99,9 @@ def test_mesh_export_writes_binary_ply(tmp_path):
     assert np.array_equal(np.asarray(back.faces), mesh.faces)
 
 
-@pytest.fixture(scope="module")
-def models():
-    return _small_models()
+@pytest.fixture(scope="module", params=["neus-facto-tpu-p8", "neus-facto"])
+def models(request):
+    return _small_models(request.param)
 
 
 def test_evaluate_sdf_grid_matches_jax(models):

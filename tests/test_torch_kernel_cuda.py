@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-fused MLP, forward and backward, and the row gathers ``take`` and ``loop``.
+fused MLP, forward and backward, the row gathers ``take`` and ``loop``, and
+the hash-grid encode, forward and table gradient.
 
 Every test here needs an NVIDIA card (marked ``cuda``) and skips elsewhere.
 The file imports no JAX, so on a machine with the card but without JAX it
@@ -13,18 +14,27 @@ and lo, ~21 bits each), so the error stays within a few K * 2^-22 of the
 output scale: 1e-4 relative to max|plain| + 1 (``chip_smoke.py``'s
 KERNEL_TOL), and 1e-4 for the backward (BWD_TOL). A gather is a copy: the
 row gathers must equal their plain versions exactly, NaN rows included.
+The hash-grid forward adds 8 products a level in another order than the
+plain version's batched product: 1e-6 of max |plain| (HASH_FWD_TOL). Its
+backward adds up to ~10^5 updates into a coarse row with atomics, in an
+order that changes from run to run (the plain ``index_add_`` on the card
+uses atomics too): 1e-5 in relative Frobenius norm (HASH_BWD_TOL).
 """
 import numpy as np
 import pytest
 import torch
 
 from sdfstudio_tpu_torch.ops import fused_mlp as fm
+from sdfstudio_tpu_torch.ops import hash_grid as hg
 from sdfstudio_tpu_torch.ops import row_gather as rg
+from sdfstudio_tpu_torch.ops.encodings import HashEncoding
 
 pytestmark = pytest.mark.cuda
 
 KERNEL_TOL = 1e-4  # chip_smoke.py
 BWD_TOL = 1e-4  # chip_smoke.py
+HASH_FWD_TOL = 1e-6  # chip_smoke.py
+HASH_BWD_TOL = 1e-5  # chip_smoke.py
 
 _ACTS = [("relu", "none"), ("softplus100", "relu"), ("none", "softplus100")]
 
@@ -64,6 +74,7 @@ def _case(dims, n, device, seed=0, margin=False):
         ([39, 128, 128, 1], 262144),  # proposal 0 of a render chunk
         ([51, 128, 128, 1], 98304),  # proposal 1
         ([321, 256, 256, 3], 49152),  # color
+        ([10, 16, 1], 524288),  # a neus-facto hash proposal net of a train step
         ([3, 9, 130, 8], 65),  # ragged rows, a 9-wide tiled layer, an 8-wide head
         ([17, 257, 5, 300, 1], 1),  # a narrow hidden layer between tiled ones
     ],
@@ -111,6 +122,7 @@ _BWD_CASES = [
     ([39, 128, 128, 1], 524288, "relu", "none", False),  # proposal 0
     ([51, 128, 128, 1], 196608, "relu", "none", False),  # proposal 1
     ([321, 256, 256, 3], 98304, "relu", "none", True),  # color
+    ([10, 16, 1], 524288, "relu", "none", False),  # neus-facto's hash proposal 0
 ] + [
     (dims, n, act, out_act, need_dx)
     for dims, n in [
@@ -414,3 +426,117 @@ def test_row_gather_refuses_what_it_cannot_take(card):
     assert rg.LAUNCHES == before
     torch.testing.assert_close(rg.take(big, big_idx), rg.take_plain(big, big_idx), rtol=0, atol=0,
                                equal_nan=True)
+
+
+# ---- the hash-grid encode ------------------------------------------------------
+
+# (grid, points, jacobian): neus-facto's SDF grid at a train step's points,
+# its two proposal grids at theirs, and an all-dense grid whose far corner
+# at x = 1.0 reads past the table (NaN rows, dropped gradients)
+_HASH_GRIDS = {
+    "sdf": dict(num_levels=16, min_res=16, max_res=2048, log2_hashmap_size=19, smoothstep=True),
+    "proposal_64": dict(num_levels=5, min_res=16, max_res=64, log2_hashmap_size=17),
+    "proposal_256": dict(num_levels=5, min_res=16, max_res=256, log2_hashmap_size=17),
+    "dense": dict(num_levels=3, min_res=2, max_res=8, log2_hashmap_size=10, smoothstep=True),
+}
+_HASH_CASES = [("sdf", 98304, True), ("proposal_64", 524288, False),
+               ("proposal_256", 196608, False), ("dense", 4099, True)]
+
+
+def row_table(rows, F, device):
+    """A table whose values identify their row: a corner read from the wrong
+    row is off by O(1), not by noise."""
+    k = torch.arange(rows * F, dtype=torch.int64, device=device)
+    return (((k * 2654435761) % (1 << 24)).to(torch.float32) / (1 << 23) - 1.0).reshape(rows, F)
+
+
+def _hash_points(n, device, seed=0):
+    """Uniform points in [0, 1]^3 with 0, exactly 1.0 and cell faces among them."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    edges = np.array([[0, 0, 0], [1, 1, 1], [1, 0.5, 0.25], [0.125, 1, 0.5], [0.5, 0.5, 1]],
+                     np.float32)
+    x[:min(n, len(edges))] = edges[:n]
+    return torch.from_numpy(x).to(device)
+
+
+def _rel_max(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _check_hash(enc, x, want_jac, device, seed=1):
+    spec, R = enc.spec, enc.total_rows
+    table = row_table(R, 2, device)
+    before = dict(hg.LAUNCHES)
+    got = hg.hash_encode_fwd(x, table, spec, want_jac)
+    want = hg.hash_encode_plain(x, table, spec, want_jac)
+    got, want = (got, want) if want_jac else ((got,), (want,))
+    rng = np.random.default_rng(seed)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(w.shape)).astype(np.float32)).to(device)
+           for w in want]
+    g_out, g_jac = cot[0], (cot[1] if want_jac else None)
+    grad = hg.hash_encode_bwd(x, g_out, g_jac, spec, R)
+    ref = hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R)
+    torch.cuda.synchronize()
+    n = x.shape[0]
+    assert hg.LAUNCHES["hash_encode_fwd"] == before["hash_encode_fwd"] + (1 if n else 0)
+    assert hg.LAUNCHES["hash_encode_bwd"] == before["hash_encode_bwd"] + (1 if n else 0)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        if n:
+            assert _rel_max(torch.nan_to_num(a), torch.nan_to_num(b)) <= HASH_FWD_TOL
+    assert grad.shape == (R, 2) and bool(torch.isfinite(grad).all())
+    if n:
+        assert _rel_fro(grad, ref) <= HASH_BWD_TOL
+    return got
+
+
+@pytest.mark.parametrize("grid,n,want_jac", _HASH_CASES)
+def test_hash_encode_kernels_match_plain(card, grid, n, want_jac):
+    enc = HashEncoding(**_HASH_GRIDS[grid])
+    out = _check_hash(enc, _hash_points(n, card), want_jac, card)
+    # the far corner of x = 1.0 reads past the all-dense table: NaN there only
+    assert bool(torch.isnan(out[0]).any()) == (grid == "dense")
+
+
+@pytest.mark.parametrize("n", [0, 1, 127])
+@pytest.mark.parametrize("grid", ["sdf", "proposal_64", "dense"])
+def test_hash_encode_batch_edges(card, grid, n):
+    enc = HashEncoding(**_HASH_GRIDS[grid])
+    _check_hash(enc, _hash_points(n, card, seed=n), True, card, seed=n)
+
+
+def test_hash_encode_autograd_wiring(card):
+    """The autograd node on the card launches both kernels and gives the
+    table the plain version's gradient, from both outputs' cotangents; it
+    refuses an x that requires a gradient."""
+    enc = HashEncoding(**_HASH_GRIDS["sdf"]).to(card)
+    with torch.no_grad():
+        enc.hash_table.copy_(row_table(enc.total_rows, 2, card))
+    x = _hash_points(1000, card)
+    before = dict(hg.LAUNCHES)
+    out, jac = enc(x, want_jac=True)
+    (out.sum() + 0.5 * jac.square().sum()).backward()
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["hash_encode_fwd"] == before["hash_encode_fwd"] + 1
+    assert hg.LAUNCHES["hash_encode_bwd"] == before["hash_encode_bwd"] + 1
+    ref = hg.hash_encode_bwd_plain(x, torch.ones_like(out), jac.detach(), enc.spec, enc.total_rows)
+    assert _rel_fro(enc.hash_table.grad, ref) <= HASH_BWD_TOL
+    with pytest.raises(ValueError, match="no gradient for x"):
+        enc(x.clone().requires_grad_(True))
+
+
+def test_hash_encode_refuses_what_it_cannot_take(card):
+    """The kernels take F = 2 and float2-aligned rows; the wrappers raise on
+    anything else before a launch."""
+    enc = HashEncoding(**_HASH_GRIDS["dense"])
+    x = _hash_points(10, card)
+    with pytest.raises(ValueError, match="features per level"):
+        hg.hash_encode_fwd(x, torch.zeros(enc.total_rows, 4, device=card), enc.spec)
+    table = torch.zeros(enc.total_rows * 2 + 1, device=card)[1:].view(enc.total_rows, 2)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        hg.hash_encode_fwd(x, table, enc.spec)
+    with pytest.raises(ValueError, match="contiguous float32 CUDA"):
+        hg.hash_encode_bwd(x, torch.zeros(10, 6, device=card).double(), None, enc.spec,
+                           enc.total_rows)

@@ -1,10 +1,13 @@
 """The port's fields, model and render entry against the JAX package.
 
-A small ``neus-facto-tpu-p8`` (permuto L2xF2, hidden 32, proposal samples
-(16, 8), 8 NeuS samples, 64 rays) is initialised by JAX, its parameters are
-perturbed from a numpy seed (so the grid feature, the encode jacobian and
-every bias matter), carried into the port by ``params_from_jax``, and the
-same rays go through both.
+A small model of each ported method is initialised by JAX, its parameters
+are perturbed from a numpy seed (so the grid feature, the encode jacobian
+and every bias matter), carried into the port by ``params_from_jax``, and
+the same rays go through both: ``neus-facto-tpu-p8`` (permuto L2xF2, MLP
+proposal fields) and ``neus-facto`` (hash grid L4 of 2^10 rows at
+resolutions 4-32, two dense levels and two hashed, with smoothstep; hash
+proposal fields L3 of 2^13 rows), both hidden 32, proposal samples (16, 8),
+8 NeuS samples, 64 rays.
 
 Tolerances: the proposal densities and the color net are f32 MLP chains,
 1e-5. The SDF gradient chains the permutohedral jacobian (residuals scaled
@@ -32,6 +35,9 @@ from sdfstudio_tpu.cameras.cameras import Cameras as JCameras
 from sdfstudio_tpu.configs.methods import get_method_config as jget_method_config
 from sdfstudio_tpu.core.rays import RayBundle as JRayBundle
 from sdfstudio_tpu.core.scene_box import SceneBox as JSceneBox
+from sdfstudio_tpu.fields.sdf_field import SDFFieldConfig as JSDFFieldConfig
+from sdfstudio_tpu.models.neus_facto import NeuSFactoModel as JNeuSFactoModel
+from sdfstudio_tpu.models.neus_facto import NeuSFactoModelConfig as JNeuSFactoModelConfig
 
 from sdfstudio_tpu_torch.cameras.cameras import Cameras as TCameras
 from sdfstudio_tpu_torch.configs.methods import MethodConfig, build_model, get_method_config
@@ -60,18 +66,31 @@ def _scene_boxes():
     return JSceneBox(**kw), TSceneBox(**kw)
 
 
-def _small_models(seed=0):
-    jcfg = jget_method_config("neus-facto-tpu-p8").model
+METHODS = ["neus-facto-tpu-p8", "neus-facto"]
+# each method's grid and proposal fields, cut to a small size
+SMALL = {
+    "neus-facto-tpu-p8": (
+        dict(num_levels=2, hash_features_per_level=2, log2_hashmap_size=12),
+        ({"field_type": "mlp", "hidden_dim": 32, "max_res": 64},
+         {"field_type": "mlp", "hidden_dim": 32, "max_res": 256}),
+    ),
+    "neus-facto": (
+        dict(num_levels=4, base_res=4, max_res=32, log2_hashmap_size=10),
+        ({"hidden_dim": 16, "log2_hashmap_size": 13, "num_levels": 3, "max_res": 64},
+         {"hidden_dim": 16, "log2_hashmap_size": 13, "num_levels": 3, "max_res": 256}),
+    ),
+}
+
+
+def _small_models(method, seed=0):
+    grid, proposal_args = SMALL[method]
+    jcfg = jget_method_config(method).model
     jsdf = dataclasses.replace(
-        jcfg.sdf_field, num_levels=2, hash_features_per_level=2, log2_hashmap_size=12,
-        hidden_dim=32, geo_feat_dim=32, hidden_dim_color=32,
+        jcfg.sdf_field, hidden_dim=32, geo_feat_dim=32, hidden_dim_color=32, **grid,
     )
     jcfg = dataclasses.replace(
         jcfg, sdf_field=jsdf, num_proposal_samples_per_ray=(16, 8), num_neus_samples_per_ray=8,
-        proposal_net_args_list=(
-            {"field_type": "mlp", "hidden_dim": 32, "max_res": 64},
-            {"field_type": "mlp", "hidden_dim": 32, "max_res": 256},
-        ),
+        proposal_net_args_list=proposal_args,
     )
     tsdf = TSDFFieldConfig(**{f.name: getattr(jsdf, f.name) for f in dataclasses.fields(TSDFFieldConfig)})
     tcfg = TNeuSFactoModelConfig(**{
@@ -79,7 +98,7 @@ def _small_models(seed=0):
         for f in dataclasses.fields(TNeuSFactoModelConfig)
     })
     jsb, tsb = _scene_boxes()
-    jmodel = jget_method_config("neus-facto-tpu-p8").model_class(jcfg, jsb, NUM_IMAGES)
+    jmodel = jget_method_config(method).model_class(jcfg, jsb, NUM_IMAGES)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
 
@@ -94,15 +113,15 @@ def _small_models(seed=0):
 
     np_params = jax.tree_util.tree_map_with_path(perturb, params)
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
-    tmodel = build_model(MethodConfig("small-p8", TNeuSFactoModel, tcfg), tsb, NUM_IMAGES,
+    tmodel = build_model(MethodConfig(f"small-{method}", TNeuSFactoModel, tcfg), tsb, NUM_IMAGES,
                          device="cpu")
     params_from_jax(tmodel, np_params)
     return jmodel, jparams, np_params, tmodel
 
 
-@pytest.fixture(scope="module")
-def models():
-    return _small_models()
+@pytest.fixture(scope="module", params=METHODS)
+def models(request):
+    return _small_models(request.param)
 
 
 def _rays(R=64, seed=1):
@@ -245,16 +264,43 @@ def test_params_from_jax_rejects_missing_extra_and_misshaped(models):
         params_from_jax(tmodel, bad)
 
 
-def test_full_width_config_matches_jax_parameter_tree():
+def _same_tree(jmodel_cfg, tmodel_cfg):
+    """The JAX and port models of these configs have the same parameter
+    tree, leaf for leaf and shape for shape (``params_from_jax`` raises on
+    any missing, extra or mis-shaped leaf)."""
+    jsb, tsb = _scene_boxes()
+    shapes = jax.eval_shape(lambda k: JNeuSFactoModel(jmodel_cfg, jsb, NUM_IMAGES).init(k),
+                            jax.random.PRNGKey(0))
+    tmodel = TNeuSFactoModel(tmodel_cfg, tsb, NUM_IMAGES)
+    params_from_jax(tmodel, jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes))
+    return tmodel
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_full_width_config_matches_jax_parameter_tree(method):
     """The registered port config builds the same parameter tree, leaf for
     leaf and shape for shape, as the JAX method at full width."""
-    jsb, tsb = _scene_boxes()
-    jm = jget_method_config("neus-facto-tpu-p8")
-    shapes = jax.eval_shape(lambda k: jm.model_class(jm.model, jsb, NUM_IMAGES).init(k),
-                            jax.random.PRNGKey(0))
-    tmodel = get_method_config("neus-facto-tpu-p8").model_class(
-        get_method_config("neus-facto-tpu-p8").model, tsb, NUM_IMAGES)
-    params_from_jax(tmodel, jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes))
+    tmodel = _same_tree(jget_method_config(method).model, get_method_config(method).model)
+    encoding = tmodel.field.encoding
+    assert type(encoding).__name__ == {"neus-facto": "HashEncoding",
+                                       "neus-facto-tpu-p8": "PermutoEncoding"}[method]
+
+
+def test_default_configs_build_the_jax_default_tree():
+    """The port's default ``SDFFieldConfig`` and ``NeuSFactoModelConfig``
+    build JAX's defaults: the hash grid (L16 x F2 of 2^19 rows, 6,098,925
+    rows with smoothstep) and the two hash proposal fields (278,256 and
+    434,066 rows). JAX's defaults are taken with the two settings every
+    ported method has: the grid feature on and no background field."""
+    jcfg = JNeuSFactoModelConfig(sdf_field=JSDFFieldConfig(use_grid_feature=True),
+                                 background_model="none")
+    tcfg = TNeuSFactoModelConfig(background_model="none")
+    assert tcfg.sdf_field == TSDFFieldConfig()
+    tmodel = _same_tree(jcfg, tcfg)
+    assert tmodel.field.encoding.total_rows == 6_098_925 and tmodel.field.encoding.spec.smoothstep
+    props = [net.encoding for net in tmodel.proposal_networks]
+    assert [e.total_rows for e in props] == [278_256, 434_066]
+    assert not any(e.spec.smoothstep for e in props)
 
 
 def test_entry_points_default_to_cuda():

@@ -194,8 +194,8 @@ def test_cuda_build_is_lazy_and_needs_nvcc(monkeypatch):
     h = cuda_build.sources_hash()
     assert h == cuda_build.sources_hash() and len(h) == 64
     assert [p.name for p in cuda_build._sources()] == ["fused_mlp_bwd.cu", "fused_mlp_fwd.cu",
-                                                       "row_gather.cu", "fused_mlp_chain.cuh",
-                                                       "tf32_mma.cuh"]
+                                                       "hash_grid.cu", "row_gather.cu",
+                                                       "fused_mlp_chain.cuh", "tf32_mma.cuh"]
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(cuda_build.os.path, "isfile", lambda p: False)

@@ -1,13 +1,15 @@
 """Save, load and resume in the port's trainer, on the CPU.
 
-Four straight steps of the full-width ``neus-facto-tpu-p8`` at 64 rays on
-the committed scene equal two steps, a save, a fresh trainer's load and two
-more steps, bit for bit: the parameters, every group's Adam moments and
-count, the step, the metrics of the last step and the generator's state.
-The tolerance is 0. PyTorch's CPU ``index_put_`` with accumulation (the
-backward of the table gather) adds with parallel atomics, in an order that
-changes from run to run, unless deterministic algorithms are on; with them
-on, the CPU repeats a step bit for bit, so the module turns them on.
+Four straight steps of each full-width method (``neus-facto-tpu-p8`` and
+``neus-facto``) at 64 rays on the committed scene equal two steps, a save,
+a fresh trainer's load and two more steps, bit for bit: the parameters,
+every group's Adam moments and count, the step, the metrics of the last step
+and the generator's state. The tolerance is 0. PyTorch's CPU
+``index_put_`` with accumulation (the backward of p8's table gather) adds
+with parallel atomics, in an order that changes from run to run, unless
+deterministic algorithms are on; with them on, the CPU repeats a step bit
+for bit, so the module turns them on. (The hash grid's table gradient is an
+``index_add_`` on the CPU.)
 """
 import dataclasses
 import pathlib
@@ -44,10 +46,10 @@ def data():
     return outputs.scene_box, VanillaDataManager(dm_cfg, outputs, device="cpu")
 
 
-def _setup(data, output_dir=None, **fields):
+def _setup(data, output_dir=None, method="neus-facto-tpu-p8", **fields):
     """A set-up trainer as ``scripts/train.py::setup_trainer`` builds it."""
     scene_box, dm = data
-    cfg = get_method_config("neus-facto-tpu-p8")
+    cfg = get_method_config(method)
     model = build_model(cfg, scene_box, num_train_data=dm.num_train_images, seed=0,
                         device="cpu").train()
     trainer = Trainer(dataclasses.replace(cfg.trainer, **fields), model, dm, cfg.optimizers,
@@ -73,17 +75,18 @@ def _assert_same(a, b):
         assert torch.equal(a[k], b[k]), k
 
 
-def test_resume_repeats_the_straight_run_bit_for_bit(data, tmp_path):
-    straight = _setup(data)
+@pytest.mark.parametrize("method", ["neus-facto-tpu-p8", "neus-facto"])
+def test_resume_repeats_the_straight_run_bit_for_bit(data, tmp_path, method):
+    straight = _setup(data, method=method)
     rows = [straight.train_step() for _ in range(4)]
 
-    first = _setup(data, output_dir=tmp_path, steps_per_save=2)
+    first = _setup(data, output_dir=tmp_path, method=method, steps_per_save=2)
     first.train(2)  # saves at its end
     ckpt_dir = tmp_path / "sdfstudio_models"
     assert sorted(p.name for p in ckpt_dir.iterdir()) == ["step-000000002"]
     saved = _state(first)
 
-    resumed = _setup(data, load_dir=ckpt_dir)  # the newest complete checkpoint
+    resumed = _setup(data, load_dir=ckpt_dir, method=method)  # the newest complete checkpoint
     _assert_same(_state(resumed), saved)
     resumed_rows = [resumed.train_step() for _ in range(2)]
     assert torch.equal(resumed_rows[-1], rows[-1])

@@ -3,9 +3,10 @@
 Covers the fused MLP under autograd (against ``jax.vjp`` of
 ``pallas_mlp.fused_mlp(..., interpret=True)``), the losses, the jittered
 samplers, the proposal gradient gate, one whole training step of a small
-``neus-facto-tpu-p8`` (loss dict and the gradient of every parameter), and
-Adam with the schedules over a frozen proposal step from a carried-over
-optax state.
+model of each ported method, ``neus-facto-tpu-p8`` and ``neus-facto`` (loss
+dict and the gradient of every parameter, the hash tables' through the
+encode's autograd node), and Adam with the schedules over a frozen proposal
+step from a carried-over optax state.
 
 Tolerances, with their reasons:
 - fused MLP gradients: 1e-5 relative to each output's scale (max |JAX| + 1).
@@ -63,6 +64,7 @@ from sdfstudio_tpu_torch.samplers import pdf as tpdf
 from sdfstudio_tpu_torch.samplers import proposal as tprop
 from sdfstudio_tpu_torch.samplers import spaced as tspaced
 from sdfstudio_tpu_torch.utils.convert import _flatten, _port_key, opt_state_from_jax, params_from_jax
+from tests.test_torch_model import METHODS, SMALL
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 NUM_IMAGES = 3
@@ -253,21 +255,18 @@ def test_jittered_pdf_sampler_matches_jax(single_jitter):
         _close(getattr(tr, k), getattr(jr, k))
 
 
-# --- small neus-facto-tpu-p8 --------------------------------------------------
+# --- small models of both methods (tests/test_torch_model.py's sizes) --------
 
 
-def _small_models(seed=0):
-    jcfg = jget_method_config("neus-facto-tpu-p8").model
+def _small_models(method, seed=0):
+    grid, proposal_args = SMALL[method]
+    jcfg = jget_method_config(method).model
     jsdf = dataclasses.replace(
-        jcfg.sdf_field, num_levels=2, hash_features_per_level=2, log2_hashmap_size=12,
-        hidden_dim=32, geo_feat_dim=32, hidden_dim_color=32,
+        jcfg.sdf_field, hidden_dim=32, geo_feat_dim=32, hidden_dim_color=32, **grid,
     )
     jcfg = dataclasses.replace(
         jcfg, sdf_field=jsdf, num_proposal_samples_per_ray=(16, 8), num_neus_samples_per_ray=8,
-        proposal_net_args_list=(
-            {"field_type": "mlp", "hidden_dim": 32, "max_res": 64},
-            {"field_type": "mlp", "hidden_dim": 32, "max_res": 256},
-        ),
+        proposal_net_args_list=proposal_args,
     )
     tsdf = TSDFFieldConfig(**{f.name: getattr(jsdf, f.name) for f in dataclasses.fields(TSDFFieldConfig)})
     tcfg = TNeuSFactoModelConfig(**{
@@ -275,7 +274,7 @@ def _small_models(seed=0):
         for f in dataclasses.fields(TNeuSFactoModelConfig)
     })
     kw = dict(near=0.8, far=4.0, radius=1.0, collider_type="near_far")
-    jmodel = jget_method_config("neus-facto-tpu-p8").model_class(jcfg, JSceneBox(**kw), NUM_IMAGES)
+    jmodel = jget_method_config(method).model_class(jcfg, JSceneBox(**kw), NUM_IMAGES)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
 
@@ -289,15 +288,15 @@ def _small_models(seed=0):
         return (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32)
 
     np_params = jax.tree_util.tree_map_with_path(perturb, params)
-    tmodel = build_model(MethodConfig("small-p8", TNeuSFactoModel, tcfg), TSceneBox(**kw), NUM_IMAGES,
-                         device="cpu")
+    tmodel = build_model(MethodConfig(f"small-{method}", TNeuSFactoModel, tcfg), TSceneBox(**kw),
+                         NUM_IMAGES, device="cpu")
     params_from_jax(tmodel, np_params)
-    return jmodel, jax.tree_util.tree_map(jnp.asarray, np_params), np_params, tmodel
+    return jmodel, jax.tree_util.tree_map(jnp.asarray, np_params), np_params, tmodel, method
 
 
-@pytest.fixture(scope="module")
-def models():
-    return _small_models()
+@pytest.fixture(scope="module", params=METHODS)
+def models(request):
+    return _small_models(request.param)
 
 
 def _rays(R=48, seed=1):
@@ -319,7 +318,7 @@ def _rays(R=48, seed=1):
 
 
 def test_schedules_match_jax(models):
-    jmodel, _, _, tmodel = models
+    jmodel, _, _, tmodel, _ = models
     for step in [0, 5, 9, 10, 11, 12, 13, 500, 999, 1000, 1001, 2500, 2501, 2502, 4000, 4003, 5000, 5005, 20000]:
         js, ts = jmodel.schedules(jnp.asarray(float(step), jnp.float32)), tmodel.schedules(step)
         assert bool(js["train_proposal"]) == ts["train_proposal"], step
@@ -331,7 +330,7 @@ def test_schedules_match_jax(models):
 def test_proposal_gate_gradients_match_jax(models, train_proposal):
     """The proposal nets' gradient through the sampler and the interlevel
     loss: the same on an update step, zero (None in the port) on a frozen one."""
-    jmodel, jparams, _, tmodel = models
+    jmodel, jparams, _, tmodel, _ = models
     jb, tb = _bundle(R=24, seed=10)
     w_final = np.random.default_rng(11).dirichlet(np.ones(8), 24).astype(np.float32)
 
@@ -365,9 +364,9 @@ def test_proposal_gate_gradients_match_jax(models, train_proposal):
 @pytest.mark.parametrize("step", [20, 1001])
 def test_train_step_loss_and_grads_match_jax(models, step):
     """One step's losses and the gradient of every parameter group (the
-    permutohedral table included) against ``jax.value_and_grad`` of
+    grid table included) against ``jax.value_and_grad`` of
     ``get_outputs(train=True)`` + ``get_loss_dict``, with no jitter."""
-    jmodel, jparams, _, tmodel = models
+    jmodel, jparams, _, tmodel, method = models
     jb, tb, batch = _rays()
     jsched = jmodel.schedules(jnp.asarray(float(step), jnp.float32))
     tsched = tmodel.schedules(step)
@@ -380,7 +379,7 @@ def test_train_step_loss_and_grads_match_jax(models, step):
         return sum(ld.values()), ld
 
     (ref_total, ref_ld), jg = jax.value_and_grad(jloss, has_aux=True)(jparams)
-    opts = build_optimizers(get_method_config("neus-facto-tpu-p8").optimizers, tmodel)
+    opts = build_optimizers(get_method_config(method).optimizers, tmodel)
     total, ld, metrics = loss_and_metrics(tmodel, tb, {k: _t(v) for k, v in batch.items()}, tsched)
     assert sorted(ld) == sorted(ref_ld) == ["eikonal_loss", "fg_mask_loss", "interlevel_loss", "rgb_loss"]
     for k in ld:
@@ -413,8 +412,8 @@ def test_adam_and_schedules_match_optax_over_a_frozen_step(models):
     (trainer.py:405-418). On a frozen step the proposal nets' gradient is
     zero in JAX (the gate stops it) and None in the port (no graph reaches
     them)."""
-    jmodel, jparams, _, tmodel = models
-    groups = jget_method_config("neus-facto-tpu-p8").optimizers
+    jmodel, jparams, _, tmodel, method = models
+    groups = jget_method_config(method).optimizers
     tx = jbuild_optimizer(groups, jparams)
     rng = np.random.default_rng(12)
 
@@ -435,7 +434,7 @@ def test_adam_and_schedules_match_optax_over_a_frozen_step(models):
     for step in range(7, 10):
         params, state = jstep(params, state, rand_grads(), step)
     params_from_jax(tmodel, jax.tree_util.tree_map(np.asarray, params))
-    opts = build_optimizers(get_method_config("neus-facto-tpu-p8").optimizers, tmodel)
+    opts = build_optimizers(get_method_config(method).optimizers, tmodel)
     opt_state_from_jax(opts, state)
     assert all(o.count == 3 for o in opts.values())
     named = dict(tmodel.named_parameters())

@@ -89,13 +89,14 @@ def test_datamanager_rays_and_pixels_match_jax(parsed):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_train_entry_point_and_frozen_proposal_step():
+@pytest.mark.parametrize("method", ["neus-facto-tpu-p8", "neus-facto"])
+def test_train_entry_point_and_frozen_proposal_step(method):
     """Twelve steps at 16 rays on the CPU: step 10 (index 10, an update)
     moves the proposal nets, step 11 (frozen) leaves them bit-for-bit."""
-    assert train_script.main(["neus-facto-tpu-p8", "--data", str(SCENE), "--device", "cpu",
+    assert train_script.main([method, "--data", str(SCENE), "--device", "cpu",
                               "--trainer.max-num-iterations", "2",
                               "--datamanager.train-num-rays-per-batch", "16"]) == 0
-    trainer = train_script.setup_trainer("neus-facto-tpu-p8", SCENE, num_rays=16, device="cpu")
+    trainer = train_script.setup_trainer(method, SCENE, num_rays=16, device="cpu")
     prop = trainer.optimizers["proposal_networks"]
     moved = []
     for step in range(12):
