@@ -11,7 +11,9 @@ Phases, each printing its own line with wall-clock seconds:
    -sass`` of the built library, each kernel's count of tensor-core
    instructions (``HGMMA``, Hopper's warpgroup MMA) and the row gathers' and
    hash-grid kernels' memory instructions by form (evict-first stores,
-   atomic reductions);
+   atomic reductions, the float4 reduction of a corner pair); beside it
+   nvcc builds ``scripts/benchmarking/hash_grid_designs.cu``, which keeps
+   the first design of the hash-grid kernels as a baseline;
 3. slice: a full-width ``neus-facto-tpu-p8`` model from the port's seeded
    initialiser renders one 384x384 view through ``render_image`` in
    1024-ray chunks. Geometric init makes the SDF close to a sphere; the
@@ -69,17 +71,28 @@ Phases, each printing its own line with wall-clock seconds:
 9. neus_facto: a full-width seeded ``neus-facto`` (hash grids) renders the
    view and is checked as in phase 3; one 1024-ray chunk of it runs again
    with every kernel swapped for its plain version on the card (and 256 of
-   its rays on the CPU), and one render is traced. Both hash-grid kernels
-   are held to their plain versions at a train step's shapes (the SDF grid
-   at 98,304 points with the jacobian, the proposal grids at 524,288 and
-   196,608 without) on a table whose values identify their row, and timed
-   beside their plain versions, ``index_select`` of the corner rows and
-   ``index_add_`` of the corner updates. Then phases 5 and 8 run for
-   ``neus-facto``: 40 train steps (with the hash kernels' launch counts),
-   the kernel step against the plain step, and the resume, held to the
-   train-step tolerance (the table gradients add with atomics);
-10. the ``kernels`` JSON line (six kernels), the ``nvidia-smi`` line, and
+   its rays on the CPU), and one render is traced. Then phase 5 runs for
+   ``neus-facto`` (40 train steps, with the hash kernels' launch counts:
+   the atomic table gradient on this path, never the deterministic one);
+   its kernel step against the plain step captures the step's three hash
+   calls (the SDF grid at 98,304 points with the jacobian, the proposal
+   grids at 524,288 and 196,608 without): ``x`` and the cotangents autograd
+   hands the backward. Both hash-grid kernels, and the deterministic table
+   gradient's two kernels, are held to their plain versions on those
+   inputs, on uniform points, and at F = 4 on ``neus-facto-tpu``'s grid
+   (L8xF4, 2^19 rows, max resolution 512), on a table whose values identify
+   their row, and timed beside the first design, their plain versions,
+   ``index_select`` of the corner rows and ``index_add_`` of the corner
+   updates, with each call's bytes and sector bounds. Then phase 8 runs for
+   ``neus-facto`` with ``torch.use_deterministic_algorithms(True)``: the
+   table gradients take the sorted segment sum, and the resumed run must
+   equal the straight one bit for bit, parameters included;
+10. the ``kernels`` JSON line (eight kernels), the ``nvidia-smi`` line, and
    the result line.
+
+``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
+call (unless the caller set it), so that cuBLAS accepts the deterministic
+mode of phase 9.
 
 It imports torch, numpy, the standard library and ``sdfstudio_tpu_torch``
 only (the judge imports scipy). Any failed check raises, so the exit code
@@ -103,9 +116,13 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
-import numpy as np
-import torch
+# cuBLAS reads this when it starts: phase 9's deterministic mode needs it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 T0 = time.perf_counter()
 SEED = 0
@@ -195,6 +212,7 @@ def ptxas_report(build_log: str) -> dict:
                                      "fused_mlp_bwd_fix_kernel", "fused_mlp_bwd_dw_narrow_kernel",
                                      "fused_mlp_bwd_dw_kernel", "fused_mlp_bwd_reduce_kernel",
                                      "split_kernel", "hash_fwd_kernel", "hash_bwd_kernel",
+                                     "hash_corner_rows_kernel", "hash_segment_sum_kernel",
                                      "take", "loop") if k in mangled), mangled[-40:])
             tmpl = mangled.split("ILi")[1].split("E")[0] if "ILi" in mangled else ""
             name = f"{stem}<{tmpl}>" if tmpl else stem
@@ -692,6 +710,8 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
               and launches["hash_encode_bwd"] == TRAIN_STEPS + 2 * n_update,
               f"expected {3 * TRAIN_STEPS} hash forward and {TRAIN_STEPS + 2 * n_update} backward "
               f"launches, got {launches}")
+    check(launches["hash_encode_bwd_det"] == 0 and launches["hash_segment_sum"] == 0,
+          f"the deterministic table gradient ran with deterministic algorithms off: {launches}")
     check(model.schedules(10)["train_proposal"] and moved[10], "the proposal nets did not move on step 10")
     check(not model.schedules(11)["train_proposal"] and not moved[11],
           "the proposal nets moved on frozen step 11")
@@ -717,8 +737,11 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
         total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
         return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
 
+    from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
+
     calls: list = []
-    with capture_fused_mlp_calls(calls):
+    hash_calls: list = []  # the step's hash-grid calls: x and the cotangents of their backward
+    with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls):
         k_loss, k_grads = one_step()
     with swap_fused_mlp(fm.fused_mlp_plain), swap_hash_plain():
         p_loss, p_grads = one_step()
@@ -804,84 +827,166 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
         prof.events(), traced_ms,
         windows=[("backward (between forward and optimizer)", "sst/train_forward", "sst/train_optimizer")])}
     log(phase.replace("train", "train_profile"), json.dumps(profile))
+    captured = {}
+    if model.field.config.encoding_type == "hash":
+        encs = {"sdf": model.field.encoding, "proposal_0": model.proposal_networks[0].encoding,
+                "proposal_1": model.proposal_networks[1].encoding}
+        for name, enc in encs.items():
+            mine = [r for r in hash_calls if r["spec"] == enc.spec and "g_out" in r]
+            check(len(mine) == 1, f"captured {len(mine)} {name} hash calls with a backward")
+            check(mine[0]["x"].shape[0] == HASH_STEP_POINTS[name],
+                  f"{name}: captured {mine[0]['x'].shape[0]} points, expected {HASH_STEP_POINTS[name]}")
+            captured[name] = mine[0]
     return {"launches": launches, "step_ms": train_ms, "rays_per_s": TRAIN_RAYS / train_ms * 1e3,
-            "synced_step_median_ms": float(np.median(warm)),
+            "synced_step_median_ms": float(np.median(warm)), "hash_captured": captured,
             "bwd_calls": bwd_calls, "fwd_calls": fwd_calls, "profile": profile,
             "probe_l1": [l1_before, l1_after], "step_loss_err": loss_err, "step_grad_err": grad_err}
 
 
-def row_table(rows: int, F: int) -> torch.Tensor:
-    """A table on the card whose values identify their row: a corner read
-    from the wrong row is off by O(1), not by noise."""
-    k = torch.arange(rows * F, dtype=torch.int64, device="cuda")
-    return (((k * 2654435761) % (1 << 24)).to(torch.float32) / (1 << 23) - 1.0).reshape(rows, F)
+def time_pair_ms(a, b, reps: int = 20):
+    """Two functions timed in turns (a, b, b, a), each the mean of ``reps``
+    back-to-back launches: their means."""
+    ta = [cuda_time_many_ms(a, reps)]
+    tb = [cuda_time_many_ms(b, reps), cuda_time_many_ms(b, reps)]
+    ta.append(cuda_time_many_ms(a, reps))
+    return sum(ta) / 2, sum(tb) / 2
 
 
-def hash_kernel_checks(model) -> list:
-    """Both hash-grid kernels against their plain versions at one train
-    step's shapes, on a row-identifying table and uniform points with 0 and
-    1.0 among them; kernel (CUDA events), plain version and the nearest
-    library calls timed: the corner rows as one ``index_select``, the corner
-    updates as one ``index_add_`` (both of precomputed rows and updates)."""
+def hash_kernel_checks(captured: dict, designs) -> list:
+    """Both hash-grid kernels, and the deterministic table gradient's two
+    kernels, against their plain versions on a row-identifying table: on the
+    captured inputs of a train step's three calls, on uniform points with 0
+    and 1.0 among them, and at F = 4 on ``neus-facto-tpu``'s grid (on the
+    SDF call's captured points and on uniform ones). Timed by CUDA events:
+    kernel and the first design in turns, the plain versions, the nearest
+    library calls (the corner rows as one ``index_select``, the corner
+    updates as one ``index_add_``, both precomputed), the deterministic
+    path and its parts; each call's bytes and sector bounds beside them."""
     from sdfstudio_tpu_torch.ops import hash_grid as hg
+    from sdfstudio_tpu_torch.ops.encodings import HashEncoding
     from sdfstudio_tpu_torch.ops.launches import LAUNCHES
+    from sdfstudio_tpu_torch.ops.scatter import sorted_segment_add
+    from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
 
     before = dict(LAUNCHES)
-    encs = {"sdf": model.field.encoding, "proposal_0": model.proposal_networks[0].encoding,
-            "proposal_1": model.proposal_networks[1].encoding}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    recs = []
-    for name, enc in encs.items():
-        n, want_jac = HASH_STEP_POINTS[name], name == "sdf"
-        spec, R, F, L = enc.spec, enc.total_rows, enc.features_per_level, enc.num_levels
-        table = row_table(R, F)
-        x = torch.rand((n, 3), generator=gen, device="cuda")
+    base_fwd, base_bwd = (hgd.c_fwd(designs.sst_baseline_hash_encode_fwd),
+                          hgd.c_bwd(designs.sst_baseline_hash_encode_bwd))
+    enc4 = HashEncoding(**hgd.F4_GRID)
+    cases = []
+    for name, r in captured.items():
+        g_out, g_jac = r["g_out"], r["g_jac"]
+        cases.append((name, "captured", r["x"], r["spec"], r["rows"], r["F"], r["want_jac"], g_out,
+                      g_jac))
+        x = torch.rand(r["x"].shape, generator=gen, device="cuda")
         x[0], x[1], x[2, 0] = 0.0, 1.0, 1.0
+        rnd = [torch.randn(g.shape, generator=gen, device="cuda") if g is not None else None
+               for g in (g_out, g_jac)]
+        cases.append((name, "uniform", x, r["spec"], r["rows"], r["F"], r["want_jac"], *rnd))
+    x_sdf, LF4 = captured["sdf"]["x"], enc4.out_dim
+    for which in ("captured", "uniform"):
+        x = x_sdf if which == "captured" else torch.rand(x_sdf.shape, generator=gen, device="cuda")
+        n = x.shape[0]
+        cases.append(("F4", which, x, enc4.spec, enc4.total_rows, 4, True,
+                      torch.randn((n, LF4), generator=gen, device="cuda"),
+                      torch.randn((n, LF4, 3), generator=gen, device="cuda")))
+    recs = []
+    for name, which, x, spec, R, F, want_jac, g_out, g_jac in cases:
+        n, L = x.shape[0], spec.num_levels
+        table = hgd.row_table(R, F)
         got = hg.hash_encode_fwd(x, table, spec, want_jac)
         want = hg.hash_encode_plain(x, table, spec, want_jac)
         got, want = (got, want) if want_jac else ((got,), (want,))
-        cot = [torch.randn(w.shape, generator=gen, device="cuda") for w in want]
-        g_out, g_jac = cot[0], (cot[1] if want_jac else None)
+        fwd_err = hgd.fwd_err(got, want)
+        fwd_abs = max(float((torch.nan_to_num(a) - torch.nan_to_num(b)).abs().max())
+                      for a, b in zip(got, want))
         grad = hg.hash_encode_bwd(x, g_out, g_jac, spec, R)
         ref = hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R)
+        det = [hg.hash_encode_bwd_det(x, g_out, g_jac, spec, R) for _ in range(2)]
+        keys, upd = hg.hash_corner_rows(x, g_out, g_jac, spec, R)
+        rows_p, upd_p = hg.corner_updates(x, g_out, g_jac, spec)
         torch.cuda.synchronize()
-        fwd_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
-        fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        bwd_err = rel_fro(grad, ref)
-        bwd_abs = float((grad - ref).abs().max())
-        rows, upd = hg.corner_updates(x, g_out, g_jac, spec)
-        check(int(rows.max()) < R, f"{name}: a corner past the table")
-        n_unique = int(torch.unique(rows).numel())
-        del got, want, grad, ref
-        f_ms = cuda_time_many_ms(lambda: hg.hash_encode_fwd(x, table, spec, want_jac), 20)
-        b_ms = cuda_time_many_ms(lambda: hg.hash_encode_bwd(x, g_out, g_jac, spec, R), 20)
-        fp_ms = cuda_time_ms(lambda: hg.hash_encode_plain(x, table, spec, want_jac), 3, 1)
-        bp_ms = cuda_time_ms(lambda: hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R), 3, 1)
-        fl_ms = cuda_time_many_ms(lambda: table.index_select(0, rows), 20)
-        bl_ms = cuda_time_many_ms(
-            lambda: torch.zeros((R, F), device="cuda").index_add_(0, rows, upd), 20)
-        outs = 4.0 * n * L * F * (4 if want_jac else 1)  # out (and jac)
-        # forward: x, the rows this step touches, out (and jac); backward: x,
-        # the cotangents, and the whole gradient table written once
-        f_bytes = 12.0 * n + 4.0 * F * n_unique + outs
-        b_bytes = 12.0 * n + outs + 4.0 * R * F
-        rec = {"call": name, "points": n, "levels": L, "rows": R, "jacobian": want_jac,
-               "corner_reads": n * L * 8, "unique_rows": n_unique,
-               "fwd": {"max_abs_err": fwd_abs, "rel_err": fwd_err, "ms": f_ms, "plain_ms": fp_ms,
-                       "library_ms": fl_ms, "bytes": f_bytes, "bound_ms": f_bytes / HBM_RATE * 1e3},
-               "bwd": {"max_abs_err": bwd_abs, "rel_fro_err": bwd_err, "ms": b_ms, "plain_ms": bp_ms,
-                       "library_ms": bl_ms, "bytes": b_bytes, "bound_ms": b_bytes / HBM_RATE * 1e3}}
+        bwd_err, bwd_abs = rel_fro(grad, ref), float((grad - ref).abs().max())
+        det_err, det_same = rel_fro(det[0], ref), torch.equal(det[0], det[1])
+        det_abs = float((det[0] - ref).abs().max())
+        keys_same = torch.equal(keys.long(), torch.where(rows_p < R, rows_p, R))
+        upd_abs = float((upd - upd_p).abs().max())
+        upd_err = upd_abs / max(float(upd_p.abs().max()), 1e-30)
+        baseline_err = None
+        if F == 2:  # the first design takes F = 2 only
+            baseline_err = max(hgd.fwd_err(base_fwd(x, table, spec, want_jac), want),
+                           rel_fro(base_bwd(x, g_out, g_jac, spec, R), ref))
+        del got, want, grad, det
+        stats = hgd.sector_stats(x, spec, R, F, pair=True)
+        bnd = hgd.bounds(x, spec, R, F, want_jac, stats)
+        sorted_keys, perm = torch.sort(keys, stable=True)
+        corner = hg.corner_indices(x, spec)[0].reshape(-1)
+        corner = torch.where(corner < R, corner, 0)
+        f_ms = b_ms = f_base_ms = b_base_ms = None
+        if F == 2:
+            f_ms, f_base_ms = time_pair_ms(lambda: hg.hash_encode_fwd(x, table, spec, want_jac),
+                                           lambda: base_fwd(x, table, spec, want_jac))
+            b_ms, b_base_ms = time_pair_ms(lambda: hg.hash_encode_bwd(x, g_out, g_jac, spec, R),
+                                           lambda: base_bwd(x, g_out, g_jac, spec, R))
+        else:
+            f_ms = cuda_time_many_ms(lambda: hg.hash_encode_fwd(x, table, spec, want_jac), 20)
+            b_ms = cuda_time_many_ms(lambda: hg.hash_encode_bwd(x, g_out, g_jac, spec, R), 20)
+        rec = {
+            "call": name, "inputs": which, "points": n, "levels": L, "F": F, "rows": R,
+            "jacobian": want_jac, "corner_reads": n * L * 8, **stats,
+            "fwd": {"max_abs_err": fwd_abs, "rel_err": fwd_err, "ms": f_ms, "baseline_ms": f_base_ms,
+                    "plain_ms": cuda_time_ms(lambda: hg.hash_encode_plain(x, table, spec, want_jac),
+                                             3, 1),
+                    "library_ms": cuda_time_many_ms(lambda: table.index_select(0, corner), 20),
+                    "bytes": bnd["fwd_bytes"], "bound_ms": bnd["fwd_bound_ms"],
+                    "sector_bound_ms": bnd["fwd_sector_bound_ms"]},
+            "bwd": {"max_abs_err": bwd_abs, "rel_fro_err": bwd_err, "ms": b_ms, "baseline_ms": b_base_ms,
+                    "plain_ms": cuda_time_ms(
+                        lambda: hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R), 3, 1),
+                    "library_ms": cuda_time_many_ms(
+                        lambda: torch.zeros((R, F), device="cuda").index_add_(0, corner, upd), 20),
+                    "bytes": bnd["bwd_bytes"], "bound_ms": bnd["bwd_bound_ms"],
+                    "sector_bound_ms": bnd["bwd_sector_bound_ms"]},
+            "det": {"rel_fro_err": det_err, "repeats_bitwise": det_same, "keys_exact": keys_same,
+                    "upd_rel_err": upd_err, "corner_rows_max_abs_err": upd_abs,
+                    "segment_sum_max_abs_err": det_abs,
+                    "ms": cuda_time_many_ms(lambda: hg.hash_encode_bwd_det(x, g_out, g_jac, spec, R),
+                                            10),
+                    "corner_rows_ms": cuda_time_many_ms(
+                        lambda: hg.hash_corner_rows(x, g_out, g_jac, spec, R), 10),
+                    "corner_rows_plain_ms": cuda_time_ms(
+                        lambda: hg.corner_updates(x, g_out, g_jac, spec), 3, 1),
+                    "corner_rows_bytes": bnd["bwd_bytes"] - 4.0 * F * R + 4.0 * (1 + F) * n * L * 8,
+                    "sort_ms": cuda_time_many_ms(lambda: torch.sort(keys, stable=True), 10),
+                    "segment_sum_ms": cuda_time_many_ms(
+                        lambda: hg.hash_segment_sum(sorted_keys, perm, upd, R), 10),
+                    "segment_sum_plain_ms": cuda_time_ms(
+                        lambda: sorted_segment_add(keys.long(), upd, R), 3, 1),
+                    "segment_sum_library_ms": cuda_time_many_ms(
+                        lambda: torch.zeros((R + 1, F), device="cuda").index_add_(0, keys.long(),
+                                                                                 upd), 10),
+                    "segment_sum_bytes": 4.0 * (3 + F) * n * L * 8 + 4.0 * F * R},
+            "baseline_err": baseline_err,
+        }
+        for k in ("corner_rows", "segment_sum"):
+            rec["det"][f"{k}_bound_ms"] = rec["det"][f"{k}_bytes"] / HBM_RATE * 1e3
         recs.append(rec)
         log("neus_facto", json.dumps(rec))
-        check(fwd_err <= HASH_FWD_TOL, f"{name}: hash forward kernel vs plain {fwd_err} > {HASH_FWD_TOL}")
-        check(bwd_err <= HASH_BWD_TOL, f"{name}: hash backward kernel vs plain {bwd_err} > {HASH_BWD_TOL}")
-        del x, table, cot, g_out, g_jac, rows, upd
+        tag = f"{name} ({which})"
+        check(fwd_err <= HASH_FWD_TOL, f"{tag}: hash forward kernel vs plain {fwd_err} > {HASH_FWD_TOL}")
+        check(bwd_err <= HASH_BWD_TOL, f"{tag}: hash backward kernel vs plain {bwd_err} > {HASH_BWD_TOL}")
+        check(det_err <= HASH_BWD_TOL and det_same,
+              f"{tag}: deterministic backward vs plain {det_err}, repeats bit for bit: {det_same}")
+        check(keys_same and upd_err <= HASH_FWD_TOL,
+              f"{tag}: corner rows exact {keys_same}, updates vs plain {upd_err}")
+        check(baseline_err is None or baseline_err <= HASH_BWD_TOL, f"{tag}: the first design vs plain {baseline_err}")
+        del x, table, g_out, g_jac, keys, upd, rows_p, upd_p, sorted_keys, perm, corner
         torch.cuda.empty_cache()
     LAUNCHES.update(before)  # comparison launches are not the main path's
     return recs
 
 
-def neus_facto_phase(fm, smi: str, cams, scene_box) -> dict:
+def neus_facto_phase(fm, smi: str, cams, scene_box, designs) -> dict:
     """``neus-facto`` at full width: a seeded render of the view checked like
     p8's, one chunk of it against the plain path on the card and 256 rays
     against the CPU, a traced render, both hash-grid kernels against their
@@ -944,11 +1049,15 @@ def neus_facto_phase(fm, smi: str, cams, scene_box) -> dict:
         check(cpu_err[k] < SLICE_TOL, f"{k}: card and CPU paths differ by {cpu_err[k]}")
     check(float(k_out["accumulation"].max()) > 0.9, "the compared chunk does not hit the surface")
 
-    hash_calls = hash_kernel_checks(model)
     del model, k_out, p_out, c_out
     torch.cuda.empty_cache()
     train = train_phase(fm, method)
-    resume = resume_phase(fm, smi, method)
+    hash_calls = hash_kernel_checks(train.pop("hash_captured"), designs)
+    torch.use_deterministic_algorithms(True)
+    try:
+        resume = resume_phase(fm, smi, method)
+    finally:
+        torch.use_deterministic_algorithms(False)
     return {"render_launches": launches, "profile": profile, "chunk_err": chunk_err,
             "cpu_err": cpu_err, "hash_calls": hash_calls, "train": train, "resume": resume}
 
@@ -1080,14 +1189,12 @@ def final_eval_phase(fm, smi: str) -> dict:
 def resume_phase(fm, smi: str, method: str = "neus-facto-tpu-p8") -> dict:
     """Train, save, load into a fresh trainer and train on; hold the loaded
     state to the saved one bit for bit and the resumed run to a straight
-    one: bit for bit where the card repeats a step (p8), else step 8's
-    losses within the train-step tolerance, and the parameters too unless
-    the grid's gradient adds with atomics. ``neus-facto``'s hash tables do,
-    in an order that changes from run to run, and Adam's normalised step
-    turns the rounding of a near-zero gradient element into a change of up
-    to 2 lr on that element (lr 1e-2 for the proposal nets): two runs of
-    the same steps on the card differ there by 5e-7 to 1.4e-4 of the
-    proposal nets' norm (NVIDIA H100 80GB HBM3, 700 W), which is printed."""
+    one, bit for bit, parameters included. p8's step repeats as it is.
+    ``neus-facto``'s table gradients add with atomics, in an order that
+    changes from run to run, unless deterministic algorithms are on: the
+    caller turns them on for it, and its hash tables then take the sorted
+    segment sum (whose launches are checked, and the atomic kernel's
+    absence)."""
     from sdfstudio_tpu_torch.engine.trainer import CHECKPOINT_FILE
     from sdfstudio_tpu_torch.scripts.train import setup_trainer
 
@@ -1135,20 +1242,23 @@ def resume_phase(fm, smi: str, method: str = "neus-facto-tpu-p8") -> dict:
     param_err = {g: rel_fro(torch.cat([p_res[n].reshape(-1) for n in opt.names]),
                             torch.cat([p_str[n].reshape(-1) for n in opt.names]))
                  for g, opt in straight.optimizers.items()}
-    out = {"card": smi, "method": method, "loaded_equals_saved": same,
-           "steps_1_4_repeat_bitwise": first_bitwise,
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    out = {"card": smi, "method": method, "deterministic_algorithms": deterministic,
+           "loaded_equals_saved": same, "steps_1_4_repeat_bitwise": first_bitwise,
            "step_8_bitwise": bitwise, "loss_rel_err": loss_err, "param_rel_err": param_err,
-           "tol": STEP_LOSS_TOL, "launches": launches}
+           "launches": launches}
     log("resume" if method == "neus-facto-tpu-p8" else f"resume[{method}]", json.dumps(out))
     check(all(same.values()), f"the loaded state differs from the saved one: {same}")
     check(launches["fused_mlp_fwd"] == 3 * 4 * RESUME_STEPS and launches["fused_mlp_bwd"] > 0,
           f"unexpected launches in the resume phase: {launches}")
-    if not bitwise:
-        for k, e in loss_err.items():
-            check(e <= STEP_LOSS_TOL, f"{k}: resumed and straight step 8 differ by {e}")
-        if straight.model.field.config.encoding_type != "hash":
-            for g, e in param_err.items():
-                check(e <= STEP_GRAD_TOL, f"{g}: resumed and straight parameters differ by {e}")
+    if straight.model.field.config.encoding_type == "hash":
+        check(deterministic, f"{method}'s resume needs deterministic algorithms on")
+        check(launches["hash_encode_bwd"] == 0 and launches["hash_encode_bwd_det"] > 0
+              and launches["hash_segment_sum"] == launches["hash_encode_bwd_det"],
+              f"the table gradient did not take the deterministic path: {launches}")
+    check(bitwise and first_bitwise,
+          f"the resumed run differs from the straight one (step 8 bit for bit: {bitwise}, steps "
+          f"1-4: {first_bitwise}; losses {loss_err}, parameters {param_err})")
     del straight, resumed
     torch.cuda.empty_cache()
     return out
@@ -1164,6 +1274,7 @@ def main() -> int:
     from sdfstudio_tpu_torch.core.scene_box import SceneBox
     from sdfstudio_tpu_torch.engine.final_eval import UNTRAINED_STEP, render_image, set_fp32_precision
     from sdfstudio_tpu_torch.ops import fused_mlp as fm
+    from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
     from sdfstudio_tpu_torch.utils import cuda_build, host_build
 
     # 1. device -------------------------------------------------------------
@@ -1177,10 +1288,13 @@ def main() -> int:
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # the host marching-tetrahedra library builds beside the nvcc processes
+        # the host marching-tetrahedra library and the hash-grid designs
+        # library (the first design's kernels, the baseline) build beside the nvcc processes
         host = pool.submit(host_build.build, force=True)
+        finish_designs = hgd.build_designs(baseline_only=True)
         _, build_log = cuda_build.build(force=True, verbose=True)
         host.result()
+        designs = finish_designs()["designs"]
     build_s = time.perf_counter() - t
     ptxas = ptxas_report(build_log)
     log("build", f"ptxas (registers, spill stores and loads in bytes, per kernel): {json.dumps(ptxas)}")
@@ -1218,21 +1332,28 @@ def main() -> int:
     check(any(f.startswith("UBLKCP") for f in gather_mem.get("loop_kernel", {})),
           f"loop_kernel stages nothing by bulk copy: {gather_mem.get('loop_kernel')}")
     # the hash-grid kernels' memory instructions: streams evict-first, the
-    # backward's adds as reductions
+    # backward's adds as reductions, a corner pair's as one float4 reduction
     hash_mem = {}
     for fn_name, c in sass_counts_all.items():
-        for kernel in ("hash_fwd_kernel", "hash_bwd_kernel"):
+        for kernel in ("hash_fwd_kernel", "hash_bwd_kernel", "hash_corner_rows_kernel",
+                       "hash_segment_sum_kernel"):
             if kernel in fn_name:
                 tot = hash_mem.setdefault(kernel, {})
                 for form, n in c["mem"].items():
                     tot[form] = tot.get(form, 0) + n
     log("build", f"hash-grid global loads, stores and atomics by form (cuobjdump -sass): "
         f"{json.dumps(hash_mem)}")
-    fwd_stores = {f: n for f, n in hash_mem.get("hash_fwd_kernel", {}).items() if f.startswith("STG")}
-    check(fwd_stores and all(".EF" in f for f in fwd_stores),
-          f"hash_fwd_kernel: a store without the evict-first hint: {fwd_stores}")
-    check(any(f.startswith(("RED", "ATOMG")) for f in hash_mem.get("hash_bwd_kernel", {})),
-          f"hash_bwd_kernel adds nothing atomically: {hash_mem.get('hash_bwd_kernel')}")
+    for kernel in ("hash_fwd_kernel", "hash_corner_rows_kernel"):
+        stores = {f: n for f, n in hash_mem.get(kernel, {}).items() if f.startswith("STG")}
+        check(stores and all(".EF" in f for f in stores),
+              f"{kernel}: a store without the evict-first hint: {stores}")
+    bwd_red = [f for f in hash_mem.get("hash_bwd_kernel", {}) if f.startswith(("RED", "ATOMG"))]
+    check(bwd_red and not any(f.startswith("STG") for f in hash_mem["hash_bwd_kernel"]),
+          f"hash_bwd_kernel adds nothing atomically, or stores: {hash_mem.get('hash_bwd_kernel')}")
+    check(any("x4" in f for f in bwd_red),
+          f"hash_bwd_kernel has no float4 reduction (a corner pair, an F = 4 row): {bwd_red}")
+    check(not any(f.startswith(("RED", "ATOMG")) for f in hash_mem.get("hash_segment_sum_kernel", {})),
+          f"the deterministic segment sum adds atomically: {hash_mem.get('hash_segment_sum_kernel')}")
     cuda_build.load_library()
     host_build.load_library()
 
@@ -1330,7 +1451,7 @@ def main() -> int:
     resume = resume_phase(fm, smi)
 
     # 9. neus-facto ---------------------------------------------------------
-    nf = neus_facto_phase(fm, smi, cams, scene_box)
+    nf = neus_facto_phase(fm, smi, cams, scene_box, designs)
 
     # 10. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
@@ -1362,9 +1483,14 @@ def main() -> int:
                    + nf["resume"]["launches"][k] for k in nf["render_launches"]}
     nf_train = nf["train"]
 
+    def hash_sum(which: str, key: str, inputs: str = "captured") -> Optional[float]:
+        """``key`` of ``which`` summed over the step's three calls on ``inputs``."""
+        vals = [c[which][key] for c in nf["hash_calls"] if c["call"] != "F4" and c["inputs"] == inputs]
+        return None if any(v is None for v in vals) else sum(vals)
+
     def hash_entry(which: str, replaces: str) -> dict:
         name = f"hash_encode_{which}"
-        calls = [c[which] for c in nf["hash_calls"]]
+        calls = [c for c in nf["hash_calls"]]
         return {
             "name": name,
             "route": "cuda",
@@ -1374,20 +1500,48 @@ def main() -> int:
             "launches_render": nf["render_launches"][name],
             "launches_train": nf_train["launches"][name],
             "launches_resume": nf["resume"]["launches"][name],
-            "max_abs_err": max(c["max_abs_err"] for c in calls),
-            "ms": sum(c["ms"] for c in calls),
-            "plain_ms": sum(c["plain_ms"] for c in calls),
-            "bound_ms": sum(c["bound_ms"] for c in calls),
+            "max_abs_err": max(c[which]["max_abs_err"] for c in calls),
+            # one train step's three calls on their captured inputs
+            "ms": hash_sum(which, "ms"),
+            "plain_ms": hash_sum(which, "plain_ms"),
+            "bound_ms": hash_sum(which, "bound_ms"),
+            "sector_bound_ms": hash_sum(which, "sector_bound_ms"),
             "bound_by": "bytes",
-            "library_ms": sum(c["library_ms"] for c in calls),
-            "per_step_calls": [{"call": c["call"], "points": c["points"], **c[which]}
-                               for c in nf["hash_calls"]],
+            "library_ms": hash_sum(which, "library_ms"),
+            "baseline_ms": hash_sum(which, "baseline_ms"),
+            "uniform_ms": hash_sum(which, "ms", "uniform"),
+            "uniform_baseline_ms": hash_sum(which, "baseline_ms", "uniform"),
+            "per_call": [{"call": c["call"], "inputs": c["inputs"], "points": c["points"], "F": c["F"],
+                          **c[which]} for c in calls],
             "ptxas": {k: v for k, v in ptxas.items() if k.startswith(f"hash_{which}")},
             "sass_mem": {k: v for k, v in hash_mem.items() if f"hash_{which}" in k},
             "neus_facto_train_step_ms": nf_train["step_ms"],
             "neus_facto_train_rays_per_s": nf_train["rays_per_s"],
             "neus_facto_train_step_device_idle_share_traced": nf_train["profile"]["device_idle_share"],
             "neus_facto_image_ms": nf["profile"]["warm_ms"],
+        }
+
+    def det_entry(name: str, part: str, replaces: str, library: bool) -> dict:
+        calls = [c for c in nf["hash_calls"] if c["call"] != "F4" and c["inputs"] == "captured"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
+            "replaces": replaces,
+            # the deterministic resume run's launches (the atomic kernel's path runs none)
+            "launches": nf["resume"]["launches"][name],
+            "launches_train": nf_train["launches"][name],
+            "max_abs_err": max(c["det"][f"{part}_max_abs_err"] for c in nf["hash_calls"]),
+            "ms": sum(c["det"][f"{part}_ms"] for c in calls),
+            "plain_ms": sum(c["det"][f"{part}_plain_ms"] for c in calls),
+            "bound_ms": sum(c["det"][f"{part}_bound_ms"] for c in calls),
+            "bound_by": "bytes",
+            "library_ms": sum(c["det"][f"{part}_library_ms"] for c in calls) if library else None,
+            "deterministic_backward_ms": sum(c["det"]["ms"] for c in calls),
+            "sort_ms": sum(c["det"]["sort_ms"] for c in calls),
+            "repeats_bitwise": all(c["det"]["repeats_bitwise"] for c in nf["hash_calls"]),
+            "ptxas": {k: v for k, v in ptxas.items() if k.startswith(f"hash_{part}")},
+            "sass_mem": {k: v for k, v in hash_mem.items() if f"hash_{part}" in k},
         }
 
     kernels = {"kernels": [{
@@ -1446,7 +1600,12 @@ def main() -> int:
     }, gather_entry("take", "sdfstudio_tpu/scripts/benchmarking/probe_gather2.py:117"),
         gather_entry("loop", "sdfstudio_tpu/scripts/benchmarking/probe_gather2.py:149"),
         hash_entry("fwd", "sdfstudio_tpu/ops/encodings.py:358 (HashEncoding.__call__, XLA code)"),
-        hash_entry("bwd", "sdfstudio_tpu/ops/encodings.py:224 (table_gather's VJP, XLA code)")]}
+        hash_entry("bwd", "sdfstudio_tpu/ops/encodings.py:224 (table_gather's VJP, XLA code)"),
+        det_entry("hash_encode_bwd_det", "corner_rows",
+                  "sdfstudio_tpu/ops/encodings.py:224 (table_gather's VJP: the corner updates, XLA "
+                  "code)", library=False),
+        det_entry("hash_segment_sum", "segment_sum",
+                  "sdfstudio_tpu/ops/scatter.py:28 (sorted_segment_add, XLA code)", library=True)]}
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)

@@ -55,6 +55,7 @@ method_configs = {
         NeuSFactoModel,
         NeuSFactoModelConfig(
             sdf_field=SDFFieldConfig(
+                use_grid_feature=True,
                 num_layers=2,
                 num_layers_color=2,
                 hidden_dim=256,
@@ -74,6 +75,7 @@ method_configs = {
         NeuSFactoModel,
         NeuSFactoModelConfig(
             sdf_field=SDFFieldConfig(
+                use_grid_feature=True,
                 num_layers=2,
                 num_layers_color=2,
                 hidden_dim=256,

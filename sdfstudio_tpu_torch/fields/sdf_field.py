@@ -1,7 +1,8 @@
 """SDF field (counterpart of ``sdfstudio_tpu/fields/sdf_field.py``), eval
 and training forward.
 
-Ported: the hash-grid or permutohedral grid feature with its analytic jacobian, the
+Ported: the hash-grid or permutohedral grid feature with its analytic
+jacobian (or, with ``use_grid_feature=False``, JAX's zeros in its place), the
 weight-normed geometry MLP with the ``"vjp"`` gradient
 (``geonetwork_with_gradient``, sdf_field.py:323-368), the color net through
 the fused kernel (``colors``, sdf_field.py:387-473) and ``get_outputs``
@@ -38,13 +39,13 @@ from sdfstudio_tpu_torch.utils import checks
 @dataclasses.dataclass(frozen=True)
 class SDFFieldConfig:
     """The sizes and values of ``SDFFieldConfig`` (sdf_field.py:63-108) that
-    the port reads. The port implements the options ``neus-facto`` and
-    ``neus-facto-tpu-p8`` set and no others: the hash-grid
-    (``encoding_type="hash"``, f32 tables) or permutohedral
-    (``"permuto"``) grid feature with ``use_grid_feature=True``, positional
-    encoding, geometric init, weight norm, no appearance embedding, and the
-    analytic ``"vjp"`` gradient; other encodings and ``"bfloat16"`` tables
-    raise."""
+    the port reads, with JAX's defaults. The port implements the options
+    ``neus-facto`` and ``neus-facto-tpu-p8`` set and JAX's defaults: the
+    hash-grid (``encoding_type="hash"``, f32 tables) or permutohedral
+    (``"permuto"``) grid feature, on or off (``use_grid_feature``),
+    positional encoding, geometric init, weight norm, no appearance
+    embedding, and the analytic ``"vjp"`` gradient; other encodings,
+    ``"bfloat16"`` tables and ``use_appearance_embedding=True`` raise."""
 
     num_layers: int = 8
     hidden_dim: int = 256
@@ -52,8 +53,13 @@ class SDFFieldConfig:
     num_layers_color: int = 4
     hidden_dim_color: int = 256
     appearance_embedding_dim: int = 32
+    use_appearance_embedding: bool = False  # sdf_field.py:73; True is not ported yet
     bias: float = 0.8
     inside_outside: bool = True
+    use_grid_feature: bool = False
+    """sdf_field.py:78: off, the geometry MLP takes zeros in place of the
+    grid feature and its jacobian (``_grid_feature``, :287-289), and the
+    field has no grid table (Flax never creates the unused encoding's)."""
     beta_init: float = 0.1
     position_encoding_max_degree: int = 6
     rgb_padding: float = 0.001
@@ -81,17 +87,21 @@ class SDFField(nn.Module):
         self.spatial_distortion = spatial_distortion
         if cfg.hash_table_dtype != "float32":
             raise NotImplementedError(f"hash_table_dtype={cfg.hash_table_dtype!r} is not ported")
+        if cfg.use_appearance_embedding:
+            raise NotImplementedError("use_appearance_embedding=True is not ported yet")
+        if cfg.encoding_type not in ("hash", "permuto"):
+            raise NotImplementedError(f"encoding_type={cfg.encoding_type!r} is not ported")
         grid = dict(num_levels=cfg.num_levels, min_res=cfg.base_res, max_res=cfg.max_res,
                     log2_hashmap_size=cfg.log2_hashmap_size,
                     features_per_level=cfg.hash_features_per_level)
-        if cfg.encoding_type == "hash":
+        # both grids give L*F features; without the grid feature there is no table
+        self.encoding = None
+        if cfg.use_grid_feature and cfg.encoding_type == "hash":
             self.encoding = HashEncoding(smoothstep=cfg.hash_smoothstep, **grid)
-        elif cfg.encoding_type == "permuto":
+        elif cfg.use_grid_feature:
             self.encoding = PermutoEncoding(**grid)
-        else:
-            raise NotImplementedError(f"encoding_type={cfg.encoding_type!r} is not ported")
         self.encode_range = f"sst/{cfg.encoding_type}_encode"  # the profiler range of the encode
-        self.grid_dim = self.encoding.out_dim
+        self.grid_dim = cfg.num_levels * cfg.hash_features_per_level
         self.position_encoding = NeRFEncoding(
             3, cfg.position_encoding_max_degree, 0.0, cfg.position_encoding_max_degree - 1, False
         )
@@ -138,7 +148,8 @@ class SDFField(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with the JAX initialisers' distributions (sdf_field.py:183-257)."""
         cfg = self.config
-        self.encoding.reset_parameters(generator)
+        if self.encoding is not None:
+            self.encoding.reset_parameters(generator)
         for l, shape in enumerate(self.gdims):
             k, b = geometric_init(
                 l, self.n_glayers - 1, self.geo_in_dim, shape, cfg.bias, cfg.inside_outside,
@@ -162,8 +173,16 @@ class SDFField(nn.Module):
             return contract(x, order=None)
         return x
 
-    def grid_feature(self, x: torch.Tensor):
-        """Feature and its jacobian wrt x at positions in [-2, 2] (sdf_field.py:281-311)."""
+    def grid_feature(self, x: torch.Tensor, want_jac: bool = True):
+        """Feature and its jacobian wrt x (or None) at positions in [-2, 2]
+        (``_grid_feature``, sdf_field.py:281-311); zeros without the grid
+        feature (:287-289)."""
+        if self.encoding is None:
+            z = torch.zeros((*x.shape[:-1], self.grid_dim), dtype=x.dtype, device=x.device)
+            return z, (torch.zeros((*z.shape, 3), dtype=x.dtype, device=x.device)
+                       if want_jac else None)
+        if not want_jac:
+            return self.encoding((x + 2.0) / 4.0, want_jac=False), None
         feature, jac = self.encoding((x + 2.0) / 4.0, want_jac=True)
         return feature, jac / 4.0
 
@@ -188,7 +207,7 @@ class SDFField(nn.Module):
         without its jacobian and the geometry MLP, no gradient. Mesh
         extraction evaluates it on every point of its grid."""
         checks.check_positions(x, "SDFField.geonetwork positions")
-        feature = self.encoding((x + 2.0) / 4.0, want_jac=False)
+        feature, _ = self.grid_feature(x, want_jac=False)
         layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
         return self.geo_mlp(x, feature, layers)[..., 0]
 
@@ -214,6 +233,9 @@ class SDFField(nn.Module):
             with record_function("sst/geo_mlp_and_grad"):
                 xg = x.detach().requires_grad_(True)
                 h = self.geo_mlp(xg, feature, layers)
+                if self.encoding is None:  # a zero feature and jacobian add nothing
+                    (grad,) = torch.autograd.grad(h[..., 0].sum(), xg, create_graph=True)
+                    return h, grad
                 dx, dfeat = torch.autograd.grad(h[..., 0].sum(), (xg, feature), create_graph=True)
                 grad = dx + torch.einsum("...f,...fa->...a", dfeat, fjac)
             return h, grad

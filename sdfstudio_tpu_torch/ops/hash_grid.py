@@ -22,13 +22,20 @@ stacked table. Dense indices are not reduced mod the level size: at ``x =
 An index at or past ``R`` reads a row of NaN (``jnp.take``'s fill mode)
 and its gradient is dropped.
 
-On the card both kernels (``csrc/hash_grid.cu``) take F = 2, every hash
-grid the ported methods use, and run one thread per point and level. They
-are bound by bytes: the forward reads ``x`` and 8 random rows a level and
-writes ``out`` (and ``jac``); the backward reads ``x`` and the cotangents
-and adds 8 rows a level into the gradient with atomics. What keeps them
-from that bound is the latency of random row reads, and, in the backward,
-atomics on the same rows of the coarse levels.
+On the card both kernels (``csrc/hash_grid.cu``) take F = 2 and F = 4.
+They are bound by the memory system: the forward by its 8 random table
+reads a level (a 32-byte L2 sector for a row of 8 or 16 bytes) and its
+``out`` / ``jac`` streams; the backward by the rate of the atomic units.
+The forward runs a thread per point and level. The backward takes tiles
+of points whose warps take 32 consecutive points (a ray's neighbouring
+samples) at one level, so that lanes in one coarse cell add their sum
+with one reduction, and x-neighbouring rows that form an aligned pair
+take one float4 reduction. Under ``torch.use_deterministic_algorithms(True)``
+the table gradient takes a path whose result repeats bit for bit
+(:func:`hash_encode_bwd_det`): a kernel writes every corner's row and
+update, ``torch.sort(stable=True)`` orders them (the sort gives the order
+only), and a segment-sum kernel adds each row's run in an order fixed by
+the sorted rows.
 
 ``hash_encode`` takes the plain versions for tensors on the CPU, launches
 the kernels for CUDA tensors, and raises on anything else. Under autograd
@@ -52,7 +59,7 @@ from sdfstudio_tpu_torch.ops.launches import LAUNCHES
 from sdfstudio_tpu_torch.ops.permuto import _MASK32, _mul_u32
 from sdfstudio_tpu_torch.ops.encodings import HASH_PRIMES
 
-KERNEL_FEATURES = 2  # features per level the kernels take: every ported hash grid's
+KERNEL_FEATURES = (2, 4)  # features per level the kernels take
 MAX_LEVELS = 32  # csrc/hash_grid.cu kMaxLevels
 
 # corner c takes the ceiling on axis b where bit b of c is set (encodings.py:375-378)
@@ -201,8 +208,9 @@ def _level_args(spec: HashGridSpec):
 
 def _check_cuda(what: str, tensors, F: int) -> None:
     """Every tensor a contiguous f32 CUDA tensor; all but ``x`` (read as
-    floats) 8-byte aligned, since the kernels move rows as float2."""
-    if F != KERNEL_FEATURES:
+    floats) 16-byte aligned, since the kernels move a pair of F = 2 rows,
+    an F = 4 row and the tiles of the cotangents as 16-byte vectors."""
+    if F not in KERNEL_FEATURES:
         raise ValueError(f"{what}: the kernels take {KERNEL_FEATURES} features per level, got {F}")
     for name, t in tensors:
         if t is None:
@@ -210,8 +218,8 @@ def _check_cuda(what: str, tensors, F: int) -> None:
         if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous float32 CUDA tensor, got "
                              f"{t.dtype} on {t.device}")
-        if name != "x" and t.data_ptr() % 8:
-            raise ValueError(f"{what}: {name} must be 8-byte aligned")
+        if name != "x" and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
 def hash_encode_fwd(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
@@ -244,7 +252,11 @@ def hash_encode_bwd(x: torch.Tensor, g_out: Optional[torch.Tensor], g_jac: Optio
                     spec: HashGridSpec, rows: int) -> torch.Tensor:
     """The backward kernel on CUDA tensors: the f32 table gradient
     ``[rows, F]``, as :func:`hash_encode_bwd_plain` returns it. The atomics
-    add in an order that changes from run to run."""
+    add in an order that changes from run to run; under
+    ``torch.use_deterministic_algorithms(True)`` this takes
+    :func:`hash_encode_bwd_det` instead, whose result repeats bit for bit."""
+    if torch.are_deterministic_algorithms_enabled():
+        return hash_encode_bwd_det(x, g_out, g_jac, spec, rows)
     from sdfstudio_tpu_torch.utils.cuda_build import load_library
 
     g = g_out if g_out is not None else g_jac
@@ -267,6 +279,87 @@ def hash_encode_bwd(x: torch.Tensor, g_out: Optional[torch.Tensor], g_jac: Optio
     return grad
 
 
+def hash_corner_rows(x: torch.Tensor, g_out: Optional[torch.Tensor],
+                     g_jac: Optional[torch.Tensor], spec: HashGridSpec, rows: int):
+    """The corner-rows kernel on CUDA tensors: (keys [N*L*8] int32, upd
+    [N*L*8, F]), each corner's row (``rows`` for one at or past the table)
+    and the cotangent it adds there, at entry ``(p L + l) 8 + c``, as
+    :func:`corner_updates` gives them."""
+    from sdfstudio_tpu_torch.utils.cuda_build import load_library
+
+    g = g_out if g_out is not None else g_jac
+    N, L = x.shape[0], spec.num_levels
+    F = g.shape[1] // L
+    _check_cuda("hash_corner_rows", [("x", x), ("g_out", g_out), ("g_jac", g_jac)], F)
+    if rows >= 2**31 - 1:
+        raise ValueError(f"hash_corner_rows: {rows} rows, the sort keys are int32")
+    M = N * L * 8
+    keys = torch.empty(M, dtype=torch.int32, device=x.device)
+    upd = torch.empty((M, F), dtype=torch.float32, device=x.device)
+    if N > 0:
+        lib = load_library()
+        res, offs, dense = _level_args(spec)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.sst_hash_corner_rows(
+                x.data_ptr(), g_out.data_ptr() if g_out is not None else None,
+                g_jac.data_ptr() if g_jac is not None else None, keys.data_ptr(), upd.data_ptr(),
+                N, rows, F, L, res, offs, dense, spec.log2_hashmap_size, int(spec.smoothstep),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"hash_corner_rows kernel launch failed: cudaError {err}")
+        LAUNCHES["hash_encode_bwd_det"] += 1
+    return keys, upd
+
+
+def hash_segment_sum(sorted_keys: torch.Tensor, perm: torch.Tensor, upd: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """The segment-sum kernel on CUDA tensors: ``[rows, F]`` whose row r is
+    the sum, in sorted order, of ``upd[perm[j]]`` over the run of
+    ``sorted_keys[j] == r``; keys of ``rows`` are dropped. The sum's order
+    is fixed, so the result repeats bit for bit."""
+    from sdfstudio_tpu_torch.utils.cuda_build import load_library
+
+    M, F = upd.shape
+    _check_cuda("hash_segment_sum", [("upd", upd)], F)
+    if sorted_keys.dtype != torch.int32 or perm.dtype != torch.int64 or sorted_keys.shape != (M,) \
+            or perm.shape != (M,) or not (sorted_keys.is_contiguous() and perm.is_contiguous()):
+        raise ValueError("hash_segment_sum: needs contiguous int32 keys and int64 perm of "
+                         f"{M} entries, got {sorted_keys.dtype} {tuple(sorted_keys.shape)} and "
+                         f"{perm.dtype} {tuple(perm.shape)}")
+    grad = torch.zeros((rows, F), dtype=torch.float32, device=upd.device)
+    if M > 0:
+        lib = load_library()
+        with torch.cuda.device(upd.device):
+            stream = torch.cuda.current_stream(upd.device).cuda_stream
+            err = lib.sst_hash_segment_sum(sorted_keys.data_ptr(), perm.data_ptr(), upd.data_ptr(),
+                                           grad.data_ptr(), M, rows, F, stream)
+        if err != 0:
+            raise RuntimeError(f"hash_segment_sum kernel launch failed: cudaError {err}")
+        LAUNCHES["hash_segment_sum"] += 1
+    return grad
+
+
+def hash_encode_bwd_det(x: torch.Tensor, g_out: Optional[torch.Tensor],
+                        g_jac: Optional[torch.Tensor], spec: HashGridSpec,
+                        rows: int) -> torch.Tensor:
+    """The table gradient on CUDA tensors in an order that does not change
+    from run to run: :func:`hash_corner_rows`, a stable ``torch.sort`` of
+    the rows (it gives their order only), and :func:`hash_segment_sum`,
+    which adds each row's run in that order (the corners' own)."""
+    keys, upd = hash_corner_rows(x, g_out, g_jac, spec, rows)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    return hash_segment_sum(sorted_keys, perm, upd, rows)
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` contiguous and 16-byte aligned (a copy where it is not)."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.device.type == "cpu" or t.data_ptr() % 16 == 0 else t.clone()
+
+
 class _HashEncode(torch.autograd.Function):
     """One autograd node for the encode (the JAX custom VJP of
     ``table_gather`` with the blend around it): the residual is ``x``, from
@@ -287,8 +380,7 @@ class _HashEncode(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         if g_out is None and g_jac is None:
             return None, None, None, None
-        g_out = g_out.contiguous() if g_out is not None else None
-        g_jac = g_jac.contiguous() if g_jac is not None else None
+        g_out, g_jac = _aligned(g_out), _aligned(g_jac)
         if x.device.type == "cpu":
             grad = hash_encode_bwd_plain(x, g_out, g_jac, ctx.spec, ctx.rows)
         else:

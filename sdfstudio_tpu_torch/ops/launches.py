@@ -14,6 +14,8 @@ LAUNCHES: Dict[str, int] = {
     "row_gather_loop": 0,
     "hash_encode_fwd": 0,
     "hash_encode_bwd": 0,
+    "hash_encode_bwd_det": 0,
+    "hash_segment_sum": 0,
 }
 
 

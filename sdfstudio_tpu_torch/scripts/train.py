@@ -23,8 +23,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from pathlib import Path
 from typing import Optional, Sequence
+
+import torch
 
 from sdfstudio_tpu_torch.configs.methods import build_model, get_method_config, method_configs
 from sdfstudio_tpu_torch.data.datamanager import VanillaDataManager
@@ -82,7 +85,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     dest="final_eval_resolution", type=int)
     ap.add_argument("--datamanager.train-num-rays-per-batch", dest="num_rays", type=int)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="a step that repeats bit for bit: torch.use_deterministic_algorithms, "
+                         "with cuBLAS's CUBLAS_WORKSPACE_CONFIG=:4096:8 unless already set")
     args = ap.parse_args(argv)
+    if args.deterministic:
+        # cuBLAS reads its workspace setting when it starts, before any CUDA work here
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
     fields = {k: getattr(args, k) for k in ("steps_per_save", "load_dir", "load_step",
                                             "final_eval_output", "final_eval_resolution")
               if getattr(args, k) is not None}

@@ -125,6 +125,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sst_hash_encode_fwd.restype = ci
     lib.sst_hash_encode_bwd.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ints, u32s, ints, ci, ci, vp]
     lib.sst_hash_encode_bwd.restype = ci
+    lib.sst_hash_corner_rows.argtypes = [vp, vp, vp, vp, vp, ll, ll, ci, ci, ints, u32s, ints, ci, ci,
+                                         vp]
+    lib.sst_hash_corner_rows.restype = ci
+    lib.sst_hash_segment_sum.argtypes = [vp, vp, vp, vp, ll, ll, ci, vp]
+    lib.sst_hash_segment_sum.restype = ci
     return lib
 
 

@@ -1,0 +1,34 @@
+"""The train command's ``--deterministic`` switch: it turns on
+``torch.use_deterministic_algorithms`` (with cuBLAS's workspace setting,
+``CUBLAS_WORKSPACE_CONFIG=:4096:8``, unless the caller set one), and two
+runs of ``neus-facto`` (hash grids, whose table gradient then takes the
+deterministic path on the card) save the same parameters bit for bit."""
+import os
+import pathlib
+
+import torch
+
+from sdfstudio_tpu_torch.scripts import train as train_script
+
+SCENE = pathlib.Path(__file__).resolve().parents[1] / ".parity" / "dtu_like"
+
+
+def test_train_cli_deterministic_flag_repeats_a_run(tmp_path, monkeypatch):
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    saved = []
+    try:
+        for run in ("a", "b"):
+            assert train_script.main(["neus-facto", "--data", str(SCENE), "--device", "cpu",
+                                      "--trainer.max-num-iterations", "1",
+                                      "--datamanager.train-num-rays-per-batch", "16",
+                                      "--output-dir", str(tmp_path / run),
+                                      "--trainer.steps-per-save", "1", "--deterministic"]) == 0
+            assert torch.are_deterministic_algorithms_enabled()
+            assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+            ckpt = sorted((tmp_path / run / "sdfstudio_models").glob("step-*"))[-1]
+            saved.append(torch.load(next(ckpt.glob("*.pt")), map_location="cpu",
+                                    weights_only=True)["model"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert saved[0].keys() == saved[1].keys()
+    assert all(torch.equal(saved[0][k], saved[1][k]) for k in saved[0])

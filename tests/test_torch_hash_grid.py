@@ -7,6 +7,9 @@ resolutions 4-32 (two dense levels, two hashed), and an all-dense grid whose
 far corner at x = 1.0 reads past the table. Points include 0, exactly 1.0
 and cell faces.
 
+Four features a level (``neus-facto-tpu``'s grid) have their own small
+cases.
+
 Tolerances, with their reasons:
 - corner indices, level sizes and offsets: exact (integer arithmetic; the
   scaled position and its floor are the same f32 operations);
@@ -45,10 +48,10 @@ def _points(n=300, seed=0):
     return x
 
 
-def _pair(grid, smoothstep, seed=0):
-    kw = dict(GRIDS[grid], features_per_level=2)
+def _pair(grid, smoothstep, seed=0, F=2):
+    kw = dict(GRIDS[grid], features_per_level=F)
     j, t = JHashEncoding(smoothstep=smoothstep, **kw), HashEncoding(smoothstep=smoothstep, **kw)
-    table = np.random.default_rng(seed).uniform(-1.0, 1.0, (t.total_rows, 2)).astype(np.float32)
+    table = np.random.default_rng(seed).uniform(-1.0, 1.0, (t.total_rows, F)).astype(np.float32)
     with torch.no_grad():
         t.hash_table.copy_(torch.from_numpy(table))
     return j, t, table
@@ -121,6 +124,44 @@ def test_table_gradient_matches_jax_vjp(smoothstep, want_jac):
                                     torch.from_numpy(g_jac) if want_jac else None, t.spec,
                                     t.total_rows)
     assert grad.shape == ref.shape and float(np.abs(ref).max()) > 0
+    assert _rel_max(grad.numpy(), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_f4_indices_feature_and_jacobian_match_jax(grid):
+    """Four features a level (neus-facto-tpu's L8xF4 grid, at a small size):
+    the same corner indices exactly, feature and jacobian to 1e-6 of max."""
+    j, t, table = _pair(grid, True, seed=2, F=4)
+    x = _points()
+    ref_idx, _ = j.corner_indices(jnp.asarray(x))
+    idx, _ = hg.corner_indices(torch.from_numpy(x), t.spec)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    ref_out, ref_jac = j.apply({"params": {"hash_table": jnp.asarray(table)}}, jnp.asarray(x),
+                               want_jac=True)
+    with torch.no_grad():
+        out, jac = t(torch.from_numpy(x), want_jac=True)
+    assert out.shape == (300, 4 * t.num_levels) and jac.shape == (300, 4 * t.num_levels, 3)
+    np.testing.assert_array_equal(np.isnan(out.numpy()), np.isnan(np.asarray(ref_out)))
+    ok = ~np.isnan(np.asarray(ref_out)).any(-1)
+    assert _rel_max(out.numpy()[ok], np.asarray(ref_out)[ok]) <= 1e-6
+    assert _rel_max(jac.numpy()[ok], np.asarray(ref_jac)[ok]) <= 1e-6
+
+
+def test_f4_table_gradient_matches_jax_vjp():
+    """The plain backward at F = 4 from ``(g_out, g_jac)`` against
+    ``jax.vjp`` of ``HashEncoding.apply``: 1e-5 of max."""
+    j, t, table = _pair("mixed", True, seed=4, F=4)
+    x = _points()
+    rng = np.random.default_rng(6)
+    L = t.num_levels
+    g_out = rng.standard_normal((300, 4 * L)).astype(np.float32)
+    g_jac = rng.standard_normal((300, 4 * L, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p: j.apply({"params": p}, jnp.asarray(x), want_jac=True),
+                     {"hash_table": jnp.asarray(table)})
+    ref = np.asarray(vjp((jnp.asarray(g_out), jnp.asarray(g_jac)))[0]["hash_table"])
+    grad = hg.hash_encode_bwd_plain(torch.from_numpy(x), torch.from_numpy(g_out),
+                                    torch.from_numpy(g_jac), t.spec, t.total_rows)
+    assert grad.shape == ref.shape == (t.total_rows, 4)
     assert _rel_max(grad.numpy(), ref) <= 1e-5
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 fused MLP, forward and backward, the row gathers ``take`` and ``loop``, and
-the hash-grid encode, forward and table gradient.
+the hash-grid encode, forward and table gradient (F = 2 and 4; by atomics
+and by the deterministic segment sum).
 
 Every test here needs an NVIDIA card (marked ``cuda``) and skips elsewhere.
 The file imports no JAX, so on a machine with the card but without JAX it
@@ -438,6 +439,11 @@ _HASH_GRIDS = {
     "proposal_64": dict(num_levels=5, min_res=16, max_res=64, log2_hashmap_size=17),
     "proposal_256": dict(num_levels=5, min_res=16, max_res=256, log2_hashmap_size=17),
     "dense": dict(num_levels=3, min_res=2, max_res=8, log2_hashmap_size=10, smoothstep=True),
+    # neus-facto-tpu's SDF grid (L8 x F4, 2^19 rows, 16-512), and an all-dense F = 4 grid
+    "tpu_f4": dict(num_levels=8, min_res=16, max_res=512, log2_hashmap_size=19,
+                   features_per_level=4, smoothstep=True),
+    "dense_f4": dict(num_levels=3, min_res=2, max_res=8, log2_hashmap_size=10,
+                     features_per_level=4, smoothstep=True),
 }
 _HASH_CASES = [("sdf", 98304, True), ("proposal_64", 524288, False),
                ("proposal_256", 196608, False), ("dense", 4099, True)]
@@ -464,9 +470,22 @@ def _rel_max(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def _ray_points(n, per_ray, device, seed=0):
+    """Points in ray order, as a step's samples come: ``per_ray`` sorted
+    samples along each seeded ray through [0, 1]^3, clipped to the cube."""
+    rng = np.random.default_rng(seed)
+    rays = -(-n // per_ray)
+    o = rng.uniform(0.2, 0.8, (rays, 1, 3))
+    d = rng.standard_normal((rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(-0.4, 0.4, (rays, per_ray, 1)), axis=1)
+    x = np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3)[:n].astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
 def _check_hash(enc, x, want_jac, device, seed=1):
-    spec, R = enc.spec, enc.total_rows
-    table = row_table(R, 2, device)
+    spec, R, F = enc.spec, enc.total_rows, enc.features_per_level
+    table = row_table(R, F, device)
     before = dict(hg.LAUNCHES)
     got = hg.hash_encode_fwd(x, table, spec, want_jac)
     want = hg.hash_encode_plain(x, table, spec, want_jac)
@@ -486,7 +505,7 @@ def _check_hash(enc, x, want_jac, device, seed=1):
         assert torch.equal(torch.isnan(a), torch.isnan(b))
         if n:
             assert _rel_max(torch.nan_to_num(a), torch.nan_to_num(b)) <= HASH_FWD_TOL
-    assert grad.shape == (R, 2) and bool(torch.isfinite(grad).all())
+    assert grad.shape == (R, F) and bool(torch.isfinite(grad).all())
     if n:
         assert _rel_fro(grad, ref) <= HASH_BWD_TOL
     return got
@@ -501,10 +520,55 @@ def test_hash_encode_kernels_match_plain(card, grid, n, want_jac):
 
 
 @pytest.mark.parametrize("n", [0, 1, 127])
-@pytest.mark.parametrize("grid", ["sdf", "proposal_64", "dense"])
+@pytest.mark.parametrize("grid", ["sdf", "proposal_64", "dense", "tpu_f4"])
 def test_hash_encode_batch_edges(card, grid, n):
     enc = HashEncoding(**_HASH_GRIDS[grid])
     _check_hash(enc, _hash_points(n, card, seed=n), True, card, seed=n)
+
+
+@pytest.mark.parametrize("per_ray", [48, 96, 256])
+@pytest.mark.parametrize("grid,n,want_jac", [("sdf", 98304, True), ("proposal_64", 524288, False),
+                                             ("tpu_f4", 98304, True), ("dense_f4", 4099, True)])
+def test_hash_encode_kernels_on_ray_ordered_points(card, grid, n, want_jac, per_ray):
+    """A step's samples come in ray order: runs of lanes share the coarse
+    cells (the backward's warp aggregation) at F = 2 and F = 4."""
+    enc = HashEncoding(**_HASH_GRIDS[grid])
+    _check_hash(enc, _ray_points(n, per_ray, card, seed=per_ray), want_jac, card)
+
+
+def test_hash_encode_f4_uniform_and_nan_past_the_table(card):
+    """F = 4 (float4 rows) at neus-facto-tpu's grid on uniform points, and
+    an all-dense F = 4 grid whose far corner at x = 1.0 reads past the
+    table: NaN there, the gradient dropped."""
+    out = _check_hash(HashEncoding(**_HASH_GRIDS["tpu_f4"]), _hash_points(98304, card), True, card)
+    assert not bool(torch.isnan(out[0]).any())
+    out = _check_hash(HashEncoding(**_HASH_GRIDS["dense_f4"]), _hash_points(4099, card), True, card)
+    assert bool(torch.isnan(out[0][1]).any()) and not bool(torch.isnan(out[0][0]).any())
+
+
+@pytest.mark.parametrize("grid", ["sdf", "dense"])
+def test_hash_encode_paired_corners_even_and_odd_cx(card, grid):
+    """Points whose cell corner on x is even at every level and points whose
+    is odd: the paired 16-byte loads and reductions (rows i, i ^ 1 of a
+    hashed level, i, i + 1 of a dense one, when they form an aligned pair)
+    and the unpaired ones both hold the plain version, and both occur."""
+    enc = HashEncoding(**_HASH_GRIDS[grid])
+    spec = enc.spec
+    rng = np.random.default_rng(11)
+    base = rng.uniform(0.05, 0.95, (2048, 3)).astype(np.float32)
+    res = np.asarray(spec.resolutions, np.float32)
+    for parity in (0, 1):
+        x = base.copy()
+        # the finest level sets the cell: even or odd cx there, and at the coarser levels whatever follows
+        c = np.floor(x[:, 0] * res[-1])
+        c = np.where(c % 2 == parity, c, c + 1)
+        x[:, 0] = np.clip((c + 0.5) / res[-1], 0.0, 1.0)
+        xt = torch.from_numpy(x).to(card)
+        _check_hash(enc, xt, True, card, seed=parity)
+        idx, _ = hg.corner_indices(xt, spec)
+        a, b = idx[..., 0::2], idx[..., 1::2]
+        paired = ((a ^ b) == 1) & ((a | 1) < enc.total_rows)
+        assert bool(paired.any()) and bool((~paired).any())
 
 
 def test_hash_encode_autograd_wiring(card):
@@ -527,15 +591,48 @@ def test_hash_encode_autograd_wiring(card):
         enc(x.clone().requires_grad_(True))
 
 
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("grid,n,want_jac", [("sdf", 98304, True), ("proposal_64", 524288, False),
+                                             ("tpu_f4", 98304, True), ("dense", 4099, True)])
+def test_hash_encode_deterministic_backward(card, deterministic, grid, n, want_jac):
+    """Under ``torch.use_deterministic_algorithms(True)`` the wrapper takes
+    the sorted segment-sum path (its two counters move, the atomic kernel's
+    does not), which holds the plain version and repeats bit for bit."""
+    enc = HashEncoding(**_HASH_GRIDS[grid])
+    spec, R, F = enc.spec, enc.total_rows, enc.features_per_level
+    x = _ray_points(n, 96, card)
+    x[0] = 1.0  # a corner past the table in the dense grid: dropped
+    rng = np.random.default_rng(3)
+    LF = spec.num_levels * F
+    g_out = torch.from_numpy(rng.standard_normal((n, LF)).astype(np.float32)).to(card)
+    g_jac = (torch.from_numpy(rng.standard_normal((n, LF, 3)).astype(np.float32)).to(card)
+             if want_jac else None)
+    before = dict(hg.LAUNCHES)
+    runs = [hg.hash_encode_bwd(x, g_out, g_jac, spec, R) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["hash_encode_bwd"] == before["hash_encode_bwd"]
+    assert hg.LAUNCHES["hash_encode_bwd_det"] == before["hash_encode_bwd_det"] + 2
+    assert hg.LAUNCHES["hash_segment_sum"] == before["hash_segment_sum"] + 2
+    assert torch.equal(runs[0], runs[1])
+    ref = hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R)
+    assert _rel_fro(runs[0], ref) <= HASH_BWD_TOL
+
+
 def test_hash_encode_refuses_what_it_cannot_take(card):
-    """The kernels take F = 2 and float2-aligned rows; the wrappers raise on
-    anything else before a launch."""
+    """The kernels take F = 2 or 4 and 16-byte aligned tables and
+    cotangents; the wrappers raise on anything else before a launch."""
     enc = HashEncoding(**_HASH_GRIDS["dense"])
     x = _hash_points(10, card)
     with pytest.raises(ValueError, match="features per level"):
-        hg.hash_encode_fwd(x, torch.zeros(enc.total_rows, 4, device=card), enc.spec)
-    table = torch.zeros(enc.total_rows * 2 + 1, device=card)[1:].view(enc.total_rows, 2)
-    with pytest.raises(ValueError, match="8-byte aligned"):
+        hg.hash_encode_fwd(x, torch.zeros(enc.total_rows, 3, device=card), enc.spec)
+    table = torch.zeros(enc.total_rows * 2 + 2, device=card)[2:].view(enc.total_rows, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         hg.hash_encode_fwd(x, table, enc.spec)
     with pytest.raises(ValueError, match="contiguous float32 CUDA"):
         hg.hash_encode_bwd(x, torch.zeros(10, 6, device=card).double(), None, enc.spec,

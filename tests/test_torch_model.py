@@ -286,18 +286,29 @@ def test_full_width_config_matches_jax_parameter_tree(method):
                                        "neus-facto-tpu-p8": "PermutoEncoding"}[method]
 
 
-def test_default_configs_build_the_jax_default_tree():
+@pytest.mark.parametrize("grid_feature", [True, False])
+def test_default_configs_build_the_jax_default_tree(grid_feature):
     """The port's default ``SDFFieldConfig`` and ``NeuSFactoModelConfig``
     build JAX's defaults: the hash grid (L16 x F2 of 2^19 rows, 6,098,925
     rows with smoothstep) and the two hash proposal fields (278,256 and
-    434,066 rows). JAX's defaults are taken with the two settings every
-    ported method has: the grid feature on and no background field."""
-    jcfg = JNeuSFactoModelConfig(sdf_field=JSDFFieldConfig(use_grid_feature=True),
+    434,066 rows). Both sides take the two settings every ported method
+    has, the grid feature on and no background field; with JAX's default
+    ``use_grid_feature=False`` both trees hold no grid table at all (Flax
+    creates no parameters for the encoding it never calls)."""
+    jcfg = JNeuSFactoModelConfig(sdf_field=JSDFFieldConfig(use_grid_feature=grid_feature),
                                  background_model="none")
-    tcfg = TNeuSFactoModelConfig(background_model="none")
-    assert tcfg.sdf_field == TSDFFieldConfig()
+    tcfg = TNeuSFactoModelConfig(sdf_field=TSDFFieldConfig(use_grid_feature=grid_feature),
+                                 background_model="none")
+    assert TNeuSFactoModelConfig().sdf_field == TSDFFieldConfig()
+    assert not TSDFFieldConfig().use_grid_feature
     tmodel = _same_tree(jcfg, tcfg)
-    assert tmodel.field.encoding.total_rows == 6_098_925 and tmodel.field.encoding.spec.smoothstep
+    if grid_feature:
+        assert tmodel.field.encoding.total_rows == 6_098_925
+        assert tmodel.field.encoding.spec.smoothstep
+    else:
+        assert tmodel.field.encoding is None
+        assert not any("hash_table" in n for n, _ in tmodel.field.named_parameters())
+    assert tmodel.field.geo_in_dim == 3 + 36 + 32  # the zero feature still feeds the MLP
     props = [net.encoding for net in tmodel.proposal_networks]
     assert [e.total_rows for e in props] == [278_256, 434_066]
     assert not any(e.spec.smoothstep for e in props)
