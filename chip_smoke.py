@@ -50,8 +50,11 @@ Phases, each printing its own line with wall-clock seconds:
    agree exactly, NaN rows included. Kernel, plain version and
    ``index_select`` are timed with CUDA events over many warm launches, and
    the kernel's device time per launch is read from ``torch.profiler``
-   beside it (the gap between the two is the launch's); each case reports
-   its share of the bytes bound and the design the kernel took;
+   beside it (the gap between the two is the launch's; a trace that misses
+   more than half the launches is taken again, up to three times, and the
+   device time is then reported as null: the launches are counted by the
+   port's own counters); each case reports its share of the bytes bound and
+   the design the kernel took;
 7. final_eval: the JAX package's committed 20k ``neus-facto-tpu-p8``
    checkpoint (its size and the sha256 of ``packed.npz`` printed) is loaded
    by the port's numpy reader through the trainer's resume; on one 8192-ray
@@ -87,8 +90,23 @@ Phases, each printing its own line with wall-clock seconds:
    ``neus-facto`` with ``torch.use_deterministic_algorithms(True)``: the
    table gradients take the sorted segment sum, and the resumed run must
    equal the straight one bit for bit, parameters included;
-10. the ``kernels`` JSON line (eight kernels), the ``nvidia-smi`` line, and
-   the result line.
+10. surface: ``neus``, ``volsdf`` and ``unisurf`` (``surface[<method>]``)
+   at full width from the seeded initialiser on the committed scene, with
+   the NeRF background field: 40 steps of 1024 rays through
+   ``Trainer.train`` (ms a step over steps 12-39, losses at steps 1 and 40),
+   one step with the kernels against one with the plain versions (losses
+   and gradients, 1e-4), both fused-MLP chains these methods add (the SDF
+   field's colour net [321 -> 256 x4 -> 3] and the background's head [283
+   -> 128 -> 128] with a relu output) captured from that step and held and
+   timed alone (kernel, plain version, cuBLAS layer by layer, 3xTF32 and
+   FP32 bounds), one traced step, and the scene's 384x384 view rendered with
+   the kernels (its ms an image, warm after the training steps) and with
+   the plain versions (the 0.999 quantile of rays held to 1e-3), and its
+   first 12 chunks traced. The
+   fused kernels must run twice a step (forward and backward) and twice a
+   chunk (forward);
+11. the ``kernels`` JSON line (eight kernels; the fused-MLP entries carry
+   the surface chains' rows), the ``nvidia-smi`` line, and the result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
 call (unless the caller set it), so that cuBLAS accepts the deterministic
@@ -189,6 +207,7 @@ PROBE_GATHERS = [("take", 1 << 14, 2, 4_194_304), ("take", 1 << 19, 2, 4_194_304
 # 4 corners of a 2,841,000 x 4 table
 P8_GATHER = ("take", 2_841_000, 4, 98_304 * 8 * 4)
 GATHER_REPS = 50  # warm launches per CUDA-event timing of a gather
+SURFACE_METHODS = ("neus", "volsdf", "unisurf")  # phase 10, at their registered 1024 rays a step
 
 
 def log(phase: str, msg: str) -> None:
@@ -458,25 +477,31 @@ def cuda_time_many_ms(fn, reps: int = GATHER_REPS, warmup: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def profiled_device_ms(fn, kernel: str, reps: int = 20):
+def profiled_device_ms(fn, kernel: str, reps: int = 20, traces: int = 3):
     """Mean device time of one launch of ``fn()``'s kernel, whose name holds
     ``kernel``, over ``reps`` launches traced by ``torch.profiler``, and the
     number of launches the trace holds (it can miss the first few): beside
     the events' mean of back-to-back launches it shows the gap between
-    launches."""
+    launches. A trace that holds fewer than half the launches is taken
+    again, up to ``traces`` times; if every one is short, the device time is
+    None beside the count of the last. It is a measurement: the launches
+    themselves are counted by the port's own counters."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    durs = [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == cuda and kernel in e.name]
-    check(reps // 2 <= len(durs) <= reps,
-          f"the profiler saw {len(durs)} {kernel} launches of {reps}")
-    return sum(durs) / len(durs) / 1e3, len(durs)
+    durs = []
+    for _ in range(traces):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == cuda and kernel in e.name]
+        check(len(durs) <= reps, f"the profiler saw {len(durs)} {kernel} launches of {reps}")
+        if len(durs) >= reps // 2:
+            return sum(durs) / len(durs) / 1e3, len(durs)
+    return None, len(durs)
 
 
 def probe_phase() -> dict:
@@ -536,7 +561,8 @@ def probe_phase() -> dict:
                   if kind == "take" else {"staged": True})
         rec = {"kernel": kind, "case": which, "R": R, "F": F, "M": M, **design,
                "max_abs_err": max_abs, "nan_rows": nan_rows, "same_nan": same_nan, "ms": ms,
-               "device_ms": device_ms, "traced_launches": traced, "launch_gap_ms": ms - device_ms,
+               "device_ms": device_ms, "traced_launches": traced,
+               "launch_gap_ms": None if device_ms is None else ms - device_ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
                "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
                "rows_per_s": M / ms * 1e3, "library_rows_per_s": M / library_ms * 1e3}
@@ -1062,6 +1088,216 @@ def neus_facto_phase(fm, smi: str, cams, scene_box, designs) -> dict:
             "cpu_err": cpu_err, "hash_calls": hash_calls, "train": train, "resume": resume}
 
 
+def chain_checks(fm, calls: list, names: list, phase: str, method: str) -> list:
+    """Each captured fused-MLP call of a train step alone: the forward and
+    backward kernels against their plain versions (``KERNEL_TOL``,
+    ``BWD_TOL``) and timed beside the plain versions, cuBLAS layer by layer
+    (``torch.addmm`` with the activation in place, and PyTorch's autograd
+    through it for the backward) and the 3xTF32 and FP32 bounds."""
+    before = dict(fm.LAUNCHES)
+    recs = []
+    for name, c in zip(names, calls):
+        x = c["x"].reshape(-1, c["x"].shape[-1])
+        g = c["g"].reshape(-1, c["g"].shape[-1]).contiguous()
+        ws, bs, act, out_act, need_dx = c["ws"], c["bs"], c["act"], c["out_act"], c["need_dx"]
+        acts = [act] * (len(ws) - 1) + [out_act]
+
+        def cublas(x_):
+            h = x_
+            for w, b, a in zip(ws, bs, acts):
+                h = torch.addmm(b, h, w)
+                h = torch.relu_(h) if a == "relu" else fm._act(h, a)
+            return h
+
+        xr = x.detach().requires_grad_(need_dx)
+        wr = [w.detach().requires_grad_(True) for w in ws]
+        br = [b.detach().requires_grad_(True) for b in bs]
+
+        def cublas_bwd():
+            h = xr
+            for w, b, a in zip(wr, br, acts):
+                h = fm._act(torch.addmm(b, h, w), a)
+            return torch.autograd.grad(h, ([xr] if need_dx else []) + wr + br, g)
+
+        with torch.no_grad():
+            y_k, y_p = fm.fused_mlp(x, ws, bs, act, out_act), fm.fused_mlp_plain(x, ws, bs, act, out_act)
+            kern = fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx)
+            plain = fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx)
+            torch.cuda.synchronize()
+            f_err = float((y_k - y_p).abs().max())
+            f_rel = f_err / (float(y_p.abs().max()) + 1.0)
+            pairs = [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(kern[1], plain[1]))]
+            pairs += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(kern[2], plain[2]))]
+            if need_dx:
+                pairs.append(("dx", kern[0], plain[0]))
+            rel = {n: rel_fro(a, b) for n, a, b in pairs}
+            b_abs = max(float((a - b).abs().max()) for _, a, b in pairs)
+            reps = 10
+            fk = cuda_time_ms(lambda: fm.fused_mlp(x, ws, bs, act, out_act), reps)
+            fp = cuda_time_ms(lambda: fm.fused_mlp_plain(x, ws, bs, act, out_act), reps)
+            fl = cuda_time_ms(lambda: cublas(x), reps)
+            bk = cuda_time_ms(lambda: fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx), reps)
+            bp = cuda_time_ms(lambda: fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx), reps)
+        with torch.enable_grad():
+            bl = cuda_time_ms(cublas_bwd, reps)
+        fflop, fbytes, dims, n = mlp_work(x, ws)
+        bflop, bbytes, scratch, _, _ = mlp_bwd_work(x, ws, need_dx)
+        fb, fb32, fby = bounds(fflop, fbytes)
+        bb, bb32, bby = bounds(bflop, bbytes)
+        rec = {"method": method, "call": name, "rows": n, "dims": dims, "act": act, "out_act": out_act,
+               "need_dx": need_dx,
+               "fwd": {"max_abs_err": f_err, "rel_err": f_rel, "ms": fk, "plain_ms": fp,
+                       "cublas_ms": fl, "flop": fflop, "bytes": fbytes, "bound_ms": fb,
+                       "bound_ms_fp32": fb32, "bound_by": fby},
+               "bwd": {"max_abs_err": b_abs, "rel_err": rel, "ms": bk, "plain_ms": bp,
+                       "cublas_ms": bl, "flop": bflop, "bytes": bbytes, "scratch_bytes": scratch,
+                       "bound_ms": bb, "bound_ms_fp32": bb32, "bound_by": bby}}
+        recs.append(rec)
+        log(phase, json.dumps(rec))
+        check(f_rel <= KERNEL_TOL, f"{name}: forward kernel vs plain error {f_rel} > {KERNEL_TOL}")
+        for n_, e in rel.items():
+            check(e <= BWD_TOL, f"{name} {n_}: backward kernel vs plain rel error {e} > {BWD_TOL}")
+        del xr, wr, br
+    fm.LAUNCHES.update(before)  # comparison launches are not the main path's
+    return recs
+
+
+def surface_phase(fm, smi: str, method: str) -> dict:
+    """A classic surface method (``neus``, ``volsdf``, ``unisurf``) at full
+    width from the seeded initialiser on the committed scene: 40 train steps
+    through ``Trainer.train`` (ms a step over steps 12-39), one step with the
+    kernels against one with the plain versions, both new fused-MLP chains
+    (the SDF field's 4-layer colour net and the NeRF background's head)
+    alone, and one 384x384 view rendered with the kernels against the plain
+    versions. Both fused kernels must run in the training steps and the
+    forward in the render. Returns what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine.final_eval import render_image
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+
+    phase = f"surface[{method}]"
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trainer = setup_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
+    dm, model = trainer.datamanager, trainer.model
+    rays = dm.config.train_num_rays_per_batch
+    torch.cuda.synchronize()
+    log(phase, f"{sum(p.numel() for p in model.parameters())} parameters, groups "
+        f"{sorted(trainer.optimizers)}, {rays} rays a step; set up in {time.perf_counter() - t:.2f} s")
+    fm.reset_launch_counts()
+    row = trainer.train_step()
+    first = dict(zip(trainer.metric_keys, row.cpu().tolist()))
+    trainer.train(CHECK_STEPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last = trainer.train(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / (TRAIN_STEPS - CHECK_STEPS)
+    train_launches = dict(fm.LAUNCHES)
+    log(phase, f"Trainer.train, steps {CHECK_STEPS}-{TRAIN_STEPS - 1}: {step_ms:.2f} ms a step, "
+        f"{rays / step_ms * 1e3:.0f} rays/s; launches {train_launches}; losses at step 1 / "
+        f"{TRAIN_STEPS}: " + " ".join(f"{k}={first[k]:.5g}/{last[k]:.5g}" for k in trainer.metric_keys))
+    check(trainer.step == TRAIN_STEPS, f"Trainer.train stopped at step {trainer.step}")
+    check(all(math.isfinite(v) for v in list(first.values()) + list(last.values())),
+          "a training loss or metric is not finite")
+    # the colour net and the background head: a forward and a backward each, every step
+    check(train_launches["fused_mlp_fwd"] == 2 * TRAIN_STEPS
+          and train_launches["fused_mlp_bwd"] == 2 * TRAIN_STEPS,
+          f"expected {2 * TRAIN_STEPS} fused forward and backward launches: {train_launches}")
+
+    # one step twice from the same state: the kernels, then the plain versions
+    sched = model.schedules(trainer.step)
+
+    def one_step():
+        gen = torch.Generator(device=dm.device).manual_seed(777)
+        idx, batch = dm.sample_train_batch(gen)
+        total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
+
+    calls: list = []
+    with capture_fused_mlp_calls(calls):
+        k_loss, k_grads = one_step()
+    with swap_fused_mlp(fm.fused_mlp_plain):
+        p_loss, p_grads = one_step()
+    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
+    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
+    log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); "
+        f"gradient rel err {grad_err} (tol {STEP_GRAD_TOL})")
+    for k, e in loss_err.items():
+        check(e <= STEP_LOSS_TOL, f"{k}: kernel step and plain step differ by {e}")
+    for g, e in grad_err.items():
+        check(e <= STEP_GRAD_TOL, f"{g} gradient: kernel step and plain step differ by {e}")
+    check(len(calls) == 2 and all("g" in c for c in calls),
+          f"expected 2 fused_mlp calls with a backward, captured {len(calls)}")
+    chains = chain_checks(fm, calls, ["color", "background_head"], phase, method)
+    del calls, k_grads, p_grads
+
+    # one traced update step: where its time goes
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    step_profile = {"traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms)}
+    log(phase.replace("surface", "surface_profile"), json.dumps({"train_step": step_profile}))
+
+    # one view of the scene, 144 chunks of 1024 rays, kernels against plain
+    cams = dm.train_cameras
+    check(int(cams.height[0]) == IMAGE and int(cams.width[0]) == IMAGE,
+          f"the scene's view is not {IMAGE}x{IMAGE}")
+    n_chunks = math.ceil(IMAGE * IMAGE / 1024)
+    # warm: the training steps ran the same kernels and products
+    fm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = render_image(model, cams, 0, chunk=1024, step=trainer.step)
+    torch.cuda.synchronize()
+    image_ms = (time.perf_counter() - t) * 1e3
+    render_launches = dict(fm.LAUNCHES)
+    check(render_launches["fused_mlp_fwd"] == 2 * n_chunks and render_launches["fused_mlp_bwd"] == 0,
+          f"expected {2 * n_chunks} fused forward launches in the render: {render_launches}")
+    with swap_fused_mlp(fm.fused_mlp_plain):
+        plain_out = render_image(model, cams, 0, chunk=1024, step=trainer.step)
+    torch.cuda.synchronize()
+    fm.LAUNCHES.update(render_launches)
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"{k} has non-finite values")
+    ray_err = {k: (out[k] - plain_out[k]).abs().reshape(IMAGE * IMAGE, -1).amax(-1) for k in out}
+    render_err = {k: float(e.max()) for k, e in ray_err.items()}
+    render_q = {k: float(torch.quantile(e, RENDER_QUANTILE)) for k, e in ray_err.items()}
+    # the first 12 chunks of the view traced: the device's idle share
+    rb = cams.generate_image_rays(0)
+    sched_r = model.schedules(trainer.step)
+    traced_chunks = min(12, n_chunks)
+    with torch.profiler.profile(activities=acts) as prof, torch.no_grad():
+        t = time.perf_counter()
+        for i in range(traced_chunks):
+            model.get_outputs(rb.map(lambda x: x[i * 1024:(i + 1) * 1024]), sched=sched_r)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    render_profile = {"chunks": traced_chunks, "traced_wall_ms": traced_ms,
+                      **render_breakdown(prof.events(), traced_ms)}
+    log(phase.replace("surface", "surface_profile"), json.dumps({"render_chunks": render_profile}))
+    acc = out["accumulation"]
+    log(phase, f"rendered {IMAGE}x{IMAGE} in {n_chunks} chunks: {image_ms:.1f} ms an image; launches {render_launches}; kernel path vs plain path, max "
+        f"|diff| {render_err}, {RENDER_QUANTILE} quantile of rays {render_q} (tol {SLICE_TOL}); "
+        f"accumulation min {float(acc.min()):.4f} max {float(acc.max()):.4f}")
+    for k in out:
+        check(render_q[k] < SLICE_TOL, f"{k}: kernel and plain renders differ by {render_q[k]} on "
+              f"more than {1 - RENDER_QUANTILE:.1%} of the rays")
+    del trainer, model, out, plain_out
+    torch.cuda.empty_cache()
+    return {"method": method, "rays": rays, "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
+            "loss_first": first, "loss_last": last, "train_launches": train_launches,
+            "render_launches": render_launches, "image_ms": image_ms,
+            "step_loss_err": loss_err, "step_grad_err": grad_err, "render_err": render_err,
+            "render_quantile_err": render_q, "chains": chains,
+            "train_step_idle_share": step_profile["device_idle_share"],
+            "render_idle_share": render_profile["device_idle_share"]}
+
+
 def final_eval_phase(fm, smi: str) -> dict:
     """Score JAX's committed 20k p8 checkpoint with the port on the card and
     hold it to the scores JAX wrote; hold the kernel path to the plain path
@@ -1453,7 +1689,10 @@ def main() -> int:
     # 9. neus-facto ---------------------------------------------------------
     nf = neus_facto_phase(fm, smi, cams, scene_box, designs)
 
-    # 10. results -----------------------------------------------------------
+    # 10. neus, volsdf, unisurf ----------------------------------------------
+    surface = {m: surface_phase(fm, smi, m) for m in SURFACE_METHODS}
+
+    # 11. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -1470,7 +1709,8 @@ def main() -> int:
             "launches_train": train["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in at_probe),
-            "device_ms": sum(r["device_ms"] for r in at_probe),
+            "device_ms": (None if any(r["device_ms"] is None for r in at_probe)
+                          else sum(r["device_ms"] for r in at_probe)),
             "plain_ms": sum(r["plain_ms"] for r in at_probe),
             "bound_ms": sum(r["bound_ms"] for r in at_probe),
             "bound_share": sum(r["bound_ms"] for r in at_probe) / sum(r["ms"] for r in at_probe),
@@ -1478,6 +1718,25 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in at_probe),
             "per_shape": mine,
         }
+
+    def surface_launches(name: str) -> int:
+        return sum(r["train_launches"][name] + r["render_launches"][name] for r in surface.values())
+
+    def surface_chains(which: str) -> list:
+        """The new chains of phase 10, one row per method and call, each
+        with its launches on that method's path (a call a step, a call a
+        chunk)."""
+        rows = []
+        for m, r in surface.items():
+            for c in r["chains"]:
+                d = c[which]
+                rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
+                             "out_act": c["out_act"],
+                             "launches": (r["train_launches"][f"fused_mlp_{which}"]
+                                          + r["render_launches"][f"fused_mlp_{which}"]) // 2,
+                             **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
+                                                  "bound_ms", "bound_ms_fp32", "bound_by")}})
+        return rows
 
     nf_launches = {k: nf["render_launches"][k] + nf["train"]["launches"][k]
                    + nf["resume"]["launches"][k] for k in nf["render_launches"]}
@@ -1551,13 +1810,18 @@ def main() -> int:
         "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:94",
         "launches": (launches["fused_mlp_fwd"] + train["launches"]["fused_mlp_fwd"]
                      + final["launches"]["fused_mlp_fwd"] + resume["launches"]["fused_mlp_fwd"]
-                     + nf_launches["fused_mlp_fwd"]),
+                     + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")),
         "launches_neus_facto": nf_launches["fused_mlp_fwd"],
+        "launches_surface": {m: {"train": r["train_launches"]["fused_mlp_fwd"],
+                                 "render": r["render_launches"]["fused_mlp_fwd"]}
+                             for m, r in surface.items()},
+        "surface_chains": surface_chains("fwd"),
         "launches_render": launches["fused_mlp_fwd"],
         "launches_train": train["launches"]["fused_mlp_fwd"],
         "launches_final_eval": final["launches"]["fused_mlp_fwd"],
         "launches_resume": resume["launches"]["fused_mlp_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in per_call),
+        "max_abs_err": max([r["max_abs_err"] for r in per_call]
+                           + [c["max_abs_err"] for c in surface_chains("fwd")]),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
@@ -1577,11 +1841,14 @@ def main() -> int:
         "source": "sdfstudio_tpu_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:151",
         "launches": (train["launches"]["fused_mlp_bwd"] + resume["launches"]["fused_mlp_bwd"]
-                     + nf_launches["fused_mlp_bwd"]),
+                     + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")),
         "launches_neus_facto": nf_launches["fused_mlp_bwd"],
+        "launches_surface": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in surface.items()},
+        "surface_chains": surface_chains("bwd"),
         "launches_train": train["launches"]["fused_mlp_bwd"],
         "launches_resume": resume["launches"]["fused_mlp_bwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in bwd),
+        "max_abs_err": max([r["max_abs_err"] for r in bwd]
+                           + [c["max_abs_err"] for c in surface_chains("bwd")]),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
@@ -1606,6 +1873,10 @@ def main() -> int:
                   "code)", library=False),
         det_entry("hash_segment_sum", "segment_sum",
                   "sdfstudio_tpu/ops/scatter.py:28 (sorted_segment_add, XLA code)", library=True)]}
+    log("surface", json.dumps({m: {k: r[k] for k in ("rays", "step_ms", "rays_per_s", "image_ms",
+                                                      "train_step_idle_share", "render_idle_share",
+                                                      "loss_first", "loss_last")}
+                                for m, r in surface.items()}))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)

@@ -1,8 +1,9 @@
 """Method registry (counterpart of ``sdfstudio_tpu/configs/methods.py``).
 
-Registers ``neus-facto`` (methods.py:216-240) and ``neus-facto-tpu-p8``
-(methods.py:361-393) as Python dataclasses with their model, optimizer
-groups, trainer and data-manager settings; nothing is read from YAML.
+Registers ``neus`` (methods.py:113-123), ``volsdf`` (:125-135), ``unisurf``
+(:193-213), ``neus-facto`` (:216-240) and ``neus-facto-tpu-p8`` (:361-393)
+as Python dataclasses with their model, optimizer groups, trainer and
+data-manager settings; nothing is read from YAML.
 """
 from __future__ import annotations
 
@@ -18,7 +19,11 @@ from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGrou
 from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
 from sdfstudio_tpu_torch.engine.trainer import TrainerConfig
 from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig
+from sdfstudio_tpu_torch.models.base_surface_model import SurfaceModelConfig
+from sdfstudio_tpu_torch.models.neus import NeuSModel, NeuSModelConfig
 from sdfstudio_tpu_torch.models.neus_facto import NeuSFactoModel, NeuSFactoModelConfig
+from sdfstudio_tpu_torch.models.unisurf import UniSurfModel, UniSurfModelConfig
+from sdfstudio_tpu_torch.models.volsdf import VolSDFModel, VolSDFModelConfig
 from sdfstudio_tpu_torch.utils.device import resolve_device
 
 
@@ -26,7 +31,7 @@ from sdfstudio_tpu_torch.utils.device import resolve_device
 class MethodConfig:
     method_name: str
     model_class: type
-    model: NeuSFactoModelConfig
+    model: SurfaceModelConfig
     optimizers: Dict[str, OptimizerGroupConfig] = dataclasses.field(default_factory=dict)
     trainer: TrainerConfig = TrainerConfig()
     datamanager: DataManagerConfig = DataManagerConfig()
@@ -37,9 +42,10 @@ def _adam(lr: float) -> OptimizerConfig:
 
 
 def _optimizers() -> Dict[str, OptimizerGroupConfig]:
-    """The optimizer groups both methods set (methods.py:234-238, 389-395).
-    Neither has a background field, so the JAX "field_background" group (a
-    placeholder) has no counterpart."""
+    """The optimizer groups both ``neus-facto`` methods set (methods.py:234-238,
+    389-395). Neither has a background field, so the JAX "field_background"
+    group (a placeholder) has no counterpart here; the classic methods train
+    their NeRF background in a "field_background" group (``_surface``)."""
     return {
         "proposal_networks": OptimizerGroupConfig(
             _adam(1e-2), SchedulerConfig(kind="multistep", max_steps=20000)),
@@ -49,7 +55,30 @@ def _optimizers() -> Dict[str, OptimizerGroupConfig]:
     }
 
 
+def _surface(name: str, model_class: type, model: SurfaceModelConfig,
+             scheduler: SchedulerConfig) -> MethodConfig:
+    """A classic surface method (``_surface_cfg``, methods.py:86-110): the
+    field and its NeRF background each under Adam at 5e-4 with ``scheduler``,
+    100,000 iterations, 1024 train rays and 1024-ray eval chunks."""
+    group = OptimizerGroupConfig(_adam(5e-4), scheduler)
+    return MethodConfig(
+        name, model_class, model,
+        optimizers={"field": group, "field_background": group},
+        trainer=TrainerConfig(max_num_iterations=100000, steps_per_save=20000),
+        datamanager=DataManagerConfig(train_num_rays_per_batch=1024),
+    )
+
+
+# methods.py:66-68: the NeuS warmup-cosine at its defaults
+_NEUS_SCHED = SchedulerConfig(kind="neus", warm_up_end=5000, learning_rate_alpha=0.05,
+                              max_steps=300000)
+
 method_configs = {
+    "neus": _surface("neus", NeuSModel, NeuSModelConfig(eval_num_rays_per_chunk=1024), _NEUS_SCHED),
+    "volsdf": _surface("volsdf", VolSDFModel, VolSDFModelConfig(eval_num_rays_per_chunk=1024),
+                       SchedulerConfig(kind="exponential", decay_rate=0.1, max_steps=100000)),
+    "unisurf": _surface("unisurf", UniSurfModel, UniSurfModelConfig(eval_num_rays_per_chunk=1024),
+                        _NEUS_SCHED),
     "neus-facto": MethodConfig(
         "neus-facto",
         NeuSFactoModel,

@@ -1,11 +1,13 @@
 """Learning-rate multipliers as plain functions of the step (counterpart of
-``sdfstudio_tpu/engine/schedulers.py``): the ``neus`` warmup-cosine and the
-``multistep`` schedules that ``neus-facto-tpu-p8`` uses."""
+``sdfstudio_tpu/engine/schedulers.py``): the ``neus`` warmup-cosine, the
+``multistep`` and the ``exponential`` schedules that the registered methods use."""
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Callable, Sequence
+
+import numpy as np
 
 Schedule = Callable[[float], float]
 
@@ -14,10 +16,11 @@ Schedule = Callable[[float], float]
 class SchedulerConfig:
     """The fields of ``SchedulerConfig`` (schedulers.py:19-58) these schedules read."""
 
-    kind: str  # neus | multistep
+    kind: str  # neus | multistep | exponential
     max_steps: int = 1000000
     warm_up_end: int = 5000
     learning_rate_alpha: float = 0.05
+    decay_rate: float = 0.1
 
     def build(self) -> Schedule:
         if self.kind == "neus":
@@ -25,6 +28,8 @@ class SchedulerConfig:
         if self.kind == "multistep":
             ms = [self.max_steps // 2, self.max_steps * 3 // 4, self.max_steps * 9 // 10]
             return multistep_schedule(ms, 0.33)
+        if self.kind == "exponential":
+            return exponential_schedule(self.decay_rate, self.max_steps)
         raise NotImplementedError(f"scheduler kind {self.kind!r} is not ported (ROADMAP queue 1)")
 
 
@@ -45,5 +50,19 @@ def neus_schedule(warm_up_end: int, learning_rate_alpha: float, max_steps: int) 
         progress = (step - warm_up_end) / max(max_steps - warm_up_end, 1)
         alpha = learning_rate_alpha
         return (math.cos(math.pi * progress) + 1.0) * 0.5 * (1 - alpha) + alpha
+
+    return sched
+
+
+def exponential_schedule(decay_rate: float, max_steps: int) -> Schedule:
+    """``rate ** step`` with ``rate = decay_rate ** (1 / max_steps)``
+    (schedulers.py:50-55). JAX raises the rate to the step in float32, so
+    the rate is first rounded to float32 as it is there: at 0.1 over
+    100,000 steps that rounding alone moves the multiplier by ~1e-4 at step
+    5,000, which this keeps."""
+    rate = float(np.float32(decay_rate ** (1.0 / max_steps)))
+
+    def sched(step: float) -> float:
+        return rate ** float(step)
 
     return sched

@@ -67,7 +67,7 @@ def loss_and_metrics(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """``loss_fn`` of trainer.py:352-364: (total loss, loss dict, metrics)."""
     outputs = model.get_outputs(ray_bundle, sched=sched, train=True, rng=rng)
-    loss_dict = model.get_loss_dict(outputs, batch, sched)
+    loss_dict = model.get_loss_dict(outputs, batch, sched, rng)
     total = sum(loss_dict.values())
     return total, loss_dict, model.get_metrics_dict(outputs, batch)
 

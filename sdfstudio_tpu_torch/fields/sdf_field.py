@@ -5,9 +5,11 @@ Ported: the hash-grid or permutohedral grid feature with its analytic
 jacobian (or, with ``use_grid_feature=False``, JAX's zeros in its place), the
 weight-normed geometry MLP with the ``"vjp"`` gradient
 (``geonetwork_with_gradient``, sdf_field.py:323-368), the color net through
-the fused kernel (``colors``, sdf_field.py:387-473) and ``get_outputs``
-(sdf_field.py:642-765) for the configuration options ``neus-facto`` and
-``neus-facto-tpu-p8`` use. Other options raise.
+the fused kernel (``colors``, sdf_field.py:387-473), ``get_outputs``
+(sdf_field.py:642-765) with NeuS alpha and UniSurf occupancy, and the
+analytic ``gradient`` (sdf_field.py:578-648), for the configuration options
+the registered methods use, from ``neus-facto``'s 2-layer MLPs to JAX's
+default 8 geometry layers with the skip at layer 4. Other options raise.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from sdfstudio_tpu_torch.utils import checks
 class SDFFieldConfig:
     """The sizes and values of ``SDFFieldConfig`` (sdf_field.py:63-108) that
     the port reads, with JAX's defaults. The port implements the options
-    ``neus-facto`` and ``neus-facto-tpu-p8`` set and JAX's defaults: the
+    the registered methods set and JAX's defaults: the
     hash-grid (``encoding_type="hash"``, f32 tables) or permutohedral
     (``"permuto"``) grid feature, on or off (``use_grid_feature``),
     positional encoding, geometric init, weight norm, no appearance
@@ -280,11 +282,22 @@ class SDFField(nn.Module):
     def get_inv_s(self) -> torch.Tensor:
         return density_ops.variance_inv_s(self.deviation)
 
+    def get_beta(self) -> torch.Tensor:
+        return density_ops.effective_beta(self.laplace_beta)
+
+    def gradient(self, x: torch.Tensor) -> torch.Tensor:
+        """d sdf / dx at positions ``x`` [N, 3], contracted first
+        (``SDFField.gradient``, sdf_field.py:578-648, the analytic mode). It
+        stays in the graph, so a loss on it reaches the parameters
+        (UniSurf's smoothness loss)."""
+        return self.geonetwork_with_gradient(self.contract_positions(x), train=True)[1]
+
     def get_outputs(
         self,
         ray_samples: RaySamples,
         cos_anneal_ratio: float = 1.0,
         return_alphas: bool = False,
+        return_occupancy: bool = False,
         train: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """Field forward over ray samples (sdf_field.py:642-765)."""
@@ -297,7 +310,7 @@ class SDFField(nn.Module):
         h, gradients = self.geonetwork_with_gradient(inputs, train=train)
         sdf, geo_feat = h[..., :1], h[..., 1:]
         rgb = self.colors(inputs, directions, gradients, geo_feat)
-        beta = density_ops.effective_beta(self.laplace_beta)
+        beta = self.get_beta()
         outputs = {
             "rgb": rgb.reshape(R, S, 3),
             "density": density_ops.laplace_density(sdf[..., 0], beta).reshape(R, S),
@@ -311,4 +324,6 @@ class SDFField(nn.Module):
                 outputs["sdf"], outputs["gradient"], ray_samples.directions,
                 ray_samples.deltas, self.get_inv_s(), cos_anneal_ratio,
             )
+        if return_occupancy:
+            outputs["occupancy"] = density_ops.unisurf_occupancy(outputs["sdf"])
         return outputs

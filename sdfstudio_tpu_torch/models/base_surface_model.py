@@ -3,7 +3,9 @@ the forward, the training losses and the metrics.
 
 Models are ``nn.Module``s; the schedule-driven state arrives as a ``sched``
 dict computed from ``step`` (base_surface_model.py:1-9), as in JAX.
-Background fields are a later slice.
+The ``"mlp"`` background is the NeRF field, evaluated on each ray beyond its
+far bound and blended by the foreground's last transmittance; the
+``"grid"`` background (``NerfactoField``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,15 +15,17 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from sdfstudio_tpu_torch.components import losses as L
 from sdfstudio_tpu_torch.components.colliders import apply_collider
-from sdfstudio_tpu_torch.core.rays import RayBundle
+from sdfstudio_tpu_torch.core.rays import RayBundle, RaySamples
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
 from sdfstudio_tpu_torch.fields.sdf_field import SDFField, SDFFieldConfig
+from sdfstudio_tpu_torch.fields.vanilla_nerf_field import NeRFField
 from sdfstudio_tpu_torch.ops import render as R
 from sdfstudio_tpu_torch.ops.contraction import contract
-from sdfstudio_tpu_torch.samplers.spaced import Rng
+from sdfstudio_tpu_torch.samplers.spaced import Rng, linear_disparity_sampler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,11 +34,13 @@ class SurfaceModelConfig:
 
     near_plane: float = 0.05
     far_plane: float = 4.0
+    far_plane_bg: float = 1000.0
     background_color: str = "black"
     eikonal_loss_mult: float = 0.1
     fg_mask_loss_mult: float = 0.01
     sdf_field: SDFFieldConfig = SDFFieldConfig()
-    background_model: str = "mlp"
+    background_model: str = "mlp"  # mlp | none ("grid" is not ported yet)
+    num_samples_outside: int = 32
     overwrite_near_far_plane: bool = False
     scene_contraction_norm: str = "inf"
     eval_num_rays_per_chunk: int = 1024
@@ -45,8 +51,10 @@ class SurfaceModel(nn.Module):
 
     def __init__(self, config: SurfaceModelConfig, scene_box: SceneBox, num_train_data: int):
         super().__init__()
-        if config.background_model != "none":
-            raise NotImplementedError("background fields are not ported yet (background_model='none')")
+        if config.background_model not in ("mlp", "none"):
+            raise NotImplementedError(
+                f"background_model={config.background_model!r} is not ported yet (ROADMAP queue 1 "
+                "item 5); 'mlp' and 'none' are")
         self.config = config
         self.scene_box = scene_box
         self.num_train_data = num_train_data
@@ -54,9 +62,15 @@ class SurfaceModel(nn.Module):
             config.sdf_field, num_images=num_train_data,
             spatial_distortion=config.scene_contraction_norm,
         )
+        # base_surface_model.py:91-96; without one JAX keeps a placeholder
+        # group ``field_background.dummy`` that no loss reaches
+        self.field_background = (NeRFField(spatial_distortion=config.scene_contraction_norm)
+                                 if config.background_model == "mlp" else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.field.reset_parameters(generator)
+        if self.field_background is not None:
+            self.field_background.reset_parameters(generator)
 
     def schedules(self, step: float) -> Dict[str, float]:
         return {"cos_anneal_ratio": 1.0}
@@ -74,6 +88,40 @@ class SurfaceModel(nn.Module):
 
     def contract(self, x: torch.Tensor) -> torch.Tensor:
         return contract(x, order=math.inf if self.config.scene_contraction_norm == "inf" else None)
+
+    def sdf_at_starts(self, samples: RaySamples) -> torch.Tensor:
+        """The SDF at the bin starts, [R, S], without a gradient: the
+        samplers' ``sdf_fn`` (neus.py:42-47, volsdf.py:32-37, unisurf.py:46-51)."""
+        return self.field.sdf(samples.get_start_positions().reshape(-1, 3)).reshape(samples.starts.shape)
+
+    def get_foreground_mask(self, ray_samples: RaySamples) -> torch.Tensor:
+        """1 where a sample starts inside the unit sphere, [R, S] (base_surface_model.py:134-137)."""
+        return (torch.linalg.vector_norm(ray_samples.get_start_positions(), dim=-1) < 1.0).to(
+            ray_samples.starts.dtype)
+
+    def forward_background_field_and_merge(self, ray_samples: RaySamples, field_outputs: Dict) -> Dict:
+        """The foreground's alpha and rgb inside the unit sphere, the
+        background field's outside it (base_surface_model.py:140-156)."""
+        inside = self.get_foreground_mask(ray_samples)
+        bg = self.field_background.get_outputs(ray_samples)
+        bg_alpha = R.alphas_from_densities(ray_samples.deltas, bg["density"])
+        field_outputs = dict(field_outputs)
+        field_outputs["alpha"] = field_outputs["alpha"] * inside + (1.0 - inside) * bg_alpha
+        field_outputs["rgb"] = (field_outputs["rgb"] * inside[..., None]
+                                + (1.0 - inside[..., None]) * bg["rgb"])
+        return field_outputs
+
+    def render_background(self, ray_bundle: RayBundle, rng: Rng = None) -> torch.Tensor:
+        """The background's colour of each ray, [R, 3]: the NeRF field at
+        ``num_samples_outside`` samples linear in disparity from the ray's
+        far bound to ``far_plane_bg`` (base_surface_model.py:200-218)."""
+        bg_bundle = ray_bundle.replace(nears=ray_bundle.fars,
+                                       fars=torch.full_like(ray_bundle.fars, self.config.far_plane_bg))
+        bg_samples = linear_disparity_sampler(bg_bundle, self.config.num_samples_outside, rng=rng)
+        with record_function("sst/background_field"):
+            bg_out = self.field_background.get_outputs(bg_samples)
+        bg_weights = R.weights_from_densities(bg_samples.deltas, bg_out["density"])
+        return R.render_rgb(bg_out["rgb"], bg_weights, background_color=self.config.background_color)
 
     def sample_and_forward_field(
         self, ray_bundle: RayBundle, sched: Dict, rng: Rng = None, train: bool = False
@@ -107,6 +155,8 @@ class SurfaceModel(nn.Module):
         if ray_bundle.directions_norm is not None:
             depth = depth / ray_bundle.directions_norm
         normal = R.render_semantics(field_outputs["normal"], weights)
+        if self.field_background is not None and "bg_transmittance" in s:
+            rgb = rgb + s["bg_transmittance"] * self.render_background(ray_bundle, rng)
         outputs = {
             "rgb": rgb,
             "accumulation": R.render_accumulation(weights),
@@ -128,10 +178,12 @@ class SurfaceModel(nn.Module):
             )
         return outputs
 
-    def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict) -> Dict[str, torch.Tensor]:
+    def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict,
+                      rng: Rng = None) -> Dict[str, torch.Tensor]:
         """rgb L1 + eikonal (+ fg-mask BCE when the batch carries masks)
         (base_surface_model.py:280-318); the other terms of the JAX method
-        are off in every configuration this port registers."""
+        are off in every configuration this port registers. ``rng`` is the
+        noise of the losses that draw any (UniSurf's)."""
         cfg = self.config
         loss_dict = {
             "rgb_loss": L.l1_loss(batch["image"], outputs["rgb"]),

@@ -117,10 +117,11 @@ class NeuSFactoModel(NeuSModel):
             "ray_samples_list": list(ray_samples_list) + [ray_samples],
         }
 
-    def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict) -> Dict[str, torch.Tensor]:
+    def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict,
+                      rng: Rng = None) -> Dict[str, torch.Tensor]:
         """neus_facto.py:237-257: the surface losses plus the interlevel loss
         (neither ported method has a curvature term)."""
-        loss_dict = super().get_loss_dict(outputs, batch, sched)
+        loss_dict = super().get_loss_dict(outputs, batch, sched, rng)
         loss_dict["interlevel_loss"] = self.config.interlevel_loss_mult * L.interlevel_loss_zip(
             outputs["weights_list"], outputs["ray_samples_list"]
         )

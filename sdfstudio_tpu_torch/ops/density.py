@@ -62,3 +62,28 @@ def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     """exp(x) whose derivative is taken from clip(x, -15, 15), against
     exploding gradients (density.py:101-113, the instant-ngp activation)."""
     return _TruncExp.apply(x)
+
+
+def sigmoid_density(sdf: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """The sigmoid density variant (density.py:30-33)."""
+    alpha = 1.0 / beta
+    return alpha * torch.sigmoid(-sdf * alpha)
+
+
+def neus_alpha_fixed_inv_s(sdf: torch.Tensor, deltas: torch.Tensor, inv_s: float) -> torch.Tensor:
+    """NeuS upsampling alpha (density.py:72-92): ``inv_s`` fixed, the cosine
+    from finite differences of ``sdf [R, S]`` over ``deltas [R, S-1]``,
+    robustified by min(previous cos, cos) and clipped to [-1e3, 0]. Returns [R, S-1]."""
+    prev_sdf, next_sdf = sdf[..., :-1], sdf[..., 1:]
+    mid_sdf = (prev_sdf + next_sdf) * 0.5
+    cos_val = (next_sdf - prev_sdf) / (deltas + 1e-5)
+    prev_cos = torch.cat([torch.zeros_like(cos_val[..., :1]), cos_val[..., :-1]], -1)
+    cos_val = torch.clamp(torch.minimum(prev_cos, cos_val), -1e3, 0.0)
+    prev_cdf = torch.sigmoid((mid_sdf - cos_val * deltas * 0.5) * inv_s)
+    next_cdf = torch.sigmoid((mid_sdf + cos_val * deltas * 0.5) * inv_s)
+    return (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+
+
+def unisurf_occupancy(sdf: torch.Tensor) -> torch.Tensor:
+    """UniSurf occupancy sigmoid(-10 sdf) (density.py:95-97)."""
+    return torch.sigmoid(-10.0 * sdf)

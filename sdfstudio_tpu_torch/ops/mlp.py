@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from sdfstudio_tpu_torch.ops.fused_mlp import fused_mlp
+from sdfstudio_tpu_torch.ops.fused_mlp import ACTIVATIONS, _act, fused_mlp
 
 
 def softplus_beta100(x: torch.Tensor) -> torch.Tensor:
@@ -106,10 +106,12 @@ class DenseLayer(nn.Module):
 
 
 class MLP(nn.Module):
-    """Skip-free MLP (mlp.py:187-245) evaluated by the fused kernel.
-
-    The JAX MLP also supports skip connections and arbitrary activations;
-    no module of this slice uses them, so only the fused form is ported."""
+    """Generic MLP with skip connections (mlp.py:187-245), parameters
+    ``layers.i`` (JAX's ``layer_i``). A skip-free MLP whose activations are
+    relu, softplus100 or none runs as one fused kernel; an MLP with skips
+    takes the plain product layer by layer (``torch.matmul``, cuBLAS on the
+    card), as JAX never fuses skips (mlp.py:224-245): layer ``i`` in
+    ``skip_connections`` (``i > 0``) takes ``[inputs, h]``."""
 
     def __init__(
         self,
@@ -117,12 +119,24 @@ class MLP(nn.Module):
         num_layers: int,
         layer_width: int,
         out_dim: Optional[int] = None,
+        skip_connections: Sequence[int] = (),
         activation: str = "relu",
         out_activation: str = "none",
     ):
         super().__init__()
-        dims = [in_dim] + [layer_width] * (num_layers - 1) + [out_dim or layer_width]
-        self.layers = nn.ModuleList(DenseLayer(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        for a in (activation, out_activation):
+            if a not in ACTIVATIONS:
+                raise ValueError(f"unsupported activation {a!r}; one of {sorted(ACTIVATIONS)}")
+        self.skips = frozenset(s for s in skip_connections if s > 0)
+        dims = []
+        d = in_dim
+        for i in range(num_layers):
+            if i in self.skips:
+                d = in_dim + layer_width
+            width = layer_width if i < num_layers - 1 else (out_dim or layer_width)
+            dims.append((d, width))
+            d = width
+        self.layers = nn.ModuleList(DenseLayer(a, b) for a, b in dims)
         self.activation = activation
         self.out_activation = out_activation
 
@@ -133,10 +147,19 @@ class MLP(nn.Module):
             layer.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_mlp(
-            x.contiguous(),
-            [layer.kernel for layer in self.layers],
-            [layer.bias for layer in self.layers],
-            self.activation,
-            self.out_activation,
-        )
+        if not self.skips:
+            return fused_mlp(
+                x.contiguous(),
+                [layer.kernel for layer in self.layers],
+                [layer.bias for layer in self.layers],
+                self.activation,
+                self.out_activation,
+            )
+        inputs = h = x
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            if i in self.skips:
+                h = torch.cat([inputs, h], dim=-1)
+            h = _act(torch.matmul(h, layer.kernel) + layer.bias,
+                     self.activation if i < n - 1 else self.out_activation)
+        return h

@@ -10,6 +10,11 @@ from sdfstudio_tpu_torch.utils import checks
 BACKGROUND_COLORS = {"white": (1.0, 1.0, 1.0), "black": (0.0, 0.0, 0.0)}
 
 
+def alphas_from_densities(deltas: torch.Tensor, densities: torch.Tensor) -> torch.Tensor:
+    """alpha = 1 - exp(-delta sigma) (render.py:19-21)."""
+    return 1.0 - torch.exp(-deltas * densities)
+
+
 def weights_and_transmittance_from_densities(
     deltas: torch.Tensor, densities: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -31,6 +36,10 @@ def weights_and_transmittance_from_alphas(alphas: torch.Tensor) -> Tuple[torch.T
     ones = torch.ones_like(alphas[..., :1])
     transmittance = torch.cumprod(torch.cat([ones, 1.0 - alphas + 1e-7], -1), dim=-1)
     return alphas * transmittance[..., :-1], transmittance
+
+
+def weights_from_alphas(alphas: torch.Tensor) -> torch.Tensor:
+    return weights_and_transmittance_from_alphas(alphas)[0]
 
 
 def render_rgb(rgb: torch.Tensor, weights: torch.Tensor, background_color: str = "black") -> torch.Tensor:

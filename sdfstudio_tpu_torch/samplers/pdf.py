@@ -99,3 +99,16 @@ def merge_ray_samples(
         s_far=samples_1.s_far,
     )
     return merged, sorted_index
+
+
+def merge_ray_samples_in_euclidean(
+    ray_bundle: RayBundle, samples_1: RaySamples, samples_2: RaySamples
+) -> RaySamples:
+    """Merge two sample sets whose warps differ by their euclidean starts
+    (pdf.py:141-160, UniSurf); the result has no spacing warp."""
+    starts_1 = samples_1.spacing_to_euclidean(samples_1.spacing_starts)
+    starts_2 = samples_2.spacing_to_euclidean(samples_2.spacing_starts)
+    end = torch.maximum(samples_1.spacing_to_euclidean(samples_1.spacing_ends[..., -1:]),
+                        samples_2.spacing_to_euclidean(samples_2.spacing_ends[..., -1:]))
+    bins = torch.sort(torch.cat([starts_1, starts_2], -1), dim=-1).values
+    return ray_bundle.get_ray_samples(euclidean_bins=torch.cat([bins, end], -1).detach())

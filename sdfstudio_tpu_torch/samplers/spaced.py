@@ -11,7 +11,9 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 
 from sdfstudio_tpu_torch.core.rays import (
+    SPACING_LINDISP,
     SPACING_PIECEWISE,
+    SPACING_UNIFORM,
     RayBundle,
     RaySamples,
     spacing_fn,
@@ -62,3 +64,17 @@ def uniform_lindisp_piecewise_sampler(
 ) -> RaySamples:
     """spaced.py:93-94: uniform up to distance 1, linear in disparity beyond."""
     return spaced_sampler(ray_bundle, num_samples, SPACING_PIECEWISE, rng, single_jitter)
+
+
+def uniform_sampler(
+    ray_bundle: RayBundle, num_samples: int, rng: Rng = None, single_jitter: bool = False
+) -> RaySamples:
+    """spaced.py:71-72: evenly spaced in distance."""
+    return spaced_sampler(ray_bundle, num_samples, SPACING_UNIFORM, rng, single_jitter)
+
+
+def linear_disparity_sampler(
+    ray_bundle: RayBundle, num_samples: int, rng: Rng = None, single_jitter: bool = False
+) -> RaySamples:
+    """spaced.py:75-76: evenly spaced in disparity (the background's samples)."""
+    return spaced_sampler(ray_bundle, num_samples, SPACING_LINDISP, rng, single_jitter)

@@ -9,11 +9,15 @@ and copies each leaf into the port model's parameter of the same path:
   port's layers use ``[in, out]`` kernels too (ops/mlp.py:49-88, 142-155);
 * the hash-grid and permutohedral ``hash_table [rows, F]`` keep their layout;
 * a proposal field's ``MLP_0/layer_j`` becomes ``mlp.layers.j``, and its
-  ``HashEncoding_0/hash_table`` becomes ``encoding.hash_table``.
+  ``HashEncoding_0/hash_table`` becomes ``encoding.hash_table``;
+* the NeRF background's ``mlp_base/layer_j`` and ``mlp_head/layer_j``
+  become ``mlp_base.layers.j`` and ``mlp_head.layers.j``; its
+  ``density_head`` and ``rgb_head`` keep their names.
 
 It raises on any missing, extra or mis-shaped leaf. The JAX tree's
-``field_background/dummy`` (a placeholder group, base_surface_model.py:104)
-is the one leaf that has no counterpart and is accepted as such.
+``field_background/dummy`` (the placeholder group of a model without a
+background, base_surface_model.py:104) is the one leaf that has no
+counterpart and is accepted as such.
 
 ``opt_state_from_jax(optimizers, opt_state)`` carries optax's state into
 the port's per-group Adam (engine/optimizers.py): for each group, the
