@@ -102,9 +102,12 @@ Phases, each printing its own line with wall-clock seconds:
    FP32 bounds), one traced step, and the scene's 384x384 view rendered with
    the kernels (its ms an image, warm after the training steps) and with
    the plain versions (the 0.999 quantile of rays held to 1e-3), and its
-   first 12 chunks traced. The
-   fused kernels must run twice a step (forward and backward) and twice a
-   chunk (forward);
+   first 12 chunks traced. Counted by chain, each must take a forward and
+   a backward launch a step and a forward a chunk; each captured
+   cotangent, each group's gradient and, on ``unisurf``, the count of rays
+   with a surface point must not be zero. ``unisurf`` starts from the
+   outward-facing init (``outward_sdf_init``): from the registered inward
+   one every ray saturates at its first sample;
 11. the ``kernels`` JSON line (eight kernels; the fused-MLP entries carry
    the surface chains' rows), the ``nvidia-smi`` line, and the result line.
 
@@ -123,6 +126,7 @@ import bisect
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import hashlib
 import json
 import math
@@ -208,6 +212,8 @@ PROBE_GATHERS = [("take", 1 << 14, 2, 4_194_304), ("take", 1 << 19, 2, 4_194_304
 P8_GATHER = ("take", 2_841_000, 4, 98_304 * 8 * 4)
 GATHER_REPS = 50  # warm launches per CUDA-event timing of a gather
 SURFACE_METHODS = ("neus", "volsdf", "unisurf")  # phase 10, at their registered 1024 rays a step
+# phase 10's fused-MLP chains by their widths: the SDF field's colour net, the NeRF background's head
+SURFACE_CHAINS = {"321-256-256-256-256-3": "color", "283-128-128": "background_head"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -780,66 +786,16 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
     for g, e in grad_err.items():
         check(e <= STEP_GRAD_TOL, f"{g} gradient: kernel step and plain step differ by {e}")
 
-    # the backward kernel against fused_mlp_bwd_plain on the three captured calls
+    # the forward and backward kernels against their plain versions on the three captured calls
     check(len(calls) == 3 and all("g" in c for c in calls),
           f"expected 3 fused_mlp calls with a backward, captured {len(calls)}")
-    before = dict(fm.LAUNCHES)
-    names = ["proposal_0", "proposal_1", "color"]
-    bwd_calls, fwd_calls = [], []
-    for name, c in zip(names, calls):
-        x = c["x"].reshape(-1, c["x"].shape[-1])
-        g = c["g"].reshape(-1, c["g"].shape[-1]).contiguous()
-        ws, bs, act, out_act, need_dx = c["ws"], c["bs"], c["act"], c["out_act"], c["need_dx"]
-        with torch.no_grad():
-            kern = fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx)
-            plain = fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx)
-            torch.cuda.synchronize()
-            pairs = [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(kern[1], plain[1]))]
-            pairs += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(kern[2], plain[2]))]
-            if need_dx:
-                pairs.append(("dx", kern[0], plain[0]))
-            rel = {n: rel_fro(a, b) for n, a, b in pairs}
-            max_abs = max(float((a - b).abs().max()) for _, a, b in pairs)
-            reps = 10
-            k_ms = cuda_time_ms(lambda: fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx), reps)
-            p_ms = cuda_time_ms(lambda: fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx), reps)
-            fk_ms = cuda_time_ms(lambda: fm.fused_mlp(x, ws, bs, act, out_act), reps)
-            fp_ms = cuda_time_ms(lambda: fm.fused_mlp_plain(x, ws, bs, act, out_act), reps)
-            y_p = fm.fused_mlp_plain(x, ws, bs, act, out_act)
-            f_err = float((fm.fused_mlp(x, ws, bs, act, out_act) - y_p).abs().max())
-            f_rel = f_err / (float(y_p.abs().max()) + 1.0)
-            if name == "color":
-                # the fixed split count and reduction order make the kernel
-                # repeat itself bit for bit
-                again = [fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx) for _ in range(2)]
-                torch.cuda.synchronize()
-                flat = [[t for t in ([r[0]] if need_dx else []) + list(r[1]) + list(r[2])]
-                        for r in [kern] + again]
-                same_bits = all(torch.equal(a_, b_) for other in flat[1:]
-                                for a_, b_ in zip(flat[0], other))
-                log("kernel", f"backward kernel on the color call three times: bitwise equal "
-                    f"dx, dW, db: {same_bits}")
-                check(same_bits, "the backward kernel gave different bits on the same inputs")
-        flop, nbytes, scratch, dims, n = mlp_bwd_work(x, ws, need_dx)
-        bound_ms, bound_fp32, bound_by = bounds(flop, nbytes)
-        rec = {"method": method, "call": name, "rows": n, "dims": dims, "act": act,
-               "need_dx": need_dx, "flop": flop,
-               "bytes": nbytes, "scratch_bytes": scratch, "max_abs_err": max_abs, "rel_err": rel,
-               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_ms_fp32": bound_fp32,
-               "bound_by": bound_by, "bound_ms_with_scratch": bounds(flop, nbytes + scratch)[0]}
-        bwd_calls.append(rec)
-        log("kernel", json.dumps(rec))
-        for n_, e in rel.items():
-            check(e <= BWD_TOL, f"{name} {n_}: backward kernel vs plain rel error {e} > {BWD_TOL}")
-        fflop, fbytes, _, _ = mlp_work(x, ws)
-        fb, fb32, _ = bounds(fflop, fbytes)
-        fwd_calls.append({"method": method, "call": name, "rows": n, "ms": fk_ms, "plain_ms": fp_ms,
-                          "bound_ms": fb, "bound_ms_fp32": fb32, "max_abs_err": f_err,
-                          "rel_err": f_rel})
-        # the forward kernel at the step's shapes ([10, 16, 1] for the hash
-        # proposal nets) against its plain version, as phase 4 holds a chunk's
-        check(f_rel <= KERNEL_TOL, f"{name}: forward kernel vs plain error {f_rel} > {KERNEL_TOL}")
-    fm.LAUNCHES.update(before)  # comparison launches are not the main path's
+    chains = chain_checks(fm, calls, ["proposal_0", "proposal_1", "color"], phase, method)
+    same_bits = bwd_repeats_bitwise(fm, calls[2])
+    log("kernel", f"backward kernel on the color call three times: bitwise equal dx, dW, db: {same_bits}")
+    check(same_bits, "the backward kernel gave different bits on the same inputs")
+    head = ("method", "call", "rows", "dims", "act", "need_dx")
+    bwd_calls = [{**{k: c[k] for k in head}, **c["bwd"]} for c in chains]
+    fwd_calls = [{**{k: c[k] for k in head}, **c["fwd"]} for c in chains]
 
     # where a step's time goes: one traced step (an update step)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1088,19 +1044,53 @@ def neus_facto_phase(fm, smi: str, cams, scene_box, designs) -> dict:
             "cpu_err": cpu_err, "hash_calls": hash_calls, "train": train, "resume": resume}
 
 
+@contextlib.contextmanager
+def uncounted(fm):
+    """Launches made to compare a kernel with its plain version are not the
+    main path's: every count, by kernel and by chain, is put back."""
+    before, chains = dict(fm.LAUNCHES), dict(fm.CHAIN_LAUNCHES)
+    try:
+        yield
+    finally:
+        fm.LAUNCHES.update(before)
+        fm.CHAIN_LAUNCHES.clear()
+        fm.CHAIN_LAUNCHES.update(chains)
+
+
+def chain_counts(fm, which: str) -> dict:
+    """This run's launches of ``fused_mlp_{which}`` by chain (the widths joined by '-')."""
+    return {"-".join(map(str, dims)): n for (k, dims), n in fm.CHAIN_LAUNCHES.items()
+            if k == f"fused_mlp_{which}"}
+
+
+def bwd_repeats_bitwise(fm, c) -> bool:
+    """The backward kernel three times on one captured call: the fixed split
+    count and reduction order make it repeat itself bit for bit."""
+    x = c["x"].reshape(-1, c["x"].shape[-1])
+    g = c["g"].reshape(-1, c["g"].shape[-1]).contiguous()
+    with uncounted(fm), torch.no_grad():
+        runs = [fm.fused_mlp_bwd(x, c["ws"], c["bs"], g, c["act"], c["out_act"], c["need_dx"])
+                for _ in range(3)]
+        torch.cuda.synchronize()
+    flat = [([r[0]] if c["need_dx"] else []) + list(r[1]) + list(r[2]) for r in runs]
+    return all(torch.equal(a, b) for other in flat[1:] for a, b in zip(flat[0], other))
+
+
 def chain_checks(fm, calls: list, names: list, phase: str, method: str) -> list:
     """Each captured fused-MLP call of a train step alone: the forward and
     backward kernels against their plain versions (``KERNEL_TOL``,
     ``BWD_TOL``) and timed beside the plain versions, cuBLAS layer by layer
     (``torch.addmm`` with the activation in place, and PyTorch's autograd
-    through it for the backward) and the 3xTF32 and FP32 bounds."""
-    before = dict(fm.LAUNCHES)
+    through it for the backward) and the 3xTF32 and FP32 bounds. The
+    captured cotangent must not be zero: a chain whose backward takes zeros
+    checks nothing."""
     recs = []
     for name, c in zip(names, calls):
         x = c["x"].reshape(-1, c["x"].shape[-1])
         g = c["g"].reshape(-1, c["g"].shape[-1]).contiguous()
         ws, bs, act, out_act, need_dx = c["ws"], c["bs"], c["act"], c["out_act"], c["need_dx"]
         acts = [act] * (len(ws) - 1) + [out_act]
+        check(bool((g != 0).any()), f"{phase} {name}: the backward's captured cotangent is all zero")
 
         def cublas(x_):
             h = x_
@@ -1119,7 +1109,7 @@ def chain_checks(fm, calls: list, names: list, phase: str, method: str) -> list:
                 h = fm._act(torch.addmm(b, h, w), a)
             return torch.autograd.grad(h, ([xr] if need_dx else []) + wr + br, g)
 
-        with torch.no_grad():
+        with uncounted(fm), torch.no_grad():
             y_k, y_p = fm.fused_mlp(x, ws, bs, act, out_act), fm.fused_mlp_plain(x, ws, bs, act, out_act)
             kern = fm.fused_mlp_bwd(x, ws, bs, g, act, out_act, need_dx)
             plain = fm.fused_mlp_bwd_plain(x, ws, bs, g, act, out_act, need_dx)
@@ -1151,15 +1141,38 @@ def chain_checks(fm, calls: list, names: list, phase: str, method: str) -> list:
                        "bound_ms_fp32": fb32, "bound_by": fby},
                "bwd": {"max_abs_err": b_abs, "rel_err": rel, "ms": bk, "plain_ms": bp,
                        "cublas_ms": bl, "flop": bflop, "bytes": bbytes, "scratch_bytes": scratch,
-                       "bound_ms": bb, "bound_ms_fp32": bb32, "bound_by": bby}}
+                       "bound_ms": bb, "bound_ms_fp32": bb32, "bound_by": bby,
+                       "bound_ms_with_scratch": bounds(bflop, bbytes + scratch)[0]}}
         recs.append(rec)
         log(phase, json.dumps(rec))
         check(f_rel <= KERNEL_TOL, f"{name}: forward kernel vs plain error {f_rel} > {KERNEL_TOL}")
         for n_, e in rel.items():
             check(e <= BWD_TOL, f"{name} {n_}: backward kernel vs plain rel error {e} > {BWD_TOL}")
         del xr, wr, br
-    fm.LAUNCHES.update(before)  # comparison launches are not the main path's
     return recs
+
+
+@contextlib.contextmanager
+def outward_sdf_init():
+    """Build the trainer's model with the SDF's outward-facing sphere init
+    (``inside_outside=False``, sdf ~ |x| - 0.8). The registered field faces
+    inwards, the init of a camera inside the scene: UniSurf's occupancy then
+    saturates at every ray's first sample, so its surface search, its
+    smoothness loss and its background would take no part in the step."""
+    from sdfstudio_tpu_torch.scripts import train as train_script
+
+    registered = train_script.get_method_config
+
+    def outward(name):
+        cfg = registered(name)
+        sdf = dataclasses.replace(cfg.model.sdf_field, inside_outside=False)
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, sdf_field=sdf))
+
+    train_script.get_method_config = outward
+    try:
+        yield
+    finally:
+        train_script.get_method_config = registered
 
 
 def surface_phase(fm, smi: str, method: str) -> dict:
@@ -1169,16 +1182,18 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     kernels against one with the plain versions, both new fused-MLP chains
     (the SDF field's 4-layer colour net and the NeRF background's head)
     alone, and one 384x384 view rendered with the kernels against the plain
-    versions. Both fused kernels must run in the training steps and the
-    forward in the render. Returns what the ``kernels`` line reports."""
+    versions. Both fused kernels must run on both chains in every training
+    step and the forward on both in every render chunk; UniSurf starts from
+    the outward-facing init (``outward_sdf_init``). Returns what the
+    ``kernels`` line reports."""
     from sdfstudio_tpu_torch.engine.final_eval import render_image
-    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
     from sdfstudio_tpu_torch.scripts.train import setup_trainer
 
     phase = f"surface[{method}]"
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    trainer = setup_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
+    with outward_sdf_init() if method == "unisurf" else contextlib.nullcontext():
+        trainer = setup_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
     dm, model = trainer.datamanager, trainer.model
     rays = dm.config.train_num_rays_per_batch
     torch.cuda.synchronize()
@@ -1194,16 +1209,17 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 1e3 / (TRAIN_STEPS - CHECK_STEPS)
     train_launches = dict(fm.LAUNCHES)
+    train_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
     log(phase, f"Trainer.train, steps {CHECK_STEPS}-{TRAIN_STEPS - 1}: {step_ms:.2f} ms a step, "
-        f"{rays / step_ms * 1e3:.0f} rays/s; launches {train_launches}; losses at step 1 / "
+        f"{rays / step_ms * 1e3:.0f} rays/s; launches {train_launches}, by chain {train_chains}; losses at step 1 / "
         f"{TRAIN_STEPS}: " + " ".join(f"{k}={first[k]:.5g}/{last[k]:.5g}" for k in trainer.metric_keys))
     check(trainer.step == TRAIN_STEPS, f"Trainer.train stopped at step {trainer.step}")
     check(all(math.isfinite(v) for v in list(first.values()) + list(last.values())),
           "a training loss or metric is not finite")
     # the colour net and the background head: a forward and a backward each, every step
-    check(train_launches["fused_mlp_fwd"] == 2 * TRAIN_STEPS
-          and train_launches["fused_mlp_bwd"] == 2 * TRAIN_STEPS,
-          f"expected {2 * TRAIN_STEPS} fused forward and backward launches: {train_launches}")
+    every_step = {chain: TRAIN_STEPS for chain in SURFACE_CHAINS}
+    check(train_chains == {"fwd": every_step, "bwd": every_step},
+          f"expected a forward and a backward launch a step on each chain: {train_chains}")
 
     # one step twice from the same state: the kernels, then the plain versions
     sched = model.schedules(trainer.step)
@@ -1211,14 +1227,25 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     def one_step():
         gen = torch.Generator(device=dm.device).manual_seed(777)
         idx, batch = dm.sample_train_batch(gen)
-        total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
-        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
+        outputs = model.get_outputs(dm.generate_rays(idx), sched=sched, train=True, rng=gen)
+        ld = model.get_loss_dict(outputs, batch, sched, gen)
+        mask = outputs.get("surface_points_mask")
+        return ({k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, sum(ld.values())),
+                None if mask is None else int(mask.sum()))
 
     calls: list = []
     with capture_fused_mlp_calls(calls):
-        k_loss, k_grads = one_step()
+        k_loss, k_grads, surface_rays = one_step()
     with swap_fused_mlp(fm.fused_mlp_plain):
-        p_loss, p_grads = one_step()
+        p_loss, p_grads, _ = one_step()
+    grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
+    log(phase, f"the step's gradient norms {grad_norm}; rays with a surface point {surface_rays} of {rays}")
+    for g, v in grad_norm.items():
+        check(v > 0, f"the {g} group's gradient is zero: it took no part in the step")
+    if method == "unisurf":
+        check(0 < surface_rays and k_loss["normal_smoothness_loss"] > 0,
+              f"UniSurf's surface search found {surface_rays} rays, smoothness loss "
+              f"{k_loss['normal_smoothness_loss']}")
     loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
     grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
     log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); "
@@ -1227,9 +1254,11 @@ def surface_phase(fm, smi: str, method: str) -> dict:
         check(e <= STEP_LOSS_TOL, f"{k}: kernel step and plain step differ by {e}")
     for g, e in grad_err.items():
         check(e <= STEP_GRAD_TOL, f"{g} gradient: kernel step and plain step differ by {e}")
-    check(len(calls) == 2 and all("g" in c for c in calls),
-          f"expected 2 fused_mlp calls with a backward, captured {len(calls)}")
-    chains = chain_checks(fm, calls, ["color", "background_head"], phase, method)
+    widths = ["-".join(str(d) for d in [c["x"].shape[-1]] + [w.shape[1] for w in c["ws"]])
+              for c in calls]
+    check(sorted(widths) == sorted(SURFACE_CHAINS) and all("g" in c for c in calls),
+          f"expected a call with a backward on each chain, captured {widths}")
+    chains = chain_checks(fm, calls, [SURFACE_CHAINS[w] for w in widths], phase, method)
     del calls, k_grads, p_grads
 
     # one traced update step: where its time goes
@@ -1256,8 +1285,9 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     torch.cuda.synchronize()
     image_ms = (time.perf_counter() - t) * 1e3
     render_launches = dict(fm.LAUNCHES)
-    check(render_launches["fused_mlp_fwd"] == 2 * n_chunks and render_launches["fused_mlp_bwd"] == 0,
-          f"expected {2 * n_chunks} fused forward launches in the render: {render_launches}")
+    render_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
+    check(render_chains == {"fwd": {chain: n_chunks for chain in SURFACE_CHAINS}, "bwd": {}},
+          f"expected a forward launch a chunk on each chain in the render: {render_chains}")
     with swap_fused_mlp(fm.fused_mlp_plain):
         plain_out = render_image(model, cams, 0, chunk=1024, step=trainer.step)
     torch.cuda.synchronize()
@@ -1281,7 +1311,8 @@ def surface_phase(fm, smi: str, method: str) -> dict:
                       **render_breakdown(prof.events(), traced_ms)}
     log(phase.replace("surface", "surface_profile"), json.dumps({"render_chunks": render_profile}))
     acc = out["accumulation"]
-    log(phase, f"rendered {IMAGE}x{IMAGE} in {n_chunks} chunks: {image_ms:.1f} ms an image; launches {render_launches}; kernel path vs plain path, max "
+    log(phase, f"rendered {IMAGE}x{IMAGE} in {n_chunks} chunks: {image_ms:.1f} ms an image; launches "
+        f"{render_launches}, by chain {render_chains}; kernel path vs plain path, max "
         f"|diff| {render_err}, {RENDER_QUANTILE} quantile of rays {render_q} (tol {SLICE_TOL}); "
         f"accumulation min {float(acc.min()):.4f} max {float(acc.max()):.4f}")
     for k in out:
@@ -1292,6 +1323,10 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     return {"method": method, "rays": rays, "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
             "loss_first": first, "loss_last": last, "train_launches": train_launches,
             "render_launches": render_launches, "image_ms": image_ms,
+            "chain_launches": {name: {"fwd": train_chains["fwd"][w] + render_chains["fwd"][w],
+                                      "bwd": train_chains["bwd"][w]}
+                               for w, name in SURFACE_CHAINS.items()},
+            "surface_rays": surface_rays, "grad_norm": grad_norm,
             "step_loss_err": loss_err, "step_grad_err": grad_err, "render_err": render_err,
             "render_quantile_err": render_q, "chains": chains,
             "train_step_idle_share": step_profile["device_idle_share"],
@@ -1724,16 +1759,14 @@ def main() -> int:
 
     def surface_chains(which: str) -> list:
         """The new chains of phase 10, one row per method and call, each
-        with its launches on that method's path (a call a step, a call a
-        chunk)."""
+        with its launches on that method's path, counted by chain."""
         rows = []
         for m, r in surface.items():
             for c in r["chains"]:
                 d = c[which]
                 rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
                              "out_act": c["out_act"],
-                             "launches": (r["train_launches"][f"fused_mlp_{which}"]
-                                          + r["render_launches"][f"fused_mlp_{which}"]) // 2,
+                             "launches": r["chain_launches"][c["call"]][which],
                              **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
                                                   "bound_ms", "bound_ms_fp32", "bound_by")}})
         return rows

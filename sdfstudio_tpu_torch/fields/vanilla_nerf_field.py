@@ -19,36 +19,36 @@ from sdfstudio_tpu_torch.ops.encodings import NeRFEncoding
 from sdfstudio_tpu_torch.ops.mlp import MLP, DenseLayer, lecun_normal_
 
 
+# JAX's defaults, which every caller there keeps (NeRFFieldNet, :26-32).
+POSITION_FREQUENCIES = 10
+DIRECTION_FREQUENCIES = 4
+BASE_MLP_NUM_LAYERS = 8
+BASE_MLP_LAYER_WIDTH = 256
+HEAD_MLP_NUM_LAYERS = 2
+HEAD_MLP_LAYER_WIDTH = 128
+SKIP_CONNECTIONS = (4,)
+
+
 class NeRFField(nn.Module):
     """``NeRFFieldNet`` (vanilla_nerf_field.py:23-80) with the ``NeRFField``
     wrapper's contraction and ray-sample evaluation (:83-145). Parameters
     carry JAX's names: ``mlp_base.layers.i`` (``mlp_base/layer_i``),
     ``mlp_head.layers.i``, ``density_head`` and ``rgb_head``."""
 
-    def __init__(
-        self,
-        spatial_distortion: Optional[str] = None,  # None | "inf" | "l2"
-        position_frequencies: int = 10,
-        direction_frequencies: int = 4,
-        base_mlp_num_layers: int = 8,
-        base_mlp_layer_width: int = 256,
-        head_mlp_num_layers: int = 2,
-        head_mlp_layer_width: int = 128,
-        skip_connections: tuple = (4,),
-    ):
+    def __init__(self, spatial_distortion: Optional[str] = None):  # None | "inf" | "l2"
         super().__init__()
         self.spatial_distortion = spatial_distortion
-        self.position_encoding = NeRFEncoding(3, position_frequencies, 0.0,
-                                              position_frequencies - 1.0, True)
-        self.direction_encoding = NeRFEncoding(3, direction_frequencies, 0.0,
-                                               direction_frequencies - 1.0, True)
-        self.mlp_base = MLP(self.position_encoding.out_dim, base_mlp_num_layers,
-                            base_mlp_layer_width, skip_connections=skip_connections,
+        self.position_encoding = NeRFEncoding(3, POSITION_FREQUENCIES, 0.0,
+                                              POSITION_FREQUENCIES - 1.0, True)
+        self.direction_encoding = NeRFEncoding(3, DIRECTION_FREQUENCIES, 0.0,
+                                               DIRECTION_FREQUENCIES - 1.0, True)
+        self.mlp_base = MLP(self.position_encoding.out_dim, BASE_MLP_NUM_LAYERS,
+                            BASE_MLP_LAYER_WIDTH, skip_connections=SKIP_CONNECTIONS,
                             out_activation="relu")
-        self.mlp_head = MLP(self.direction_encoding.out_dim + base_mlp_layer_width,
-                            head_mlp_num_layers, head_mlp_layer_width, out_activation="relu")
-        self.density_head = DenseLayer(base_mlp_layer_width, 1)
-        self.rgb_head = DenseLayer(head_mlp_layer_width, 3)
+        self.mlp_head = MLP(self.direction_encoding.out_dim + BASE_MLP_LAYER_WIDTH,
+                            HEAD_MLP_NUM_LAYERS, HEAD_MLP_LAYER_WIDTH, out_activation="relu")
+        self.density_head = DenseLayer(BASE_MLP_LAYER_WIDTH, 1)
+        self.rgb_head = DenseLayer(HEAD_MLP_LAYER_WIDTH, 3)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -56,7 +56,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
-from sdfstudio_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts  # noqa: F401
+from sdfstudio_tpu_torch.ops.launches import CHAIN_LAUNCHES, LAUNCHES, reset_launch_counts  # noqa: F401
 
 ACTIVATIONS = {"none": 0, "relu": 1, "softplus100": 2}
 
@@ -267,6 +267,7 @@ def _launch(x, weights, biases, activation, out_activation) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: cudaError {err}")
     LAUNCHES["fused_mlp_fwd"] += 1
+    CHAIN_LAUNCHES["fused_mlp_fwd", tuple(dims)] += 1
     return y
 
 
@@ -317,6 +318,7 @@ def fused_mlp_bwd(
         if err != 0:
             raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError {err}")
         LAUNCHES["fused_mlp_bwd"] += 1
+        CHAIN_LAUNCHES["fused_mlp_bwd", tuple(dims)] += 1
     # flat holds dW_0, db_0, dW_1, db_1, ... (csrc/fused_mlp_bwd.cu, plan_dw())
     dws, dbs, off = [], [], 0
     for w in weights:

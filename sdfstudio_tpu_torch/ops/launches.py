@@ -5,7 +5,8 @@ nowhere else, so a run can show which kernels its path went through.
 """
 from __future__ import annotations
 
-from typing import Dict
+import collections
+from typing import Dict, Tuple
 
 LAUNCHES: Dict[str, int] = {
     "fused_mlp_fwd": 0,
@@ -18,7 +19,12 @@ LAUNCHES: Dict[str, int] = {
     "hash_segment_sum": 0,
 }
 
+# the fused-MLP kernels' launches by chain: (kernel, layer widths) -> count,
+# added to at the same place as LAUNCHES
+CHAIN_LAUNCHES: Dict[Tuple[str, Tuple[int, ...]], int] = collections.Counter()
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CHAIN_LAUNCHES.clear()
