@@ -108,8 +108,26 @@ Phases, each printing its own line with wall-clock seconds:
    with a surface point must not be zero. ``unisurf`` starts from the
    outward-facing init (``outward_sdf_init``): from the registered inward
    one every ray saturates at its first sample;
-11. the ``kernels`` JSON line (eight kernels; the fused-MLP entries carry
-   the surface chains' rows), the ``nvidia-smi`` line, and the result line.
+11. neuralangelo (``surface[neuralangelo]``): JAX's registered entry at
+   full width (the 55,867,118 x 8 hash table at F = 8, numerical gradients,
+   the progressive hash mask, the curvature loss, AdamW) from the seeded
+   initialiser: 40 steps of its 512 rays through ``Trainer.train`` (the
+   curvature term 0 at step 0 and positive from step 1), five hash forwards
+   and one atomic backward a step; the kernel step against the plain step
+   (hash-grid and fused-MLP kernels swapped) at step 0's schedule (4 of 16
+   levels, delta 1/32) and step 75,000's (16 levels, delta 2/4096), with
+   tolerances scaled by delta (``angelo_tols``) and the table's gradient
+   exactly zero on the masked levels; the F = 8 kernels (forward, atomic
+   backward, the deterministic pair) against their plain versions on the
+   step's captured calls (``hash_case``) and timed beside the plain
+   versions, ``index_select`` / ``index_add_`` and their bounds; both
+   fused-MLP chains alone; two deterministic steps that must give the same
+   bits; one traced step (encode, numerical gradient, geometry MLP, colour,
+   background, the backward's hash kernels, AdamW); the view rendered with
+   the kernels and without;
+12. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+   F = 8; the fused-MLP entries carry the surface chains' rows), the
+   ``nvidia-smi`` line, and the result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
 call (unless the caller set it), so that cuBLAS accepts the deterministic
@@ -214,6 +232,33 @@ GATHER_REPS = 50  # warm launches per CUDA-event timing of a gather
 SURFACE_METHODS = ("neus", "volsdf", "unisurf")  # phase 10, at their registered 1024 rays a step
 # phase 10's fused-MLP chains by their widths: the SDF field's colour net, the NeRF background's head
 SURFACE_CHAINS = {"321-256-256-256-256-3": "color", "283-128-128": "background_head"}
+# phase 11: Neuralangelo at its registered 512 rays a step. A step's encodes:
+# one a round of the NeuS sampler (4 rounds, 64 + 3 x 16 points a ray,
+# without a gradient) and one over the field's centre and six taps (7 x 512
+# x 128 = 458,752 points) with the table's gradient; a render chunk the same
+# without the gradient
+ANGELO_FWD_PER_STEP = 5
+ANGELO_FIELD_POINTS = 7 * 512 * 128
+ANGELO_TABLE = (55_867_118, 8)  # 16 levels at 64-4096, 2^22 rows a hashed level
+# the kernel step is held to the plain step at step 0 (4 of 16 levels, delta
+# 2/64) and at step 75,000 (16 levels, delta 2/4096, as from then on)
+ANGELO_SCHED_STEPS = (0, 75_000)
+# The numerical gradient divides a difference of two taps' SDF by 2 delta and
+# the curvature a second difference by delta^2, so a rounding difference e
+# in the SDF between the two paths (their encodes add 8 products a level in
+# another order) reaches the gradient as e / delta and the curvature as 4 e /
+# delta^2. At delta_0 = 1/32 (step 0) every term is held to STEP_LOSS_TOL /
+# STEP_GRAD_TOL, as the analytic methods are; at a smaller delta the terms
+# first order in the gradient (rgb, eikonal, and the gradients of their sum)
+# are held to that tolerance times delta_0 / delta, and the curvature loss and
+# its gradient to it times (delta_0 / delta)^2.
+ANGELO_DELTA0 = 1.0 / 32
+
+
+def angelo_tols(delta: float):
+    """(first-order, curvature) tolerance of the kernel step at ``delta``."""
+    a = max(1.0, ANGELO_DELTA0 / delta)
+    return STEP_LOSS_TOL * a, STEP_LOSS_TOL * a * a
 
 
 def log(phase: str, msg: str) -> None:
@@ -834,26 +879,130 @@ def time_pair_ms(a, b, reps: int = 20):
     return sum(ta) / 2, sum(tb) / 2
 
 
+def hash_case(phase: str, name: str, which: str, x, spec, R: int, F: int, want_jac: bool,
+              g_out, g_jac, base=None) -> dict:
+    """One hash-grid call's kernels against their plain versions on a
+    row-identifying table, and timed: the forward; with a cotangent the
+    atomic backward and the deterministic pair (corner rows exactly, the
+    segment sum bit for bit across two runs). ``base`` (the first design's
+    forward and backward, F = 2) is held and timed in turns beside the
+    kernels. Timed by CUDA events beside the plain versions, the nearest
+    library calls (the corner rows as one ``index_select``, the corner
+    updates as one ``index_add_``, both precomputed), with the call's bytes
+    and sector bounds. Fails on a disagreement."""
+    from sdfstudio_tpu_torch.ops import hash_grid as hg
+    from sdfstudio_tpu_torch.ops.scatter import sorted_segment_add
+    from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
+
+    n, L = x.shape[0], spec.num_levels
+    bwd = g_out is not None or g_jac is not None
+    table = hgd.row_table(R, F)
+    got = hg.hash_encode_fwd(x, table, spec, want_jac)
+    want = hg.hash_encode_plain(x, table, spec, want_jac)
+    got, want = (got, want) if want_jac else ((got,), (want,))
+    fwd_err = hgd.fwd_err(got, want)
+    fwd_abs = max(float((torch.nan_to_num(a) - torch.nan_to_num(b)).abs().max()) for a, b in zip(got, want))
+    baseline_err = None
+    if base is not None:
+        baseline_err = hgd.fwd_err(base[0](x, table, spec, want_jac), want)
+    del got, want
+    stats = hgd.sector_stats(x, spec, R, F, pair=True)
+    bnd = hgd.bounds(x, spec, R, F, want_jac, stats)
+    corner = hg.table_rows(hg.corner_indices(x, spec)[0].reshape(-1), R)
+    corner = torch.where(corner < R, corner, 0)
+    if base is not None:
+        f_ms, f_base_ms = time_pair_ms(lambda: hg.hash_encode_fwd(x, table, spec, want_jac),
+                                       lambda: base[0](x, table, spec, want_jac))
+    else:
+        f_ms, f_base_ms = cuda_time_many_ms(lambda: hg.hash_encode_fwd(x, table, spec, want_jac), 20), None
+    rec = {
+        "call": name, "inputs": which, "points": n, "levels": L, "F": F, "rows": R,
+        "jacobian": want_jac, "corner_reads": n * L * 8, **stats,
+        "fwd": {"max_abs_err": fwd_abs, "rel_err": fwd_err, "ms": f_ms, "baseline_ms": f_base_ms,
+                "plain_ms": cuda_time_ms(lambda: hg.hash_encode_plain(x, table, spec, want_jac), 3, 1),
+                "library_ms": cuda_time_many_ms(lambda: table.index_select(0, corner), 20),
+                "bytes": bnd["fwd_bytes"], "bound_ms": bnd["fwd_bound_ms"],
+                "sector_bound_ms": bnd["fwd_sector_bound_ms"]},
+        "baseline_err": baseline_err,
+    }
+    tag = f"{name} ({which})"
+    check(fwd_err <= HASH_FWD_TOL, f"{tag}: hash forward kernel vs plain {fwd_err} > {HASH_FWD_TOL}")
+    if bwd:
+        grad = hg.hash_encode_bwd(x, g_out, g_jac, spec, R)
+        ref = hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R)
+        det = [hg.hash_encode_bwd_det(x, g_out, g_jac, spec, R) for _ in range(2)]
+        keys, upd = hg.hash_corner_rows(x, g_out, g_jac, spec, R)
+        rows_p, upd_p = hg.corner_updates(x, g_out, g_jac, spec)
+        rows_p = hg.table_rows(rows_p, R)
+        torch.cuda.synchronize()
+        bwd_err, bwd_abs = rel_fro(grad, ref), float((grad - ref).abs().max())
+        det_err, det_same = rel_fro(det[0], ref), torch.equal(det[0], det[1])
+        det_abs = float((det[0] - ref).abs().max())
+        keys_same = torch.equal(keys.long(), torch.where(rows_p < R, rows_p, R))
+        upd_abs = float((upd - upd_p).abs().max())
+        upd_err = upd_abs / max(float(upd_p.abs().max()), 1e-30)
+        if base is not None:
+            baseline_err = max(baseline_err, rel_fro(base[1](x, g_out, g_jac, spec, R), ref))
+            rec["baseline_err"] = baseline_err
+        del grad, det, rows_p, upd_p
+        sorted_keys, perm = torch.sort(keys, stable=True)
+        if base is not None:
+            b_ms, b_base_ms = time_pair_ms(lambda: hg.hash_encode_bwd(x, g_out, g_jac, spec, R),
+                                           lambda: base[1](x, g_out, g_jac, spec, R))
+        else:
+            b_ms = cuda_time_many_ms(lambda: hg.hash_encode_bwd(x, g_out, g_jac, spec, R), 20)
+            b_base_ms = None
+        rec["bwd"] = {
+            "max_abs_err": bwd_abs, "rel_fro_err": bwd_err, "ms": b_ms, "baseline_ms": b_base_ms,
+            "plain_ms": cuda_time_ms(lambda: hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R), 3, 1),
+            "library_ms": cuda_time_many_ms(
+                lambda: torch.zeros((R, F), device="cuda").index_add_(0, corner, upd), 20),
+            "bytes": bnd["bwd_bytes"], "bound_ms": bnd["bwd_bound_ms"],
+            "sector_bound_ms": bnd["bwd_sector_bound_ms"]}
+        rec["det"] = {
+            "rel_fro_err": det_err, "repeats_bitwise": det_same, "keys_exact": keys_same,
+            "upd_rel_err": upd_err, "corner_rows_max_abs_err": upd_abs,
+            "segment_sum_max_abs_err": det_abs,
+            "ms": cuda_time_many_ms(lambda: hg.hash_encode_bwd_det(x, g_out, g_jac, spec, R), 10),
+            "corner_rows_ms": cuda_time_many_ms(lambda: hg.hash_corner_rows(x, g_out, g_jac, spec, R), 10),
+            "corner_rows_plain_ms": cuda_time_ms(lambda: hg.corner_updates(x, g_out, g_jac, spec), 3, 1),
+            "corner_rows_bytes": bnd["bwd_bytes"] - 4.0 * F * R + 4.0 * (1 + F) * n * L * 8,
+            "sort_ms": cuda_time_many_ms(lambda: torch.sort(keys, stable=True), 10),
+            "segment_sum_ms": cuda_time_many_ms(lambda: hg.hash_segment_sum(sorted_keys, perm, upd, R), 10),
+            "segment_sum_plain_ms": cuda_time_ms(lambda: sorted_segment_add(keys.long(), upd, R), 3, 1),
+            "segment_sum_library_ms": cuda_time_many_ms(
+                lambda: torch.zeros((R + 1, F), device="cuda").index_add_(0, keys.long(), upd), 10),
+            "segment_sum_bytes": 4.0 * (3 + F) * n * L * 8 + 4.0 * F * R}
+        for k in ("corner_rows", "segment_sum"):
+            rec["det"][f"{k}_bound_ms"] = rec["det"][f"{k}_bytes"] / HBM_RATE * 1e3
+        check(bwd_err <= HASH_BWD_TOL, f"{tag}: hash backward kernel vs plain {bwd_err} > {HASH_BWD_TOL}")
+        check(det_err <= HASH_BWD_TOL and det_same,
+              f"{tag}: deterministic backward vs plain {det_err}, repeats bit for bit: {det_same}")
+        check(keys_same and upd_err <= HASH_FWD_TOL,
+              f"{tag}: corner rows exact {keys_same}, updates vs plain {upd_err}")
+        del keys, upd, sorted_keys, perm
+    check(baseline_err is None or baseline_err <= HASH_BWD_TOL, f"{tag}: the first design vs plain {baseline_err}")
+    log(phase, json.dumps(rec))
+    del x, table, g_out, g_jac, corner
+    torch.cuda.empty_cache()
+    return rec
+
+
 def hash_kernel_checks(captured: dict, designs) -> list:
     """Both hash-grid kernels, and the deterministic table gradient's two
-    kernels, against their plain versions on a row-identifying table: on the
-    captured inputs of a train step's three calls, on uniform points with 0
-    and 1.0 among them, and at F = 4 on ``neus-facto-tpu``'s grid (on the
-    SDF call's captured points and on uniform ones). Timed by CUDA events:
-    kernel and the first design in turns, the plain versions, the nearest
-    library calls (the corner rows as one ``index_select``, the corner
-    updates as one ``index_add_``, both precomputed), the deterministic
-    path and its parts; each call's bytes and sector bounds beside them."""
-    from sdfstudio_tpu_torch.ops import hash_grid as hg
+    kernels, against their plain versions (``hash_case``): on the captured
+    inputs of a ``neus-facto`` train step's three calls, on uniform points
+    with 0 and 1.0 among them, and at F = 4 on ``neus-facto-tpu``'s grid
+    (on the SDF call's captured points and on uniform ones); the F = 2 cases
+    beside the first design, timed in turns."""
     from sdfstudio_tpu_torch.ops.encodings import HashEncoding
     from sdfstudio_tpu_torch.ops.launches import LAUNCHES
-    from sdfstudio_tpu_torch.ops.scatter import sorted_segment_add
     from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
 
     before = dict(LAUNCHES)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    base_fwd, base_bwd = (hgd.c_fwd(designs.sst_baseline_hash_encode_fwd),
-                          hgd.c_bwd(designs.sst_baseline_hash_encode_bwd))
+    base = (hgd.c_fwd(designs.sst_baseline_hash_encode_fwd),
+            hgd.c_bwd(designs.sst_baseline_hash_encode_bwd))
     enc4 = HashEncoding(**hgd.F4_GRID)
     cases = []
     for name, r in captured.items():
@@ -872,98 +1021,7 @@ def hash_kernel_checks(captured: dict, designs) -> list:
         cases.append(("F4", which, x, enc4.spec, enc4.total_rows, 4, True,
                       torch.randn((n, LF4), generator=gen, device="cuda"),
                       torch.randn((n, LF4, 3), generator=gen, device="cuda")))
-    recs = []
-    for name, which, x, spec, R, F, want_jac, g_out, g_jac in cases:
-        n, L = x.shape[0], spec.num_levels
-        table = hgd.row_table(R, F)
-        got = hg.hash_encode_fwd(x, table, spec, want_jac)
-        want = hg.hash_encode_plain(x, table, spec, want_jac)
-        got, want = (got, want) if want_jac else ((got,), (want,))
-        fwd_err = hgd.fwd_err(got, want)
-        fwd_abs = max(float((torch.nan_to_num(a) - torch.nan_to_num(b)).abs().max())
-                      for a, b in zip(got, want))
-        grad = hg.hash_encode_bwd(x, g_out, g_jac, spec, R)
-        ref = hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R)
-        det = [hg.hash_encode_bwd_det(x, g_out, g_jac, spec, R) for _ in range(2)]
-        keys, upd = hg.hash_corner_rows(x, g_out, g_jac, spec, R)
-        rows_p, upd_p = hg.corner_updates(x, g_out, g_jac, spec)
-        torch.cuda.synchronize()
-        bwd_err, bwd_abs = rel_fro(grad, ref), float((grad - ref).abs().max())
-        det_err, det_same = rel_fro(det[0], ref), torch.equal(det[0], det[1])
-        det_abs = float((det[0] - ref).abs().max())
-        keys_same = torch.equal(keys.long(), torch.where(rows_p < R, rows_p, R))
-        upd_abs = float((upd - upd_p).abs().max())
-        upd_err = upd_abs / max(float(upd_p.abs().max()), 1e-30)
-        baseline_err = None
-        if F == 2:  # the first design takes F = 2 only
-            baseline_err = max(hgd.fwd_err(base_fwd(x, table, spec, want_jac), want),
-                           rel_fro(base_bwd(x, g_out, g_jac, spec, R), ref))
-        del got, want, grad, det
-        stats = hgd.sector_stats(x, spec, R, F, pair=True)
-        bnd = hgd.bounds(x, spec, R, F, want_jac, stats)
-        sorted_keys, perm = torch.sort(keys, stable=True)
-        corner = hg.corner_indices(x, spec)[0].reshape(-1)
-        corner = torch.where(corner < R, corner, 0)
-        f_ms = b_ms = f_base_ms = b_base_ms = None
-        if F == 2:
-            f_ms, f_base_ms = time_pair_ms(lambda: hg.hash_encode_fwd(x, table, spec, want_jac),
-                                           lambda: base_fwd(x, table, spec, want_jac))
-            b_ms, b_base_ms = time_pair_ms(lambda: hg.hash_encode_bwd(x, g_out, g_jac, spec, R),
-                                           lambda: base_bwd(x, g_out, g_jac, spec, R))
-        else:
-            f_ms = cuda_time_many_ms(lambda: hg.hash_encode_fwd(x, table, spec, want_jac), 20)
-            b_ms = cuda_time_many_ms(lambda: hg.hash_encode_bwd(x, g_out, g_jac, spec, R), 20)
-        rec = {
-            "call": name, "inputs": which, "points": n, "levels": L, "F": F, "rows": R,
-            "jacobian": want_jac, "corner_reads": n * L * 8, **stats,
-            "fwd": {"max_abs_err": fwd_abs, "rel_err": fwd_err, "ms": f_ms, "baseline_ms": f_base_ms,
-                    "plain_ms": cuda_time_ms(lambda: hg.hash_encode_plain(x, table, spec, want_jac),
-                                             3, 1),
-                    "library_ms": cuda_time_many_ms(lambda: table.index_select(0, corner), 20),
-                    "bytes": bnd["fwd_bytes"], "bound_ms": bnd["fwd_bound_ms"],
-                    "sector_bound_ms": bnd["fwd_sector_bound_ms"]},
-            "bwd": {"max_abs_err": bwd_abs, "rel_fro_err": bwd_err, "ms": b_ms, "baseline_ms": b_base_ms,
-                    "plain_ms": cuda_time_ms(
-                        lambda: hg.hash_encode_bwd_plain(x, g_out, g_jac, spec, R), 3, 1),
-                    "library_ms": cuda_time_many_ms(
-                        lambda: torch.zeros((R, F), device="cuda").index_add_(0, corner, upd), 20),
-                    "bytes": bnd["bwd_bytes"], "bound_ms": bnd["bwd_bound_ms"],
-                    "sector_bound_ms": bnd["bwd_sector_bound_ms"]},
-            "det": {"rel_fro_err": det_err, "repeats_bitwise": det_same, "keys_exact": keys_same,
-                    "upd_rel_err": upd_err, "corner_rows_max_abs_err": upd_abs,
-                    "segment_sum_max_abs_err": det_abs,
-                    "ms": cuda_time_many_ms(lambda: hg.hash_encode_bwd_det(x, g_out, g_jac, spec, R),
-                                            10),
-                    "corner_rows_ms": cuda_time_many_ms(
-                        lambda: hg.hash_corner_rows(x, g_out, g_jac, spec, R), 10),
-                    "corner_rows_plain_ms": cuda_time_ms(
-                        lambda: hg.corner_updates(x, g_out, g_jac, spec), 3, 1),
-                    "corner_rows_bytes": bnd["bwd_bytes"] - 4.0 * F * R + 4.0 * (1 + F) * n * L * 8,
-                    "sort_ms": cuda_time_many_ms(lambda: torch.sort(keys, stable=True), 10),
-                    "segment_sum_ms": cuda_time_many_ms(
-                        lambda: hg.hash_segment_sum(sorted_keys, perm, upd, R), 10),
-                    "segment_sum_plain_ms": cuda_time_ms(
-                        lambda: sorted_segment_add(keys.long(), upd, R), 3, 1),
-                    "segment_sum_library_ms": cuda_time_many_ms(
-                        lambda: torch.zeros((R + 1, F), device="cuda").index_add_(0, keys.long(),
-                                                                                 upd), 10),
-                    "segment_sum_bytes": 4.0 * (3 + F) * n * L * 8 + 4.0 * F * R},
-            "baseline_err": baseline_err,
-        }
-        for k in ("corner_rows", "segment_sum"):
-            rec["det"][f"{k}_bound_ms"] = rec["det"][f"{k}_bytes"] / HBM_RATE * 1e3
-        recs.append(rec)
-        log("neus_facto", json.dumps(rec))
-        tag = f"{name} ({which})"
-        check(fwd_err <= HASH_FWD_TOL, f"{tag}: hash forward kernel vs plain {fwd_err} > {HASH_FWD_TOL}")
-        check(bwd_err <= HASH_BWD_TOL, f"{tag}: hash backward kernel vs plain {bwd_err} > {HASH_BWD_TOL}")
-        check(det_err <= HASH_BWD_TOL and det_same,
-              f"{tag}: deterministic backward vs plain {det_err}, repeats bit for bit: {det_same}")
-        check(keys_same and upd_err <= HASH_FWD_TOL,
-              f"{tag}: corner rows exact {keys_same}, updates vs plain {upd_err}")
-        check(baseline_err is None or baseline_err <= HASH_BWD_TOL, f"{tag}: the first design vs plain {baseline_err}")
-        del x, table, g_out, g_jac, keys, upd, rows_p, upd_p, sorted_keys, perm, corner
-        torch.cuda.empty_cache()
+    recs = [hash_case("neus_facto", *c, base=base if c[5] == 2 else None) for c in cases]
     LAUNCHES.update(before)  # comparison launches are not the main path's
     return recs
 
@@ -1175,6 +1233,65 @@ def outward_sdf_init():
         train_script.get_method_config = registered
 
 
+def render_view(fm, model, cams, step: int, phase: str, plain_swap, chunk_chains: dict) -> dict:
+    """The scene's 384x384 view 0 rendered with the kernels (warm: the
+    training steps ran the same kernels and products), its launches counted
+    by kernel and by chain (``chunk_chains``: each chain's forward launches
+    a chunk; no backward), rendered again under ``plain_swap()`` (every
+    kernel swapped for its plain version, its launches not counted), the
+    0.999 quantile of rays held to ``SLICE_TOL``, and its first 12 chunks
+    traced. Every pixel must be finite."""
+    from sdfstudio_tpu_torch.engine.final_eval import render_image
+
+    check(int(cams.height[0]) == IMAGE and int(cams.width[0]) == IMAGE,
+          f"the scene's view is not {IMAGE}x{IMAGE}")
+    n_chunks = math.ceil(IMAGE * IMAGE / 1024)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = render_image(model, cams, 0, chunk=1024, step=step)
+    torch.cuda.synchronize()
+    image_ms = (time.perf_counter() - t) * 1e3
+    render_launches = dict(fm.LAUNCHES)
+    render_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
+    want = {"fwd": {chain: k * n_chunks for chain, k in chunk_chains.items()}, "bwd": {}}
+    check(render_chains == want, f"expected {want} launches by chain in the render: {render_chains}")
+    with plain_swap():
+        plain_out = render_image(model, cams, 0, chunk=1024, step=step)
+    torch.cuda.synchronize()
+    fm.LAUNCHES.update(render_launches)
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"{k} has non-finite values")
+    ray_err = {k: (out[k] - plain_out[k]).abs().reshape(IMAGE * IMAGE, -1).amax(-1) for k in out}
+    render_err = {k: float(e.max()) for k, e in ray_err.items()}
+    render_q = {k: float(torch.quantile(e, RENDER_QUANTILE)) for k, e in ray_err.items()}
+    # the first 12 chunks of the view traced: the device's idle share
+    rb = cams.generate_image_rays(0)
+    sched_r = model.schedules(step)
+    traced_chunks = min(12, n_chunks)
+    with torch.profiler.profile(activities=acts) as prof, torch.no_grad():
+        t = time.perf_counter()
+        for i in range(traced_chunks):
+            model.get_outputs(rb.map(lambda x: x[i * 1024:(i + 1) * 1024]), sched=sched_r)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    render_profile = {"chunks": traced_chunks, "traced_wall_ms": traced_ms,
+                      **render_breakdown(prof.events(), traced_ms)}
+    log(phase.replace("surface", "surface_profile"), json.dumps({"render_chunks": render_profile}))
+    acc = out["accumulation"]
+    log(phase, f"rendered {IMAGE}x{IMAGE} in {n_chunks} chunks: {image_ms:.1f} ms an image; launches "
+        f"{render_launches}, by chain {render_chains}; kernel path vs plain path, max "
+        f"|diff| {render_err}, {RENDER_QUANTILE} quantile of rays {render_q} (tol {SLICE_TOL}); "
+        f"accumulation min {float(acc.min()):.4f} max {float(acc.max()):.4f}")
+    for k in out:
+        check(render_q[k] < SLICE_TOL, f"{k}: kernel and plain renders differ by {render_q[k]} on "
+              f"more than {1 - RENDER_QUANTILE:.1%} of the rays")
+    del out, plain_out
+    return {"launches": render_launches, "chains": render_chains, "image_ms": image_ms,
+            "err": render_err, "quantile_err": render_q, "profile": render_profile}
+
+
 def surface_phase(fm, smi: str, method: str) -> dict:
     """A classic surface method (``neus``, ``volsdf``, ``unisurf``) at full
     width from the seeded initialiser on the committed scene: 40 train steps
@@ -1186,7 +1303,6 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     step and the forward on both in every render chunk; UniSurf starts from
     the outward-facing init (``outward_sdf_init``). Returns what the
     ``kernels`` line reports."""
-    from sdfstudio_tpu_torch.engine.final_eval import render_image
     from sdfstudio_tpu_torch.scripts.train import setup_trainer
 
     phase = f"surface[{method}]"
@@ -1272,65 +1388,287 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     step_profile = {"traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms)}
     log(phase.replace("surface", "surface_profile"), json.dumps({"train_step": step_profile}))
 
-    # one view of the scene, 144 chunks of 1024 rays, kernels against plain
-    cams = dm.train_cameras
-    check(int(cams.height[0]) == IMAGE and int(cams.width[0]) == IMAGE,
-          f"the scene's view is not {IMAGE}x{IMAGE}")
-    n_chunks = math.ceil(IMAGE * IMAGE / 1024)
-    # warm: the training steps ran the same kernels and products
-    fm.reset_launch_counts()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = render_image(model, cams, 0, chunk=1024, step=trainer.step)
-    torch.cuda.synchronize()
-    image_ms = (time.perf_counter() - t) * 1e3
-    render_launches = dict(fm.LAUNCHES)
-    render_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
-    check(render_chains == {"fwd": {chain: n_chunks for chain in SURFACE_CHAINS}, "bwd": {}},
-          f"expected a forward launch a chunk on each chain in the render: {render_chains}")
-    with swap_fused_mlp(fm.fused_mlp_plain):
-        plain_out = render_image(model, cams, 0, chunk=1024, step=trainer.step)
-    torch.cuda.synchronize()
-    fm.LAUNCHES.update(render_launches)
-    for k, v in out.items():
-        check(bool(torch.isfinite(v).all()), f"{k} has non-finite values")
-    ray_err = {k: (out[k] - plain_out[k]).abs().reshape(IMAGE * IMAGE, -1).amax(-1) for k in out}
-    render_err = {k: float(e.max()) for k, e in ray_err.items()}
-    render_q = {k: float(torch.quantile(e, RENDER_QUANTILE)) for k, e in ray_err.items()}
-    # the first 12 chunks of the view traced: the device's idle share
-    rb = cams.generate_image_rays(0)
-    sched_r = model.schedules(trainer.step)
-    traced_chunks = min(12, n_chunks)
-    with torch.profiler.profile(activities=acts) as prof, torch.no_grad():
-        t = time.perf_counter()
-        for i in range(traced_chunks):
-            model.get_outputs(rb.map(lambda x: x[i * 1024:(i + 1) * 1024]), sched=sched_r)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    render_profile = {"chunks": traced_chunks, "traced_wall_ms": traced_ms,
-                      **render_breakdown(prof.events(), traced_ms)}
-    log(phase.replace("surface", "surface_profile"), json.dumps({"render_chunks": render_profile}))
-    acc = out["accumulation"]
-    log(phase, f"rendered {IMAGE}x{IMAGE} in {n_chunks} chunks: {image_ms:.1f} ms an image; launches "
-        f"{render_launches}, by chain {render_chains}; kernel path vs plain path, max "
-        f"|diff| {render_err}, {RENDER_QUANTILE} quantile of rays {render_q} (tol {SLICE_TOL}); "
-        f"accumulation min {float(acc.min()):.4f} max {float(acc.max()):.4f}")
-    for k in out:
-        check(render_q[k] < SLICE_TOL, f"{k}: kernel and plain renders differ by {render_q[k]} on "
-              f"more than {1 - RENDER_QUANTILE:.1%} of the rays")
-    del trainer, model, out, plain_out
+    render = render_view(fm, model, dm.train_cameras, trainer.step, phase,
+                         lambda: swap_fused_mlp(fm.fused_mlp_plain),
+                         {chain: 1 for chain in SURFACE_CHAINS})
+    del trainer, model
     torch.cuda.empty_cache()
     return {"method": method, "rays": rays, "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
             "loss_first": first, "loss_last": last, "train_launches": train_launches,
-            "render_launches": render_launches, "image_ms": image_ms,
-            "chain_launches": {name: {"fwd": train_chains["fwd"][w] + render_chains["fwd"][w],
+            "render_launches": render["launches"], "image_ms": render["image_ms"],
+            "chain_launches": {name: {"fwd": train_chains["fwd"][w] + render["chains"]["fwd"][w],
                                       "bwd": train_chains["bwd"][w]}
                                for w, name in SURFACE_CHAINS.items()},
             "surface_rays": surface_rays, "grad_norm": grad_norm,
-            "step_loss_err": loss_err, "step_grad_err": grad_err, "render_err": render_err,
-            "render_quantile_err": render_q, "chains": chains,
+            "step_loss_err": loss_err, "step_grad_err": grad_err, "render_err": render["err"],
+            "render_quantile_err": render["quantile_err"], "chains": chains,
             "train_step_idle_share": step_profile["device_idle_share"],
-            "render_idle_share": render_profile["device_idle_share"]}
+            "render_idle_share": render["profile"]["device_idle_share"]}
+
+
+def neuralangelo_phase(fm, smi: str) -> dict:
+    """``neuralangelo`` at full width (the 55,867,118 x 8 table, AdamW) from
+    the seeded initialiser on the committed scene: 40 train steps through
+    ``Trainer.train`` (steps 0 and 1 alone: the curvature term is 0 at step 0,
+    its factor ``step / 5000``, and positive from step 1), the kernel step
+    against the plain step (hash-grid and fused-MLP kernels swapped for their
+    plain versions) at step 0's and step 75,000's schedules, the table's
+    gradient zero on the masked levels at step 0, the F = 8 hash-grid kernels
+    against their plain versions on the step's captured calls, both fused-MLP
+    chains alone, two deterministic steps (the corner-rows and segment-sum
+    kernels) that must repeat bit for bit, one traced step, and the view
+    rendered with the kernels against the plain versions. Returns what the
+    ``kernels`` line reports, in ``surface_phase``'s keys and more."""
+    from sdfstudio_tpu_torch.ops.launches import LAUNCHES
+    from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
+    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+
+    method, phase = "neuralangelo", "surface[neuralangelo]"
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trainer = setup_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
+    dm, model = trainer.datamanager, trainer.model
+    enc = model.field.encoding
+    rays = dm.config.train_num_rays_per_batch
+    torch.cuda.synchronize()
+    log(phase, f"{sum(p.numel() for p in model.parameters())} parameters, hash table "
+        f"{tuple(enc.hash_table.shape)}, groups {sorted(trainer.optimizers)} "
+        f"({ {g: o.kind for g, o in trainer.optimizers.items()} }), {rays} rays a step; set up in "
+        f"{time.perf_counter() - t:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(tuple(enc.hash_table.shape) == ANGELO_TABLE, f"the table is {tuple(enc.hash_table.shape)}")
+    L = enc.num_levels
+
+    fm.reset_launch_counts()
+    rows = [trainer.train_step() for _ in range(2)]
+    keys = list(trainer.metric_keys)
+    first = [dict(zip(keys, r.cpu().tolist())) for r in rows]
+    trainer.train(CHECK_STEPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last = trainer.train(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / (TRAIN_STEPS - CHECK_STEPS)
+    train_launches = dict(fm.LAUNCHES)
+    train_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
+    log(phase, f"Trainer.train, steps {CHECK_STEPS}-{TRAIN_STEPS - 1}: {step_ms:.2f} ms a step, "
+        f"{rays / step_ms * 1e3:.0f} rays/s; launches {train_launches}, by chain {train_chains}; "
+        f"losses at steps 1, 2 / {TRAIN_STEPS}: " + " ".join(
+            f"{k}={first[0][k]:.5g},{first[1][k]:.5g}/{last[k]:.5g}" for k in keys)
+        + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    check(trainer.step == TRAIN_STEPS, f"Trainer.train stopped at step {trainer.step}")
+    check(all(math.isfinite(v) for r in first + [last] for v in r.values()),
+          "a training loss or metric is not finite")
+    check(first[0]["curvature_loss"] == 0.0 and first[1]["curvature_loss"] > 0
+          and last["curvature_loss"] > 0,
+          f"the curvature term is not 0 at step 0 and positive from step 1: "
+          f"{first[0]['curvature_loss']}, {first[1]['curvature_loss']}, {last['curvature_loss']}")
+    every_step = {chain: TRAIN_STEPS for chain in SURFACE_CHAINS}
+    check(train_chains == {"fwd": every_step, "bwd": every_step},
+          f"expected a forward and a backward launch a step on each chain: {train_chains}")
+    check(train_launches["hash_encode_fwd"] == ANGELO_FWD_PER_STEP * TRAIN_STEPS
+          and train_launches["hash_encode_bwd"] == TRAIN_STEPS
+          and train_launches["hash_encode_bwd_det"] == train_launches["hash_segment_sum"] == 0,
+          f"expected {ANGELO_FWD_PER_STEP} hash forward launches and one atomic backward a step: "
+          f"{train_launches}")
+
+    # one step from the same state at two schedules: the kernels, then the plain versions
+    opt_f = trainer.optimizers["field"]
+    table_i = opt_f.names.index("field.encoding.hash_table")
+
+    def one_step(sched):
+        """Losses, each group's gradient of the first-order terms and of the
+        curvature term (flat), and the table's gradient of their sum."""
+        gen = torch.Generator(device=dm.device).manual_seed(777)
+        idx, batch = dm.sample_train_batch(gen)
+        outputs = model.get_outputs(dm.generate_rays(idx), sched=sched, train=True, rng=gen)
+        ld = model.get_loss_dict(outputs, batch, sched, gen)
+        del outputs
+        first_order = sum(v for k, v in ld.items() if k != "curvature_loss")
+        names = list(trainer.optimizers)
+        params = [p for n in names for p in trainer.optimizers[n].params]
+        at_table = sum(len(trainer.optimizers[n].params) for n in names[:names.index("field")])
+        flat, table = {}, 0.0
+        for part, total in (("first_order", first_order), ("curvature", ld["curvature_loss"])):
+            grads = torch.autograd.grad(total, params, allow_unused=True,
+                                        retain_graph=part == "first_order")
+            g = [t if t is not None else torch.zeros_like(p) for t, p in zip(grads, params)]
+            table = table + g[at_table + table_i]
+            i = 0
+            flat[part] = {}
+            for n in names:
+                k = len(trainer.optimizers[n].params)
+                flat[part][n] = torch.cat([t.reshape(-1) for t in g[i:i + k]])
+                i += k
+            del grads, g
+        return {k: float(v.detach()) for k, v in ld.items()}, flat, table
+
+    steps, calls, hash_calls = {}, [], []
+    for s_step in ANGELO_SCHED_STEPS:
+        sched = model.schedules(s_step)
+        delta, levels = sched["numerical_delta"], int(sched["hash_mask"].sum()) // enc.features_per_level
+        tol1, tol2 = angelo_tols(delta)
+        capture = s_step == ANGELO_SCHED_STEPS[0]
+        with (capture_fused_mlp_calls(calls) if capture else contextlib.nullcontext()), \
+                (capture_hash_calls(hash_calls) if capture else contextlib.nullcontext()):
+            k_loss, k_grads, k_table = one_step(sched)
+        with swap_fused_mlp(fm.fused_mlp_plain), swap_hash_plain():
+            p_loss, p_grads, p_table = one_step(sched)
+        loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
+        grad_err = {f"{part}:{g}": rel_fro(k_grads[part][g], p_grads[part][g])
+                    for part in k_grads for g in k_grads[part]}
+        grad_norm = {f"{part}:{g}": float(torch.linalg.vector_norm(v))
+                     for part in k_grads for g, v in k_grads[part].items()}
+        masked_rows = int(enc.level_offsets[levels])
+        masked = {"kernel": float(k_table[masked_rows:].abs().max()) if levels < L else None,
+                  "plain": float(p_table[masked_rows:].abs().max()) if levels < L else None,
+                  "unmasked_kernel": float(k_table[:masked_rows].abs().max())}
+        steps[s_step] = {"delta": delta, "levels": levels, "tol_first_order": tol1,
+                         "tol_curvature": tol2, "loss_kernel": k_loss, "loss_plain": p_loss,
+                         "loss_err": loss_err, "grad_err": grad_err, "grad_norm": grad_norm,
+                         "table_grad_max_abs": masked}
+        log(phase, f"kernel step vs plain step at step {s_step}'s schedule (delta {delta:.6g}, "
+            f"{levels} levels): {json.dumps(steps[s_step])}")
+        for k, e in loss_err.items():
+            tol = tol2 if k == "curvature_loss" else tol1
+            check(e <= tol, f"step {s_step} {k}: kernel step and plain step differ by {e} > {tol}")
+        for k, e in grad_err.items():
+            tol = tol2 if k.startswith("curvature") else tol1
+            check(e <= tol, f"step {s_step} {k} gradient: kernel and plain steps differ by {e} > {tol}")
+        for g in trainer.optimizers:
+            check(grad_norm[f"first_order:{g}"] > 0, f"step {s_step}: the {g} group's gradient is zero")
+        if levels < L:
+            check(masked["kernel"] == 0.0 and masked["plain"] == 0.0 and masked["unmasked_kernel"] > 0,
+                  f"step {s_step}: the table's gradient on the {L - levels} masked levels is not zero, "
+                  f"or zero on the others: {masked}")
+        if s_step > 0:  # the curvature factor is 0 at step 0 only
+            check(k_loss["curvature_loss"] > 0, f"step {s_step}: no curvature term")
+        del k_grads, p_grads, k_table, p_table
+        torch.cuda.empty_cache()
+
+    # both fused-MLP chains alone, on the step-0 calls
+    widths = ["-".join(str(d) for d in [c["x"].shape[-1]] + [w.shape[1] for w in c["ws"]])
+              for c in calls]
+    check(sorted(widths) == sorted(SURFACE_CHAINS) and all("g" in c for c in calls),
+          f"expected a call with a backward on each chain, captured {widths}")
+    chains = chain_checks(fm, calls, [SURFACE_CHAINS[w] for w in widths], phase, method)
+    del calls
+
+    # the F = 8 kernels on the step's captured calls: the field's (with the
+    # table's gradient), the sampler's rounds (forward only), and uniform
+    # points with seeded cotangents at the field call's size
+    field = [r for r in hash_calls if "g_out" in r]
+    sampler = [r for r in hash_calls if "g_out" not in r]
+    check(len(field) == 1 and field[0]["x"].shape[0] == ANGELO_FIELD_POINTS and field[0]["F"] == 8
+          and len(sampler) == ANGELO_FWD_PER_STEP - 1,
+          f"captured {[(r['x'].shape[0], 'g_out' in r) for r in hash_calls]} hash calls")
+    before = dict(LAUNCHES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r = field[0]
+    cases = [("field", "captured", r["x"], r["spec"], r["rows"], 8, False, r["g_out"], None)]
+    cases += [(f"sampler_{i}", "captured", c["x"], c["spec"], c["rows"], 8, False, None, None)
+              for i, c in enumerate(sampler)]
+    xu = torch.rand(r["x"].shape, generator=gen, device="cuda")
+    xu[0], xu[1], xu[2, 0] = 0.0, 1.0, 1.0
+    cases.append(("field", "uniform", xu, r["spec"], r["rows"], 8, False,
+                  torch.randn(r["g_out"].shape, generator=gen, device="cuda"), None))
+    # what the mask costs at step 0: the field call's kernels over every
+    # level (as the path runs them: the masked levels encoded, their zero
+    # cotangents added) against the same call over the unmasked levels alone
+    from sdfstudio_tpu_torch.ops import hash_grid as hg
+    from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
+
+    on = steps[ANGELO_SCHED_STEPS[0]]["levels"]
+    spec, R = r["spec"], r["rows"]
+    spec_on = dataclasses.replace(spec, resolutions=spec.resolutions[:on], offsets=spec.offsets[:on],
+                                  dense=spec.dense[:on])
+    table = hgd.row_table(R, 8)
+    g_on = r["g_out"][:, :on * 8].contiguous()
+    check(not bool(r["g_out"][:, on * 8:].any()), "the masked levels' cotangents are not zero")
+    mask_cost = {
+        "levels": L, "unmasked_levels": on,
+        "fwd_ms": cuda_time_many_ms(lambda: hg.hash_encode_fwd(r["x"], table, spec), 20),
+        "fwd_unmasked_ms": cuda_time_many_ms(lambda: hg.hash_encode_fwd(r["x"], table, spec_on), 20),
+        "bwd_ms": cuda_time_many_ms(lambda: hg.hash_encode_bwd(r["x"], r["g_out"], None, spec, R), 20),
+        "bwd_unmasked_ms": cuda_time_many_ms(lambda: hg.hash_encode_bwd(r["x"], g_on, None, spec_on, R),
+                                             20)}
+    log(phase, f"the step-0 mask's cost: {json.dumps(mask_cost)}")
+    del table, g_on, hash_calls, field, sampler, r
+    torch.cuda.empty_cache()
+    hash_recs = [hash_case(phase, *c) for c in cases]
+    del cases, xu
+    LAUNCHES.update(before)  # comparison launches are not the main path's
+
+    # two steps' gradients under torch.use_deterministic_algorithms: the
+    # table's gradient by the corner-rows and segment-sum kernels, the same bits twice
+    sched = model.schedules(trainer.step)
+    torch.cuda.synchronize()
+    fm.reset_launch_counts()
+    def det_step():
+        gen = torch.Generator(device=dm.device).manual_seed(777)
+        idx, batch = dm.sample_train_batch(gen)
+        outputs = model.get_outputs(dm.generate_rays(idx), sched=sched, train=True, rng=gen)
+        return grads_of(trainer, sum(model.get_loss_dict(outputs, batch, sched, gen).values()))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = [det_step() for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_launches = dict(fm.LAUNCHES)
+    det_same = all(torch.equal(det[0][g], det[1][g]) for g in det[0])
+    log(phase, f"two deterministic steps: launches {det_launches}; every gradient the same bits: {det_same}")
+    check(det_launches["hash_encode_bwd_det"] == det_launches["hash_segment_sum"] == 2
+          and det_launches["hash_encode_bwd"] == 0,
+          f"expected the deterministic pair once a step and no atomic backward: {det_launches}")
+    check(det_same, "two deterministic steps from the same state gave different gradients")
+    del det
+    torch.cuda.empty_cache()
+
+    # one traced update step: where its time goes
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fm.reset_launch_counts()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    step_profile = {"traced_wall_ms": traced_ms, **render_breakdown(
+        prof.events(), traced_ms,
+        windows=[("backward (between forward and optimizer)", "sst/train_forward", "sst/train_optimizer")])}
+    log(phase.replace("surface", "surface_profile"), json.dumps({"train_step": step_profile}))
+    traced_launches = dict(fm.LAUNCHES)
+    del prof
+
+    render = render_view(fm, model, dm.train_cameras, trainer.step, phase,
+                         lambda: _both_plain(fm), {chain: 1 for chain in SURFACE_CHAINS})
+    n_chunks = math.ceil(IMAGE * IMAGE / 1024)
+    check(render["launches"]["hash_encode_fwd"] == ANGELO_FWD_PER_STEP * n_chunks
+          and render["launches"]["hash_encode_bwd"] == 0,
+          f"expected {ANGELO_FWD_PER_STEP} hash forward launches a chunk: {render['launches']}")
+    del trainer, model, enc
+    torch.cuda.empty_cache()
+    train_all = {k: train_launches[k] + traced_launches[k] for k in train_launches}
+    return {"method": method, "rays": rays, "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
+            "loss_first": first[0], "loss_step_1": first[1], "loss_last": last,
+            "train_launches": train_all, "det_launches": det_launches,
+            "render_launches": render["launches"], "image_ms": render["image_ms"],
+            "chain_launches": {name: {"fwd": train_chains["fwd"][w] + render["chains"]["fwd"][w],
+                                      "bwd": train_chains["bwd"][w]}
+                               for w, name in SURFACE_CHAINS.items()},
+            "sched_steps": steps, "mask_cost": mask_cost, "render_err": render["err"],
+            "render_quantile_err": render["quantile_err"], "chains": chains, "hash_calls": hash_recs,
+            "train_step_profile": step_profile,
+            "train_step_idle_share": step_profile["device_idle_share"],
+            "render_idle_share": render["profile"]["device_idle_share"]}
+
+
+@contextlib.contextmanager
+def _both_plain(fm):
+    """Every kernel of the path swapped for its plain version: the fused MLP and the hash grid."""
+    with swap_fused_mlp(fm.fused_mlp_plain), swap_hash_plain():
+        yield
 
 
 def final_eval_phase(fm, smi: str) -> dict:
@@ -1727,7 +2065,11 @@ def main() -> int:
     # 10. neus, volsdf, unisurf ----------------------------------------------
     surface = {m: surface_phase(fm, smi, m) for m in SURFACE_METHODS}
 
-    # 11. results -----------------------------------------------------------
+    # 11. neuralangelo --------------------------------------------------------
+    angelo = neuralangelo_phase(fm, smi)
+    surface["neuralangelo"] = angelo  # its two fused-MLP chains are the surface methods'
+
+    # 12. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -1836,6 +2178,45 @@ def main() -> int:
             "sass_mem": {k: v for k, v in hash_mem.items() if f"hash_{part}" in k},
         }
 
+    def angelo_hash_entry(which: str, replaces: str) -> dict:
+        """The F = 8 hash-grid kernel ``which`` on Neuralangelo's path: one
+        train step's calls on their captured inputs (the field's five
+        forwards; its one backward), launches on the path's train steps and
+        render (the deterministic pair: its two deterministic steps)."""
+        det = which in ("corner_rows", "segment_sum")
+        name = {"corner_rows": "hash_encode_bwd_det", "segment_sum": "hash_segment_sum"}.get(
+            which, f"hash_encode_{which}")
+        part = "det" if det else which
+        calls = [c for c in angelo["hash_calls"] if c["inputs"] == "captured" and part in c]
+        key = (lambda k: f"{which}_{k}") if det else (lambda k: k)
+        launches = (angelo["det_launches"][name] if det
+                    else angelo["train_launches"][name] + angelo["render_launches"][name])
+        return {
+            "name": f"{name}[F=8]",
+            "route": "cuda",
+            "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "launches_train": angelo["train_launches"][name],
+            "launches_render": angelo["render_launches"][name],
+            "launches_deterministic": angelo["det_launches"][name],
+            "max_abs_err": max(c[part][key("max_abs_err")] for c in angelo["hash_calls"] if part in c),
+            "ms": sum(c[part][key("ms")] for c in calls),
+            "plain_ms": sum(c[part][key("plain_ms")] for c in calls),
+            "bound_ms": sum(c[part][key("bound_ms")] for c in calls),
+            "sector_bound_ms": None if det else sum(c[part]["sector_bound_ms"] for c in calls),
+            "bound_by": "bytes",
+            "library_ms": (None if which == "corner_rows" else
+                           sum(c[part][key("library_ms")] for c in calls)),
+            "per_call": [{"call": c["call"], "inputs": c["inputs"], "points": c["points"],
+                          "unique_rows": c["unique_rows"], "unique_sectors": c["unique_sectors"],
+                          **c[part]} for c in angelo["hash_calls"] if part in c],
+            "ptxas": {k: v for k, v in ptxas.items()
+                      if k.startswith(f"hash_{'corner_rows' if which == 'corner_rows' else which}")},
+            "neuralangelo_train_step_ms": angelo["step_ms"],
+            "neuralangelo_image_ms": angelo["image_ms"],
+        }
+
     kernels = {"kernels": [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
@@ -1905,7 +2286,20 @@ def main() -> int:
                   "sdfstudio_tpu/ops/encodings.py:224 (table_gather's VJP: the corner updates, XLA "
                   "code)", library=False),
         det_entry("hash_segment_sum", "segment_sum",
-                  "sdfstudio_tpu/ops/scatter.py:28 (sorted_segment_add, XLA code)", library=True)]}
+                  "sdfstudio_tpu/ops/scatter.py:28 (sorted_segment_add, XLA code)", library=True),
+        angelo_hash_entry("fwd", "sdfstudio_tpu/ops/encodings.py:358 (HashEncoding.__call__ at F = 8, "
+                          "XLA code)"),
+        angelo_hash_entry("bwd", "sdfstudio_tpu/ops/encodings.py:224 (table_gather's VJP at F = 8, "
+                          "XLA code)"),
+        angelo_hash_entry("corner_rows", "sdfstudio_tpu/ops/encodings.py:224 (table_gather's VJP: the "
+                          "corner updates at F = 8, XLA code)"),
+        angelo_hash_entry("segment_sum", "sdfstudio_tpu/ops/scatter.py:28 (sorted_segment_add at F = 8, "
+                          "XLA code)")]}
+    log("neuralangelo", json.dumps({k: angelo[k] for k in ("rays", "step_ms", "rays_per_s", "image_ms",
+                                                            "sched_steps", "mask_cost",
+                                                            "train_step_idle_share",
+                                                            "render_idle_share", "loss_first",
+                                                            "loss_step_1", "loss_last")}))
     log("surface", json.dumps({m: {k: r[k] for k in ("rays", "step_ms", "rays_per_s", "image_ms",
                                                       "train_step_idle_share", "render_idle_share",
                                                       "loss_first", "loss_last")}

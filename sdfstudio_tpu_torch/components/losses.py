@@ -1,6 +1,7 @@
-"""Training losses of ``neus-facto-tpu-p8`` (counterpart of
+"""Training losses of the ported methods (counterpart of
 ``sdfstudio_tpu/components/losses.py``): rgb L1, eikonal, the zip-NeRF
-interlevel loss with its step-function blur, and the foreground-mask BCE.
+interlevel loss with its step-function blur, the foreground-mask BCE and
+Neuralangelo's curvature loss.
 Weights are [R, S] (no trailing channel), as in the JAX package."""
 from __future__ import annotations
 
@@ -72,3 +73,13 @@ def binary_cross_entropy(pred: torch.Tensor, target: torch.Tensor, eps: float = 
     """Foreground-mask BCE with clip(eps, 1 - eps) (losses.py:406-409)."""
     p = torch.clamp(pred, eps, 1.0 - eps)
     return -torch.mean(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
+
+
+def curvature_loss(sampled_sdf: torch.Tensor, sdf: torch.Tensor, delta) -> torch.Tensor:
+    """Neuralangelo's discrete-Laplacian curvature from the six numerical
+    gradient taps (losses.py:412-419): per axis ``(a + b - 2 sdf) /
+    (delta^2 + 1e-12)``, the mean of the absolute values. ``sampled_sdf``
+    [..., 6] in the taps' order (+x, -x, +y, -y, +z, -z), ``sdf`` [...]."""
+    pairs = sampled_sdf.reshape(*sampled_sdf.shape[:-1], 3, 2)
+    curvature = (torch.sum(pairs, dim=-1) - 2.0 * sdf[..., None]) / (delta * delta + 1e-12)
+    return torch.mean(torch.abs(curvature))

@@ -1,8 +1,8 @@
 """Method registry (counterpart of ``sdfstudio_tpu/configs/methods.py``).
 
 Registers ``neus`` (methods.py:113-123), ``volsdf`` (:125-135), ``unisurf``
-(:193-213), ``neus-facto`` (:216-240) and ``neus-facto-tpu-p8`` (:361-393)
-as Python dataclasses with their model, optimizer groups, trainer and
+(:193-213), ``neus-facto`` (:216-240), ``neus-facto-tpu-p8`` (:361-393) and
+``neuralangelo`` (:461-501) as Python dataclasses with their model, optimizer groups, trainer and
 data-manager settings; nothing is read from YAML.
 """
 from __future__ import annotations
@@ -20,6 +20,7 @@ from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
 from sdfstudio_tpu_torch.engine.trainer import TrainerConfig
 from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig
 from sdfstudio_tpu_torch.models.base_surface_model import SurfaceModelConfig
+from sdfstudio_tpu_torch.models.neuralangelo import NeuralangeloModel, NeuralangeloModelConfig
 from sdfstudio_tpu_torch.models.neus import NeuSModel, NeuSModelConfig
 from sdfstudio_tpu_torch.models.neus_facto import NeuSFactoModel, NeuSFactoModelConfig
 from sdfstudio_tpu_torch.models.unisurf import UniSurfModel, UniSurfModelConfig
@@ -37,8 +38,14 @@ class MethodConfig:
     datamanager: DataManagerConfig = DataManagerConfig()
 
 
-def _adam(lr: float) -> OptimizerConfig:
-    return OptimizerConfig(lr=lr, eps=1e-15)  # methods.py:62-63
+def _adam(lr: float, kind: str = "adam", weight_decay: float = 0.0) -> OptimizerConfig:
+    return OptimizerConfig(lr=lr, eps=1e-15, kind=kind, weight_decay=weight_decay)  # methods.py:62-63
+
+
+def _multistep_warmup(warm_up_end: int, milestones, gamma: float = 0.1) -> SchedulerConfig:
+    """methods.py:74-77."""
+    return SchedulerConfig(kind="multistep_warmup", warm_up_end=warm_up_end,
+                           milestones=tuple(milestones), gamma=gamma)
 
 
 def _optimizers() -> Dict[str, OptimizerGroupConfig]:
@@ -126,6 +133,46 @@ method_configs = {
         optimizers=_optimizers(),
         trainer=TrainerConfig(max_num_iterations=20001),
         datamanager=DataManagerConfig(train_num_rays_per_batch=2048),
+    ),
+    # methods.py:461-501: a 1-layer geometry MLP on a 16-level, 8-feature hash
+    # grid of 2^22 rows a level (55,867,118 rows in all), numerical gradients,
+    # the NeRF background, AdamW
+    "neuralangelo": MethodConfig(
+        "neuralangelo",
+        NeuralangeloModel,
+        NeuralangeloModelConfig(
+            sdf_field=SDFFieldConfig(
+                use_grid_feature=True,
+                num_layers=1,
+                num_layers_color=4,
+                hidden_dim=256,
+                hidden_dim_color=256,
+                bias=0.5,
+                beta_init=0.3,
+                inside_outside=False,
+                use_appearance_embedding=False,
+                position_encoding_max_degree=6,
+                use_numerical_gradients=True,
+                base_res=64,
+                max_res=4096,
+                log2_hashmap_size=22,
+                hash_features_per_level=8,
+                hash_smoothstep=False,
+                use_position_encoding=False,
+            ),
+            background_model="mlp",
+            enable_progressive_hash_encoding=True,
+            enable_curvature_loss_schedule=True,
+            enable_numerical_gradients_schedule=True,
+        ),
+        optimizers={
+            "field": OptimizerGroupConfig(_adam(1e-3, kind="adamw", weight_decay=0.01),
+                                          _multistep_warmup(5000, [300000, 400000])),
+            "field_background": OptimizerGroupConfig(_adam(1e-3, kind="adamw"),
+                                                     _multistep_warmup(5000, [300000, 400000])),
+        },
+        trainer=TrainerConfig(max_num_iterations=500001, steps_per_save=20000),
+        datamanager=DataManagerConfig(train_num_rays_per_batch=512),
     ),
 }
 

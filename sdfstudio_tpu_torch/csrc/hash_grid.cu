@@ -17,7 +17,7 @@
 //       and update written out, the rows sorted stably by the caller
 //       (torch.sort, which gives the order only), then each row's run
 //       summed in an order fixed by the sorted rows and written once.
-// F is 2 or 4 features a level.
+// F is 2, 4 or 8 features a level.
 //
 // The function, as JAX computes it: level l scales x by its resolution r_l,
 // takes floor and offset in f32, and forms the 8 corners (bit b of corner c
@@ -26,8 +26,12 @@
 // level is indexed densely (x + y s + z s^2, s = r_l + 1), not reduced mod
 // its size: at x = 1.0 the far corner reads the next level's rows, with
 // weight 0. The others are hashed (x * 1 ^ y * 2654435761 ^ z * 805459861)
-// mod 2^log2. Each level's rows start at its offset. A row at or past R
-// reads as NaN, jnp.take's fill mode, and its gradient is dropped. The
+// mod 2^log2. Each level's rows start at its offset. JAX adds the offset in
+// int32 and jnp.take reads a negative index from the table's end: a corner
+// at -1 (x just below 0, a tap of a numerical gradient) on a dense level
+// wraps to a large uint32, which reads row i + R here as there. A row that
+// is still at or past R reads as NaN, jnp.take's fill mode, and its
+// gradient is dropped. The
 // scaled position and the offset are rounded as XLA rounds them (__fmul_rn,
 // __fsub_rn: no contraction into an FMA), so the corners are JAX's exactly.
 //
@@ -74,6 +78,13 @@
 //     (atomicAdd of a float4, RED.E.ADD.F32x4 on sm_90) adds both: the
 //     backward is held by the rate of the atomic units, counted in
 //     operations, not bytes.
+//   * F = 8 (Neuralangelo's grid): a row is 32 bytes, exactly one L2 sector,
+//     read as two float4 loads and added as two float4 reductions. There is
+//     no pairing to do: the widest f32 reduction is 16 bytes, and a row
+//     already fills two. Out and jac go as float4 stores. Row offsets are
+//     formed in 64 bits (2 * (size_t)row float4s): the 55.9M-row table of
+//     16 levels at 2^22 takes offsets of 1.79e9 bytes, and a product in 32
+//     bits would pass 2^31 at twice that.
 // The table goes through the read-only path under the default L2 policy;
 // x, the cotangents, out and jac are read or written once and go
 // evict-first (ld/st.global.cs), as the row gathers' streams do.
@@ -145,6 +156,34 @@ template <> struct Row<4> {
     return make_float4(v, v, v, v);
   }
 };
+// a 32-byte row: one L2 sector, two float4 halves
+template <> struct Row<8> {
+  struct T {
+    float4 a, b;
+  };
+  static __device__ __forceinline__ void get(const T& r, float (&v)[8]) {
+    v[0] = r.a.x; v[1] = r.a.y; v[2] = r.a.z; v[3] = r.a.w;
+    v[4] = r.b.x; v[5] = r.b.y; v[6] = r.b.z; v[7] = r.b.w;
+  }
+  static __device__ __forceinline__ T nan() { return T{Row<4>::nan(), Row<4>::nan()}; }
+};
+
+// row i of an [R, F] f32 array through the read-only path; the offset in 64 bits
+template <int F>
+__device__ __forceinline__ typename Row<F>::T load_row(const float* __restrict__ a, size_t i) {
+  if constexpr (F == 8) {
+    const float4* p = reinterpret_cast<const float4*>(a) + 2 * i;
+    return typename Row<8>::T{__ldg(p), __ldg(p + 1)};
+  } else {
+    return __ldg(reinterpret_cast<const typename Row<F>::T*>(a) + i);
+  }
+}
+
+// The table row of a corner's uint32 index: JAX's int32 index, negative
+// ones read from the table's end (jnp.take); at or past `rows` it reads NaN.
+__device__ __forceinline__ uint32_t table_row(uint32_t i, uint32_t rows) {
+  return i < rows ? i : i + rows;
+}
 
 // The cell of x at level l (encodings.py:328-430): its integer corner c,
 // per axis the weights of the floor and ceiling corners and the
@@ -228,36 +267,51 @@ __device__ __forceinline__ void cell(const Levels& lv, int l, bool smooth, const
   }
 }
 
-// The 8 corner rows of a cell, every load issued before any is used; a row
-// at or past the table reads as NaN.
+// The 8 corner rows of a cell, every load issued before any is used; a
+// negative index reads from the table's end, a row still at or past the
+// table reads as NaN.
 template <int F>
 __device__ __forceinline__ void load_rows(const float* __restrict__ table, uint32_t rows,
                                           const uint32_t (&idx)[8], float (&v)[8][F]) {
   using R = Row<F>;
   typename R::T rv[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    rv[k] = idx[k] < rows ? __ldg(reinterpret_cast<const typename R::T*>(table) + idx[k])
-                          : R::nan();
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t j = table_row(idx[k], rows);
+    rv[k] = j < rows ? load_row<F>(table, j) : R::nan();
+  }
 #pragma unroll
   for (int k = 0; k < 8; ++k) R::get(rv[k], v[k]);
 }
 
-// Add each corner's update to its row (rows past the table dropped). With
-// kPair (F = 2) an aligned pair of x-neighbours takes one float4 reduction.
+// Add each corner's update to its row (a negative index from the table's
+// end, rows still past the table dropped). With kPair (F = 2) an aligned pair
+// of x-neighbours takes one float4 reduction; an F = 8 row takes two.
 template <int F, bool kPair>
 __device__ __forceinline__ void add_rows(float* __restrict__ grad, uint32_t rows,
                                          const uint32_t (&idx)[8], const float (&u)[8][F]) {
-  if constexpr (F == 4) {
+  if constexpr (F == 8) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (idx[k] < rows)
-        atomicAdd(reinterpret_cast<float4*>(grad) + idx[k],
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t j = table_row(idx[k], rows);
+      if (j < rows) {
+        float4* p = reinterpret_cast<float4*>(grad) + 2 * (size_t)j;
+        atomicAdd(p, make_float4(u[k][0], u[k][1], u[k][2], u[k][3]));
+        atomicAdd(p + 1, make_float4(u[k][4], u[k][5], u[k][6], u[k][7]));
+      }
+    }
+  } else if constexpr (F == 4) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t j = table_row(idx[k], rows);
+      if (j < rows)
+        atomicAdd(reinterpret_cast<float4*>(grad) + j,
                   make_float4(u[k][0], u[k][1], u[k][2], u[k][3]));
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < 8; k += 2) {
-      const uint32_t a = idx[k], b = idx[k + 1];
+      const uint32_t a = table_row(idx[k], rows), b = table_row(idx[k + 1], rows);
       if (kPair && (a ^ b) == 1u && (a | 1u) < rows) {
         const float4 v = (a & 1u) ? make_float4(u[k + 1][0], u[k + 1][1], u[k][0], u[k][1])
                                   : make_float4(u[k][0], u[k][1], u[k + 1][0], u[k + 1][1]);
@@ -290,6 +344,23 @@ __device__ __forceinline__ void tile_load(float2* s, int S, int U, int np, const
 
 __device__ __forceinline__ void tile_load_x(float* sx, int np, const float* __restrict__ x) {
   for (int i = threadIdx.x; i < 3 * np; i += blockDim.x) sx[i] = __ldcs(x + i);
+}
+
+// N floats to a run of global memory, evict-first: float4 stores at F = 8
+// (every slice 32-byte aligned), float2 stores below (a point-level slice
+// of F = 2 is only 8-byte aligned)
+template <int F, int N>
+__device__ __forceinline__ void store_cs(float* __restrict__ dst, const float (&v)[N]) {
+  if constexpr (F == 8) {
+#pragma unroll
+    for (int h = 0; h < N / 4; ++h)
+      __stcs(reinterpret_cast<float4*>(dst) + h,
+             make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]));
+  } else {
+#pragma unroll
+    for (int h = 0; h < N / 2; ++h)
+      __stcs(reinterpret_cast<float2*>(dst) + h, make_float2(v[2 * h], v[2 * h + 1]));
+  }
 }
 
 // The forward: a thread per (point, level), neighbouring threads on
@@ -325,13 +396,8 @@ hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,
         jv[3 * f + a] = s;
       }
   }
-#pragma unroll
-  for (int h = 0; h < F / 2; ++h)
-    __stcs(reinterpret_cast<float2*>(out + t * F) + h, make_float2(acc[2 * h], acc[2 * h + 1]));
-  if constexpr (kJac)
-#pragma unroll
-    for (int h = 0; h < 3 * F / 2; ++h)
-      __stcs(reinterpret_cast<float2*>(jac + t * 3 * F) + h, make_float2(jv[2 * h], jv[2 * h + 1]));
+  store_cs<F>(out + t * F, acc);
+  if constexpr (kJac) store_cs<F>(jac + t * 3 * F, jv);
 }
 
 // The backward over tiles (see the design note above).
@@ -443,7 +509,10 @@ hash_corner_rows_kernel(const float* __restrict__ x, const float* __restrict__ g
   for (int e = 0; e < 3 * F; ++e) gj[e] = kJac ? __ldcs(g_jac + t * 3 * F + e) : 0.0f;
   int kv[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) kv[k] = idx[k] < rows ? (int)idx[k] : (int)rows;
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t j = table_row(idx[k], rows);
+    kv[k] = j < rows ? (int)j : (int)rows;
+  }
   int4* kp = reinterpret_cast<int4*>(keys + t * 8);
   __stcs(kp, make_int4(kv[0], kv[1], kv[2], kv[3]));
   __stcs(kp + 1, make_int4(kv[4], kv[5], kv[6], kv[7]));
@@ -459,9 +528,7 @@ hash_corner_rows_kernel(const float* __restrict__ x, const float* __restrict__ g
         s += dw[k][0] * gj[3 * f] + dw[k][1] * gj[3 * f + 1] + dw[k][2] * gj[3 * f + 2];
       v[f] = s;
     }
-#pragma unroll
-    for (int h = 0; h < F / 2; ++h)
-      __stcs(reinterpret_cast<float2*>(up + k * F) + h, make_float2(v[2 * h], v[2 * h + 1]));
+    store_cs<F>(up + k * F, v);
   }
 }
 
@@ -479,10 +546,15 @@ constexpr int kLongRun = 32;
 
 template <int F>
 __device__ __forceinline__ void store_row(float* __restrict__ grad, int row, const float (&v)[F]) {
-  if constexpr (F == 2)
+  if constexpr (F == 2) {
     reinterpret_cast<float2*>(grad)[row] = make_float2(v[0], v[1]);
-  else
+  } else if constexpr (F == 4) {
     reinterpret_cast<float4*>(grad)[row] = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    float4* p = reinterpret_cast<float4*>(grad) + 2 * (size_t)row;
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
 }
 
 template <int F>
@@ -512,8 +584,7 @@ hash_segment_sum_kernel(const int* __restrict__ keys, const long long* __restric
       for (int q = 0; q < 4; ++q) in[q] = e + q < m && __ldg(keys + e + q) == key;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        v[q] = in[q] ? __ldg(reinterpret_cast<const typename R::T*>(upd) + __ldg(perm + e + q))
-                     : typename R::T{};
+        v[q] = in[q] ? load_row<F>(upd, (size_t)__ldg(perm + e + q)) : typename R::T{};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         float r[F];
@@ -543,8 +614,7 @@ hash_segment_sum_kernel(const int* __restrict__ keys, const long long* __restric
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        v[c] = in[c] ? __ldg(reinterpret_cast<const typename R::T*>(upd)
-                             + __ldg(perm + e + 32 * c + lane))
+        v[c] = in[c] ? load_row<F>(upd, (size_t)__ldg(perm + e + 32 * c + lane))
                      : typename R::T{};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -581,7 +651,7 @@ bool make_levels(int L, const int* res, const uint32_t* offsets, const int* dens
 }
 
 bool args_ok(long long n, long long rows, int F, int L) {
-  return n > 0 && rows > 0 && rows <= 0xffffffffLL && (F == 2 || F == 4)
+  return n > 0 && rows > 0 && rows <= 0x7fffffffLL && (F == 2 || F == 4 || F == 8)
          && n * L <= (long long)INT32_MAX * kRowThreads;  // the grids' x dimension
 }
 
@@ -657,7 +727,7 @@ extern "C" {
 
 // x [n, 3] (any alignment), table [rows, F], out [n, L*F], jac [n, L*F, 3]
 // or null: contiguous f32 device pointers, all but x 16-byte aligned; F is
-// 2 or 4. res / offsets / dense: L host ints per level. Enqueue on
+// 2, 4 or 8; rows below 2^31 (JAX's int32 index). res / offsets / dense: L host ints per level. Enqueue on
 // `stream`; return cudaGetLastError().
 int sst_hash_encode_fwd(const void* x, const void* table, void* out, void* jac, long long n,
                         long long rows, int F, int L, const int* res, const uint32_t* offsets,
@@ -672,8 +742,9 @@ int sst_hash_encode_fwd(const void* x, const void* table, void* out, void* jac, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t r = (uint32_t)rows;
   const bool sm = smoothstep != 0;
-  return F == 2 ? fwd_launch<2>(xp, tp, op, jp, n, r, lv, sm, s)
-                : fwd_launch<4>(xp, tp, op, jp, n, r, lv, sm, s);
+  return F == 2   ? fwd_launch<2>(xp, tp, op, jp, n, r, lv, sm, s)
+         : F == 4 ? fwd_launch<4>(xp, tp, op, jp, n, r, lv, sm, s)
+                  : fwd_launch<8>(xp, tp, op, jp, n, r, lv, sm, s);
 }
 
 // x [n, 3], g_out [n, L*F] and / or g_jac [n, L*F, 3] (either may be null,
@@ -694,8 +765,9 @@ int sst_hash_encode_bwd(const void* x, const void* g_out, const void* g_jac, voi
   const uint32_t r = (uint32_t)rows;
   const bool sm = smoothstep != 0;
   const TilePlan plan = tile_plan(L);
-  return F == 2 ? bwd_launch<2, true, true>(xp, go, gj, gp, n, r, lv, sm, s, plan)
-                : bwd_launch<4, false, true>(xp, go, gj, gp, n, r, lv, sm, s, plan);
+  return F == 2   ? bwd_launch<2, true, true>(xp, go, gj, gp, n, r, lv, sm, s, plan)
+         : F == 4 ? bwd_launch<4, false, true>(xp, go, gj, gp, n, r, lv, sm, s, plan)
+                  : bwd_launch<8, false, true>(xp, go, gj, gp, n, r, lv, sm, s, plan);
 }
 
 // The deterministic path, step 1: keys [n*L*8] int32 and upd [n*L*8, F]
@@ -718,8 +790,9 @@ int sst_hash_corner_rows(const void* x, const void* g_out, const void* g_jac, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t r = (uint32_t)rows;
   const bool sm = smoothstep != 0;
-  return F == 2 ? corner_rows_launch<2>(xp, go, gj, kp, up, n, r, lv, sm, s)
-                : corner_rows_launch<4>(xp, go, gj, kp, up, n, r, lv, sm, s);
+  return F == 2   ? corner_rows_launch<2>(xp, go, gj, kp, up, n, r, lv, sm, s)
+         : F == 4 ? corner_rows_launch<4>(xp, go, gj, kp, up, n, r, lv, sm, s)
+                  : corner_rows_launch<8>(xp, go, gj, kp, up, n, r, lv, sm, s);
 }
 
 // The deterministic path, step 3: keys [m] sorted stably, perm [m] int64
@@ -727,7 +800,8 @@ int sst_hash_corner_rows(const void* x, const void* g_out, const void* g_jac, vo
 // caller (16-byte aligned).
 int sst_hash_segment_sum(const void* keys, const void* perm, const void* upd, void* grad,
                          long long m, long long rows, int F, void* stream) {
-  if (m < 1 || rows < 1 || rows >= (long long)INT32_MAX || (F != 2 && F != 4) || !keys || !perm
+  if (m < 1 || rows < 1 || rows >= (long long)INT32_MAX || (F != 2 && F != 4 && F != 8) || !keys
+      || !perm
       || !upd || !grad || (m + kRowThreads - 1) / kRowThreads > (long long)INT32_MAX)
     return (int)cudaErrorInvalidValue;
   const int* kp = static_cast<const int*>(keys);
@@ -738,8 +812,10 @@ int sst_hash_segment_sum(const void* keys, const void* perm, const void* upd, vo
   const unsigned grid = (unsigned)((m + kRowThreads - 1) / kRowThreads);
   if (F == 2)
     hash_segment_sum_kernel<2><<<grid, kRowThreads, 0, s>>>(kp, pp, up, gp, m, (int)rows);
-  else
+  else if (F == 4)
     hash_segment_sum_kernel<4><<<grid, kRowThreads, 0, s>>>(kp, pp, up, gp, m, (int)rows);
+  else
+    hash_segment_sum_kernel<8><<<grid, kRowThreads, 0, s>>>(kp, pp, up, gp, m, (int)rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-"""Adam per named parameter group (counterpart of
-``sdfstudio_tpu/engine/optimizers.py``: one optax ``adam`` with an injected
-schedule per top-level group, combined by ``multi_transform``).
+"""Adam and AdamW per named parameter group (counterpart of
+``sdfstudio_tpu/engine/optimizers.py``: one optax ``adam`` or ``adamw`` with
+an injected schedule per top-level group, combined by ``multi_transform``).
 
 The update is a short functional Adam on tensors, written to follow optax
 step for step rather than ``torch.optim.Adam``: optax evaluates the
@@ -10,6 +10,13 @@ receives no gradient gets zeros, as JAX's gradient of an unused parameter
 is zero: the moments decay and the count advances. ``apply=False`` (a
 frozen proposal step, trainer.py:403-418) keeps that moment update and
 count but leaves the parameters as they are.
+
+``adamw`` is ``optax.adamw(lr * schedule, eps=eps, weight_decay=wd)``
+(optimizers.py:37-38) with optax's ``mask=None``: the decay applies to every
+parameter of the group, ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
+The update runs as a few ``torch._foreach_*`` passes over the group: on
+Neuralangelo's 447M-parameter hash table it is a memory-bound pass of
+several GB a step.
 """
 from __future__ import annotations
 
@@ -27,10 +34,21 @@ B1, B2 = 0.9, 0.999  # optax.adam's defaults, which optimizers.py:33 keeps
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    """Adam's settings (optimizers.py:20-45); the other optimizer kinds are not ported."""
+    """Adam's and AdamW's settings (optimizers.py:20-45); the other
+    optimizer kinds (``radam``, ``sgd``) and ``weight_decay`` under plain
+    ``adam`` (an ``add_decayed_weights`` before it) are not ported and raise."""
 
     lr: float
     eps: float
+    kind: str = "adam"  # adam | adamw
+    weight_decay: float = 0.0
+
+    def __post_init__(self):
+        if self.kind not in ("adam", "adamw"):
+            raise NotImplementedError(f"optimizer kind {self.kind!r} is not ported; 'adam' and "
+                                      "'adamw' are")
+        if self.kind == "adam" and self.weight_decay:
+            raise NotImplementedError("weight_decay under 'adam' is not ported; 'adamw' takes it")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,14 +58,16 @@ class OptimizerGroupConfig:
 
 
 class GroupAdam:
-    """optax ``adam(lr * schedule(count), eps=eps)`` over one group's tensors."""
+    """optax ``adam(lr * schedule(count), eps=eps)``, or ``adamw`` with the
+    group's ``weight_decay``, over one group's tensors."""
 
     def __init__(self, params: Sequence[torch.Tensor], names: Sequence[str],
                  config: OptimizerGroupConfig):
         opt = config.optimizer
         self.params = list(params)
         self.names = list(names)  # the parameters' names in the model
-        self.lr, self.eps = opt.lr, opt.eps
+        self.lr, self.eps, self.kind = opt.lr, opt.eps, opt.kind
+        self.weight_decay = opt.weight_decay if opt.kind == "adamw" else 0.0
         self.schedule = config.scheduler.build()
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -76,6 +96,9 @@ class GroupAdam:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, denom)
+        del denom
+        if self.weight_decay:  # optax.add_decayed_weights, after scale_by_adam
+            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
 
     def state(self) -> Dict:

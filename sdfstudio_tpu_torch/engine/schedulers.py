@@ -1,11 +1,12 @@
 """Learning-rate multipliers as plain functions of the step (counterpart of
 ``sdfstudio_tpu/engine/schedulers.py``): the ``neus`` warmup-cosine, the
-``multistep`` and the ``exponential`` schedules that the registered methods use."""
+``multistep``, the ``multistep_warmup`` and the ``exponential`` schedules that
+the registered methods use."""
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 
@@ -16,10 +17,12 @@ Schedule = Callable[[float], float]
 class SchedulerConfig:
     """The fields of ``SchedulerConfig`` (schedulers.py:19-58) these schedules read."""
 
-    kind: str  # neus | multistep | exponential
+    kind: str  # neus | multistep | multistep_warmup | exponential
     max_steps: int = 1000000
     warm_up_end: int = 5000
     learning_rate_alpha: float = 0.05
+    milestones: Tuple[int, ...] = (300000, 400000, 500000)
+    gamma: float = 0.33
     decay_rate: float = 0.1
 
     def build(self) -> Schedule:
@@ -28,6 +31,8 @@ class SchedulerConfig:
         if self.kind == "multistep":
             ms = [self.max_steps // 2, self.max_steps * 3 // 4, self.max_steps * 9 // 10]
             return multistep_schedule(ms, 0.33)
+        if self.kind == "multistep_warmup":
+            return multistep_warmup_schedule(self.warm_up_end, self.milestones, self.gamma)
         if self.kind == "exponential":
             return exponential_schedule(self.decay_rate, self.max_steps)
         raise NotImplementedError(f"scheduler kind {self.kind!r} is not ported (ROADMAP queue 1)")
@@ -50,6 +55,24 @@ def neus_schedule(warm_up_end: int, learning_rate_alpha: float, max_steps: int) 
         progress = (step - warm_up_end) / max(max_steps - warm_up_end, 1)
         alpha = learning_rate_alpha
         return (math.cos(math.pi * progress) + 1.0) * 0.5 * (1 - alpha) + alpha
+
+    return sched
+
+
+def multistep_warmup_schedule(warm_up_end: int, milestones: Sequence[int],
+                              gamma: float) -> Schedule:
+    """Linear warmup, then ``gamma ** (number of milestones reached)``
+    (schedulers.py:122-131), in float32 as JAX computes it: the step and
+    the milestones compared in f32, the warmup a f32 quotient, the power a
+    f32 power of the f32 ``gamma``."""
+    ms = np.asarray(milestones, np.float32)
+    w, g = np.float32(max(warm_up_end, 1)), np.float32(gamma)
+
+    def sched(step: float) -> float:
+        s = np.float32(step)
+        if s < np.float32(warm_up_end):
+            return float(s / w)
+        return float(g ** np.float32(np.sum(s >= ms)))
 
     return sched
 

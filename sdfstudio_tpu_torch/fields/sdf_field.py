@@ -6,10 +6,13 @@ jacobian (or, with ``use_grid_feature=False``, JAX's zeros in its place), the
 weight-normed geometry MLP with the ``"vjp"`` gradient
 (``geonetwork_with_gradient``, sdf_field.py:323-368), the color net through
 the fused kernel (``colors``, sdf_field.py:387-473), ``get_outputs``
-(sdf_field.py:642-765) with NeuS alpha and UniSurf occupancy, and the
-analytic ``gradient`` (sdf_field.py:578-648), for the configuration options
-the registered methods use, from ``neus-facto``'s 2-layer MLPs to JAX's
-default 8 geometry layers with the skip at layer 4. Other options raise.
+(sdf_field.py:642-765) with NeuS alpha and UniSurf occupancy, and
+``gradient`` (sdf_field.py:578-648), analytic or numerical (Neuralangelo's
+six taps, with their SDF values for the curvature loss), for the
+configuration options the registered methods use, from ``neus-facto``'s
+2-layer MLPs to JAX's default 8 geometry layers with the skip at layer 4.
+The progressive ``hash_mask`` multiplies the grid feature (and its
+jacobian) wherever the field evaluates the SDF. Other options raise.
 """
 from __future__ import annotations
 
@@ -45,9 +48,10 @@ class SDFFieldConfig:
     the registered methods set and JAX's defaults: the
     hash-grid (``encoding_type="hash"``, f32 tables) or permutohedral
     (``"permuto"``) grid feature, on or off (``use_grid_feature``),
-    positional encoding, geometric init, weight norm, no appearance
-    embedding, and the analytic ``"vjp"`` gradient; other encodings,
-    ``"bfloat16"`` tables and ``use_appearance_embedding=True`` raise."""
+    positional encoding (or zeros in its place), geometric init, weight
+    norm, no appearance embedding, and the analytic ``"vjp"`` gradient or
+    the numerical one; other encodings, ``"bfloat16"`` tables and
+    ``use_appearance_embedding=True`` raise."""
 
     num_layers: int = 8
     hidden_dim: int = 256
@@ -73,6 +77,19 @@ class SDFFieldConfig:
     encoding_type: str = "hash"  # hash | permuto
     hash_smoothstep: bool = True
     hash_table_dtype: str = "float32"
+    use_numerical_gradients: bool = False
+    """sdf_field.py:93: the SDF gradient by central differences over six
+    taps at +-delta on each axis (:598-619) in place of the analytic
+    jacobian; ``get_outputs`` then also returns the taps' SDF
+    (``sampled_sdf``, [R, S, 6]) for the curvature loss."""
+    use_position_encoding: bool = True
+    """sdf_field.py:101: off, zeros take the positional encoding's place
+    (:266-268), so the geometry MLP keeps its input width."""
+
+
+# the numerical gradient's taps, in JAX's order (sdf_field.py:600-610)
+_TAPS = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, 1.0),
+         (0.0, 0.0, -1.0))
 
 
 class SDFField(nn.Module):
@@ -175,23 +192,33 @@ class SDFField(nn.Module):
             return contract(x, order=None)
         return x
 
-    def grid_feature(self, x: torch.Tensor, want_jac: bool = True):
+    def grid_feature(self, x: torch.Tensor, want_jac: bool = True,
+                     hash_mask: Optional[torch.Tensor] = None):
         """Feature and its jacobian wrt x (or None) at positions in [-2, 2]
-        (``_grid_feature``, sdf_field.py:281-311); zeros without the grid
-        feature (:287-289)."""
+        (``_grid_feature``, sdf_field.py:281-311), both multiplied by
+        ``hash_mask`` [L*F] where one is given (:306-310); zeros without the
+        grid feature (:287-289)."""
         if self.encoding is None:
             z = torch.zeros((*x.shape[:-1], self.grid_dim), dtype=x.dtype, device=x.device)
             return z, (torch.zeros((*z.shape, 3), dtype=x.dtype, device=x.device)
                        if want_jac else None)
         if not want_jac:
-            return self.encoding((x + 2.0) / 4.0, want_jac=False), None
+            feature = self.encoding((x + 2.0) / 4.0, want_jac=False)
+            return (feature if hash_mask is None else feature * hash_mask), None
         feature, jac = self.encoding((x + 2.0) / 4.0, want_jac=True)
-        return feature, jac / 4.0
+        jac = jac / 4.0
+        if hash_mask is not None:
+            feature, jac = feature * hash_mask, jac * hash_mask[..., None]
+        return feature, jac
 
     def geo_mlp(self, x: torch.Tensor, feature: torch.Tensor, layers) -> torch.Tensor:
         """Geometry MLP on (x, grid feature) (sdf_field.py:260-279), with the
         effective ``layers`` [(kernel, bias)] passed in."""
-        inputs = torch.cat([x, self.position_encoding(x), feature], dim=-1)
+        if self.config.use_position_encoding:
+            pe = self.position_encoding(x)
+        else:  # zeros in its place (sdf_field.py:266-268)
+            pe = x.new_zeros((*x.shape[:-1], self.position_encoding.out_dim))
+        inputs = torch.cat([x, pe, feature], dim=-1)
         h = inputs
         n = len(layers)
         for l, (k, b) in enumerate(layers):
@@ -203,17 +230,50 @@ class SDFField(nn.Module):
         return h
 
     @torch.no_grad()
-    def sdf(self, x: torch.Tensor) -> torch.Tensor:
+    def sdf(self, x: torch.Tensor, hash_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The SDF at positions ``x`` [..., 3] in [-2, 2] (``sdf_fn``,
         sdf_field.py:549-556, through ``geonetwork`` :305-313): the encode
         without its jacobian and the geometry MLP, no gradient. Mesh
-        extraction evaluates it on every point of its grid."""
+        extraction evaluates it on every point of its grid, without a mask
+        (as JAX's ``eval_geometry``); the samplers pass the step's."""
         checks.check_positions(x, "SDFField.geonetwork positions")
-        feature, _ = self.grid_feature(x, want_jac=False)
-        layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
-        return self.geo_mlp(x, feature, layers)[..., 0]
+        return self.geonetwork(x, hash_mask)[..., 0]
 
-    def geonetwork_with_gradient(self, x: torch.Tensor, train: bool = False):
+    def geonetwork(self, x: torch.Tensor, hash_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """SDF and geometric feature [..., 1 + geo_feat_dim] at positions
+        ``x`` (``geonetwork``, sdf_field.py:313-321): the encode without its
+        jacobian, then the geometry MLP, each under its profiler range; in
+        the graph when grad is enabled."""
+        with record_function(self.encode_range):
+            feature, _ = self.grid_feature(x, want_jac=False, hash_mask=hash_mask)
+        layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
+        with record_function("sst/geo_mlp"):
+            return self.geo_mlp(x, feature, layers)
+
+    def numerical_gradient(self, x: torch.Tensor, delta: float,
+                           hash_mask: Optional[torch.Tensor] = None, with_centre: bool = False):
+        """(geonetwork output at ``x`` or None, d sdf/dx [N, 3], the taps'
+        SDF [N, 6]) by central differences (sdf_field.py:598-622): the six
+        taps ``x +- delta e_a`` in JAX's order (+x, -x, +y, -y, +z, -z) and
+        the gradient ``0.5 (sdf(+) - sdf(-)) / delta`` on each axis. With
+        ``with_centre`` the centre and the taps go through one encode and
+        one geometry MLP of 7N points (``get_outputs``' seven evaluations,
+        :686-696); each row's value is the same function of its point."""
+        n = x.shape[0]
+        with record_function("sst/numerical_gradient"):
+            offsets = torch.tensor(_TAPS, dtype=x.dtype, device=x.device)
+            pts = x[None, ...] + delta * offsets[:, None, :]  # [6, N, 3]
+            if with_centre:
+                pts = torch.cat([x[None], pts])
+        h = self.geonetwork(pts.reshape(-1, 3), hash_mask)
+        with record_function("sst/numerical_gradient"):
+            sdf6 = h[-6 * n:, 0].reshape(6, n)
+            grads = torch.stack([0.5 * (sdf6[2 * a] - sdf6[2 * a + 1]) / delta for a in range(3)],
+                                dim=-1)
+        return (h[:n] if with_centre else None), grads, sdf6.T
+
+    def geonetwork_with_gradient(self, x: torch.Tensor, train: bool = False,
+                                 hash_mask: Optional[torch.Tensor] = None):
         """(geonetwork output, d sdf/dx) from one encode (sdf_field.py:323-362,
         ``"vjp"``): one reverse pass through the MLP, whose input gradient wrt
         the feature is chained onto the analytic encode jacobian,
@@ -230,7 +290,7 @@ class SDFField(nn.Module):
         checks.check_positions(x, "SDFField.geonetwork positions")
         if train:
             with record_function(self.encode_range):
-                feature, fjac = self.grid_feature(x)
+                feature, fjac = self.grid_feature(x, hash_mask=hash_mask)
             layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
             with record_function("sst/geo_mlp_and_grad"):
                 xg = x.detach().requires_grad_(True)
@@ -242,7 +302,7 @@ class SDFField(nn.Module):
                 grad = dx + torch.einsum("...f,...fa->...a", dfeat, fjac)
             return h, grad
         with torch.no_grad(), record_function(self.encode_range):
-            feature, fjac = self.grid_feature(x)
+            feature, fjac = self.grid_feature(x, hash_mask=hash_mask)
         with torch.no_grad():
             layers = [self.glayer(l).effective() for l in range(self.n_glayers)]
         with torch.enable_grad(), record_function("sst/geo_mlp_and_grad"):
@@ -285,12 +345,22 @@ class SDFField(nn.Module):
     def get_beta(self) -> torch.Tensor:
         return density_ops.effective_beta(self.laplace_beta)
 
-    def gradient(self, x: torch.Tensor) -> torch.Tensor:
+    def gradient(self, x: torch.Tensor, hash_mask: Optional[torch.Tensor] = None,
+                 numerical_delta: Optional[float] = None, return_sampled_sdf: bool = False):
         """d sdf / dx at positions ``x`` [N, 3], contracted first
-        (``SDFField.gradient``, sdf_field.py:578-648, the analytic mode). It
-        stays in the graph, so a loss on it reaches the parameters
-        (UniSurf's smoothness loss)."""
-        return self.geonetwork_with_gradient(self.contract_positions(x), train=True)[1]
+        (``SDFField.gradient``, sdf_field.py:578-648): analytic, or with
+        ``use_numerical_gradients`` by central differences at
+        ``numerical_delta`` (default 1e-4, :599), with the taps' SDF [N, 6]
+        under ``return_sampled_sdf`` (None in the analytic mode). It stays
+        in the graph, so a loss on it reaches the parameters (UniSurf's
+        smoothness loss)."""
+        x = self.contract_positions(x)
+        if self.config.use_numerical_gradients:
+            delta = 1e-4 if numerical_delta is None else numerical_delta
+            _, grads, sampled = self.numerical_gradient(x, delta, hash_mask)
+        else:
+            grads, sampled = self.geonetwork_with_gradient(x, train=True, hash_mask=hash_mask)[1], None
+        return (grads, sampled) if return_sampled_sdf else grads
 
     def get_outputs(
         self,
@@ -299,15 +369,26 @@ class SDFField(nn.Module):
         return_alphas: bool = False,
         return_occupancy: bool = False,
         train: bool = False,
+        hash_mask: Optional[torch.Tensor] = None,
+        numerical_delta: Optional[float] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Field forward over ray samples (sdf_field.py:642-765)."""
+        """Field forward over ray samples (sdf_field.py:642-765), with the
+        step's ``hash_mask`` and, in the numerical mode, its
+        ``numerical_delta`` (default 1e-4, :675-677) and the taps' SDF as
+        ``sampled_sdf`` [R, S, 6]."""
         R, S = ray_samples.num_rays, ray_samples.num_samples
         inputs = ray_samples.get_start_positions().reshape(-1, 3)
         directions = ray_samples.directions[..., None, :].expand(R, S, 3).reshape(-1, 3)
         inputs = self.contract_positions(inputs)
         points_norm = torch.linalg.vector_norm(inputs, dim=-1)
 
-        h, gradients = self.geonetwork_with_gradient(inputs, train=train)
+        sampled_sdf = None
+        if self.config.use_numerical_gradients:
+            delta = 1e-4 if numerical_delta is None else numerical_delta
+            h, gradients, sampled_sdf = self.numerical_gradient(inputs, delta, hash_mask,
+                                                                with_centre=True)
+        else:
+            h, gradients = self.geonetwork_with_gradient(inputs, train=train, hash_mask=hash_mask)
         sdf, geo_feat = h[..., :1], h[..., 1:]
         rgb = self.colors(inputs, directions, gradients, geo_feat)
         beta = self.get_beta()
@@ -319,6 +400,8 @@ class SDFField(nn.Module):
             "normal": safe_normalize(gradients).reshape(R, S, 3),
             "points_norm": points_norm.reshape(R, S),
         }
+        if sampled_sdf is not None:
+            outputs["sampled_sdf"] = sampled_sdf.reshape(R, S, 6)
         if return_alphas:
             outputs["alpha"] = density_ops.neus_alpha(
                 outputs["sdf"], outputs["gradient"], ray_samples.directions,

@@ -89,10 +89,13 @@ class SurfaceModel(nn.Module):
     def contract(self, x: torch.Tensor) -> torch.Tensor:
         return contract(x, order=math.inf if self.config.scene_contraction_norm == "inf" else None)
 
-    def sdf_at_starts(self, samples: RaySamples) -> torch.Tensor:
+    def sdf_at_starts(self, samples: RaySamples,
+                      hash_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The SDF at the bin starts, [R, S], without a gradient: the
-        samplers' ``sdf_fn`` (neus.py:42-47, volsdf.py:32-37, unisurf.py:46-51)."""
-        return self.field.sdf(samples.get_start_positions().reshape(-1, 3)).reshape(samples.starts.shape)
+        samplers' ``sdf_fn`` (neus.py:42-47, volsdf.py:32-37, unisurf.py:46-51),
+        under the step's ``hash_mask`` where there is one (neus.py:42)."""
+        return self.field.sdf(samples.get_start_positions().reshape(-1, 3),
+                              hash_mask).reshape(samples.starts.shape)
 
     def get_foreground_mask(self, ray_samples: RaySamples) -> torch.Tensor:
         """1 where a sample starts inside the unit sphere, [R, S] (base_surface_model.py:134-137)."""

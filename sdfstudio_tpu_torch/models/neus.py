@@ -39,16 +39,22 @@ class NeuSModel(SurfaceModel):
     def sample_and_forward_field(
         self, ray_bundle: RayBundle, sched: Dict, rng: Rng = None, train: bool = False
     ) -> Dict:
-        """neus.py:40-75; jitter only in training (``perturb``)."""
+        """neus.py:40-75; jitter only in training (``perturb``). The step's
+        ``hash_mask`` reaches the sampler's SDF and the field, and its
+        ``numerical_delta`` the field (neus.py:42, 59-64); methods without
+        them pass None."""
         cfg = self.config
+        hash_mask = sched.get("hash_mask")
         with record_function("sst/neus_sampler"):
             ray_samples = neus_sampler(
-                ray_bundle, self.sdf_at_starts, rng=rng if (train and cfg.perturb) else None,
+                ray_bundle, lambda s: self.sdf_at_starts(s, hash_mask),
+                rng=rng if (train and cfg.perturb) else None,
                 num_samples=cfg.num_samples, num_samples_importance=cfg.num_samples_importance,
                 num_upsample_steps=cfg.num_up_sample_steps, base_variance=cfg.base_variance,
             )
         field_outputs = self.field.get_outputs(
             ray_samples, cos_anneal_ratio=sched["cos_anneal_ratio"], return_alphas=True, train=train,
+            hash_mask=hash_mask, numerical_delta=sched.get("numerical_delta"),
         )
         weights, transmittance = R.weights_and_transmittance_from_alphas(field_outputs["alpha"])
         return {

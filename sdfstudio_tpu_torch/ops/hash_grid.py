@@ -19,12 +19,16 @@ takes the ceiling on axis ``b``. A level whose ``(r+1)^3`` fits
 hash in ``uint32`` arithmetic; each level's rows start at its offset in the
 stacked table. Dense indices are not reduced mod the level size: at ``x =
 1.0`` the far corner reads the next level's rows, with weight 0, as in JAX.
-An index at or past ``R`` reads a row of NaN (``jnp.take``'s fill mode)
+JAX adds the level offset in int32, and ``jnp.take`` reads a negative index
+from the table's end: a dense corner at -1 (a position just below 0, such as
+a numerical-gradient tap past a face) wraps to a large uint32 ``i``, which
+reads row ``i + R`` (mod 2^32) here as there (:func:`table_rows`). An index
+that is still at or past ``R`` reads a row of NaN (``jnp.take``'s fill mode)
 and its gradient is dropped.
 
-On the card both kernels (``csrc/hash_grid.cu``) take F = 2 and F = 4.
+On the card both kernels (``csrc/hash_grid.cu``) take F = 2, 4 and 8.
 They are bound by the memory system: the forward by its 8 random table
-reads a level (a 32-byte L2 sector for a row of 8 or 16 bytes) and its
+reads a level (a 32-byte L2 sector for a row of 8, 16 or 32 bytes) and its
 ``out`` / ``jac`` streams; the backward by the rate of the atomic units.
 The forward runs a thread per point and level. The backward takes tiles
 of points whose warps take 32 consecutive points (a ray's neighbouring
@@ -59,7 +63,7 @@ from sdfstudio_tpu_torch.ops.launches import LAUNCHES
 from sdfstudio_tpu_torch.ops.permuto import _MASK32, _mul_u32
 from sdfstudio_tpu_torch.ops.encodings import HASH_PRIMES
 
-KERNEL_FEATURES = (2, 4)  # features per level the kernels take
+KERNEL_FEATURES = (2, 4, 8)  # features per level the kernels take
 MAX_LEVELS = 32  # csrc/hash_grid.cu kMaxLevels
 
 # corner c takes the ceiling on axis b where bit b of c is set (encodings.py:375-378)
@@ -129,9 +133,18 @@ def corner_weights(offset: torch.Tensor, spec: HashGridSpec, want_jac: bool):
     return weights, dweights
 
 
+def table_rows(idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """The table row each uint32 corner index reads, as ``jnp.take`` reads
+    JAX's int32 index: a negative one (bit 31 set) from the table's end;
+    a result at or past ``rows`` reads NaN. ``rows`` is below 2^31."""
+    return torch.where(idx < rows, idx, (idx + rows) & _MASK32)
+
+
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` with a row of NaN at an index at or past the table's end."""
+    """``table[idx]`` (negative int32 indices from the end) with a row of NaN
+    at an index still at or past the table's end."""
     R = table.shape[0]
+    idx = table_rows(idx, R)
     rows = table[idx.clamp(max=R - 1)]
     return torch.where((idx < R)[..., None], rows, float("nan"))
 
@@ -161,7 +174,7 @@ def corner_updates(x: torch.Tensor, g_out: Optional[torch.Tensor],
     F = g.shape[1] // L
     idx, offset = corner_indices(x, spec)
     weights, dweights = corner_weights(offset, spec, g_jac is not None)
-    upd = torch.zeros((N, L, 8, F), dtype=torch.float32, device=x.device)
+    upd = torch.zeros((N, L, 8, F), dtype=g.dtype, device=x.device)
     if g_out is not None:
         upd = upd + weights[..., None] * g_out.reshape(N, L, 1, F)
     if g_jac is not None:
@@ -175,11 +188,13 @@ def hash_encode_bwd_plain(x: torch.Tensor, g_out: Optional[torch.Tensor],
     """The plain version of the backward kernel: the f32 table gradient
     ``[rows, F]`` from the cotangents ``g_out [N, L*F]`` and ``g_jac
     [N, L*F, 3]`` (either may be None), summed with ``sorted_segment_add``
-    (f32 ``index_add_``; encodings.py:220-240). Updates at a row at or past
-    ``rows`` are dropped."""
+    (f32 ``index_add_``; encodings.py:220-240). A negative int32 index adds
+    to the row it reads (:func:`table_rows`); updates at a row still at or
+    past ``rows`` are dropped."""
     from sdfstudio_tpu_torch.ops.scatter import sorted_segment_add
 
     idx, upd = corner_updates(x, g_out, g_jac, spec)
+    idx = table_rows(idx, rows)
     return sorted_segment_add(torch.where(idx < rows, idx, rows), upd, rows)
 
 
@@ -191,11 +206,15 @@ def _check(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec) -> None:
         raise ValueError(f"hash_encode: unsupported device {x.device}")
     if table.device != x.device:
         raise ValueError(f"hash_encode: x is on {x.device}, the table on {table.device}")
-    if x.dtype != torch.float32 or table.dtype != torch.float32:
-        raise ValueError(f"hash_encode: needs float32 x and table, got {x.dtype} and {table.dtype}")
+    dtypes = (torch.float32, torch.float64) if x.device.type == "cpu" else (torch.float32,)
+    if x.dtype != table.dtype or x.dtype not in dtypes:
+        raise ValueError(f"hash_encode: needs float32 x and table (or float64 both, on the CPU), "
+                         f"got {x.dtype} and {table.dtype}")
     if x.shape[-1] != 3 or table.ndim != 2 or table.shape[0] < 1:
         raise ValueError(f"hash_encode: needs x [..., 3] and a table [R, F], got {tuple(x.shape)} "
                          f"and {tuple(table.shape)}")
+    if table.shape[0] >= 2**31:
+        raise ValueError(f"hash_encode: {table.shape[0]} rows; JAX indexes the table in int32")
     if not 1 <= spec.num_levels <= MAX_LEVELS:
         raise ValueError(f"hash_encode: {spec.num_levels} levels, the kernels take 1-{MAX_LEVELS}")
 
@@ -209,7 +228,8 @@ def _level_args(spec: HashGridSpec):
 def _check_cuda(what: str, tensors, F: int) -> None:
     """Every tensor a contiguous f32 CUDA tensor; all but ``x`` (read as
     floats) 16-byte aligned, since the kernels move a pair of F = 2 rows,
-    an F = 4 row and the tiles of the cotangents as 16-byte vectors."""
+    an F = 4 row, each half of an F = 8 row and the tiles of the cotangents
+    as 16-byte vectors."""
     if F not in KERNEL_FEATURES:
         raise ValueError(f"{what}: the kernels take {KERNEL_FEATURES} features per level, got {F}")
     for name, t in tensors:
@@ -282,9 +302,9 @@ def hash_encode_bwd(x: torch.Tensor, g_out: Optional[torch.Tensor], g_jac: Optio
 def hash_corner_rows(x: torch.Tensor, g_out: Optional[torch.Tensor],
                      g_jac: Optional[torch.Tensor], spec: HashGridSpec, rows: int):
     """The corner-rows kernel on CUDA tensors: (keys [N*L*8] int32, upd
-    [N*L*8, F]), each corner's row (``rows`` for one at or past the table)
-    and the cotangent it adds there, at entry ``(p L + l) 8 + c``, as
-    :func:`corner_updates` gives them."""
+    [N*L*8, F]), each corner's row (:func:`table_rows` of its index, and
+    ``rows`` for one still past the table) and the cotangent it adds there,
+    at entry ``(p L + l) 8 + c``, as :func:`corner_updates` gives them."""
     from sdfstudio_tpu_torch.utils.cuda_build import load_library
 
     g = g_out if g_out is not None else g_jac

@@ -24,7 +24,10 @@ the port's per-group Adam (engine/optimizers.py): for each group, the
 ``ScaleByAdamState`` (count, mu, nu) inside ``multi_transform``'s
 ``MaskedState`` chain, whose moment trees map leaf for leaf like the
 parameters. The chain's ``ScaleByScheduleState`` count must equal Adam's,
-because the port reads the schedule at Adam's count. The optax objects are
+because the port reads the schedule at Adam's count. An ``adamw`` group's
+chain, ``(ScaleByAdamState, EmptyState, ScaleByScheduleState)``, carries
+the same state (``add_decayed_weights`` keeps none); the chain's kind must
+be the group's. The optax objects are
 read by their attributes, so this module imports nothing of JAX.
 
 ``load_jax_checkpoint(model, optimizers, path)`` does both from a JAX
@@ -109,9 +112,15 @@ def opt_state_from_jax(optimizers: Mapping, opt_state) -> None:
         if len(adam) != 1:
             raise ValueError(f"opt_state_from_jax: group {group} has no single Adam state")
         count = int(np.asarray(adam[0].count))
-        others = [int(np.asarray(s.count)) for s in chain if hasattr(s, "count") and not hasattr(s, "mu")]
+        # a state's own count field (every named tuple has a ``count`` method)
+        others = [int(np.asarray(s.count)) for s in chain
+                  if "count" in getattr(s, "_fields", ()) and not hasattr(s, "mu")]
         if any(c != count for c in others):
             raise ValueError(f"opt_state_from_jax: group {group} schedule counts {others} != Adam count {count}")
+        kind = "adamw" if any(type(s).__name__ == "EmptyState" for s in chain) else "adam"
+        if kind != opt.kind:
+            raise ValueError(f"opt_state_from_jax: group {group} holds {kind} state, the port's "
+                             f"group is {opt.kind}")
         mu = _map_tree(adam[0].mu[group], f"{group}.", opt.names)
         nu = _map_tree(adam[0].nu[group], f"{group}.", opt.names)
         dev = opt.params[0].device if opt.params else "cpu"

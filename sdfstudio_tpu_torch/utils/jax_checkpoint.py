@@ -23,7 +23,7 @@ order) and gives each leaf its path (written as ``jax.tree_util.keystr``
 writes it), shape and dtype from ``leaves``. The optax states come back as
 small named tuples with optax's field names (``PartitionState``,
 ``MaskedState``, ``ScaleByAdamState``, ``ScaleByScheduleState``,
-``MaskedNode``), so ``utils/convert.py::opt_state_from_jax`` reads them as
+``MaskedNode``, ``EmptyState``), so ``utils/convert.py::opt_state_from_jax`` reads them as
 it reads optax's own. A node name it does not know, a leaf count or a
 packed size that disagrees, or a leaf dtype other than f32 / int32 /
 uint32 raises: nothing is guessed.
@@ -50,6 +50,7 @@ NAMEDTUPLES = {
         ("ScaleByAdamState", ("count", "mu", "nu")),
         ("ScaleByScheduleState", ("count",)),
         ("MaskedNode", ()),
+        ("EmptyState", ()),  # adamw's add_decayed_weights
     )
 }
 DTYPES = ("float32", "int32", "uint32")

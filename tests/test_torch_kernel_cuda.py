@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 fused MLP, forward and backward, the row gathers ``take`` and ``loop``, and
-the hash-grid encode, forward and table gradient (F = 2 and 4; by atomics
-and by the deterministic segment sum).
+the hash-grid encode, forward and table gradient (F = 2, 4 and 8; by
+atomics and by the deterministic segment sum).
 
 Every test here needs an NVIDIA card (marked ``cuda``) and skips elsewhere.
 The file imports no JAX, so on a machine with the card but without JAX it
@@ -444,9 +444,19 @@ _HASH_GRIDS = {
                    features_per_level=4, smoothstep=True),
     "dense_f4": dict(num_levels=3, min_res=2, max_res=8, log2_hashmap_size=10,
                      features_per_level=4, smoothstep=True),
+    # Neuralangelo's grid (L16 x F8, 2^22 rows a level, 64-4096, linear
+    # weights: 55,867,118 rows, 1.79 GB), the same levels at 2^19, and an
+    # all-dense F = 8 grid
+    "angelo": dict(num_levels=16, min_res=64, max_res=4096, log2_hashmap_size=22,
+                   features_per_level=8, smoothstep=False),
+    "f8": dict(num_levels=16, min_res=64, max_res=4096, log2_hashmap_size=19,
+               features_per_level=8, smoothstep=False),
+    "dense_f8": dict(num_levels=3, min_res=2, max_res=8, log2_hashmap_size=10,
+                     features_per_level=8, smoothstep=False),
 }
 _HASH_CASES = [("sdf", 98304, True), ("proposal_64", 524288, False),
-               ("proposal_256", 196608, False), ("dense", 4099, True)]
+               ("proposal_256", 196608, False), ("dense", 4099, True),
+               ("angelo", 65536, False), ("angelo", 65536, True), ("dense_f8", 4099, True)]
 
 
 def row_table(rows, F, device):
@@ -516,11 +526,11 @@ def test_hash_encode_kernels_match_plain(card, grid, n, want_jac):
     enc = HashEncoding(**_HASH_GRIDS[grid])
     out = _check_hash(enc, _hash_points(n, card), want_jac, card)
     # the far corner of x = 1.0 reads past the all-dense table: NaN there only
-    assert bool(torch.isnan(out[0]).any()) == (grid == "dense")
+    assert bool(torch.isnan(out[0]).any()) == grid.startswith("dense")
 
 
 @pytest.mark.parametrize("n", [0, 1, 127])
-@pytest.mark.parametrize("grid", ["sdf", "proposal_64", "dense", "tpu_f4"])
+@pytest.mark.parametrize("grid", ["sdf", "proposal_64", "dense", "tpu_f4", "f8"])
 def test_hash_encode_batch_edges(card, grid, n):
     enc = HashEncoding(**_HASH_GRIDS[grid])
     _check_hash(enc, _hash_points(n, card, seed=n), True, card, seed=n)
@@ -528,10 +538,11 @@ def test_hash_encode_batch_edges(card, grid, n):
 
 @pytest.mark.parametrize("per_ray", [48, 96, 256])
 @pytest.mark.parametrize("grid,n,want_jac", [("sdf", 98304, True), ("proposal_64", 524288, False),
-                                             ("tpu_f4", 98304, True), ("dense_f4", 4099, True)])
+                                             ("tpu_f4", 98304, True), ("dense_f4", 4099, True),
+                                             ("f8", 458752, False), ("f8", 98304, True)])
 def test_hash_encode_kernels_on_ray_ordered_points(card, grid, n, want_jac, per_ray):
     """A step's samples come in ray order: runs of lanes share the coarse
-    cells (the backward's warp aggregation) at F = 2 and F = 4."""
+    cells (the backward's warp aggregation) at F = 2, 4 and 8."""
     enc = HashEncoding(**_HASH_GRIDS[grid])
     _check_hash(enc, _ray_points(n, per_ray, card, seed=per_ray), want_jac, card)
 
@@ -544,6 +555,21 @@ def test_hash_encode_f4_uniform_and_nan_past_the_table(card):
     assert not bool(torch.isnan(out[0]).any())
     out = _check_hash(HashEncoding(**_HASH_GRIDS["dense_f4"]), _hash_points(4099, card), True, card)
     assert bool(torch.isnan(out[0][1]).any()) and not bool(torch.isnan(out[0][0]).any())
+
+
+@pytest.mark.parametrize("grid", ["sdf", "dense", "f8", "dense_f8", "tpu_f4"])
+def test_hash_encode_outside_the_cube(card, grid):
+    """Points up to 1/32 outside [0, 1]^3 on every side, as a numerical
+    gradient's taps past a face: below 0 a dense level's corner at -1 is a
+    negative int32 index, read from the table's end (and its update added
+    there), past 1 it reads the next level's rows. Both kernels hold the
+    plain version, and both kinds of index occur."""
+    enc = HashEncoding(**_HASH_GRIDS[grid])
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(-1 / 32, 1 + 1 / 32, (8192, 3)).astype(np.float32)).to(card)
+    _check_hash(enc, x, True, card)
+    idx, _ = hg.corner_indices(x, enc.spec)
+    assert bool((idx >= 2**31).any()) and bool((idx < enc.total_rows).any())
 
 
 @pytest.mark.parametrize("grid", ["sdf", "dense"])
@@ -599,7 +625,8 @@ def deterministic():
 
 
 @pytest.mark.parametrize("grid,n,want_jac", [("sdf", 98304, True), ("proposal_64", 524288, False),
-                                             ("tpu_f4", 98304, True), ("dense", 4099, True)])
+                                             ("tpu_f4", 98304, True), ("dense", 4099, True),
+                                             ("angelo", 65536, False), ("dense_f8", 4099, True)])
 def test_hash_encode_deterministic_backward(card, deterministic, grid, n, want_jac):
     """Under ``torch.use_deterministic_algorithms(True)`` the wrapper takes
     the sorted segment-sum path (its two counters move, the atomic kernel's
@@ -625,7 +652,7 @@ def test_hash_encode_deterministic_backward(card, deterministic, grid, n, want_j
 
 
 def test_hash_encode_refuses_what_it_cannot_take(card):
-    """The kernels take F = 2 or 4 and 16-byte aligned tables and
+    """The kernels take F = 2, 4 or 8 and 16-byte aligned tables and
     cotangents; the wrappers raise on anything else before a launch."""
     enc = HashEncoding(**_HASH_GRIDS["dense"])
     x = _hash_points(10, card)
