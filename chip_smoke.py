@@ -125,8 +125,28 @@ Phases, each printing its own line with wall-clock seconds:
    bits; one traced step (encode, numerical gradient, geometry MLP, colour,
    background, the backward's hash kernels, AdamW); the view rendered with
    the kernels and without;
-12. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
-   F = 8; the fused-MLP entries carry the surface chains' rows), the
+12. cli (``cli[<preset>]``): ``neus-facto-tpu``, ``neus-facto-tpu-p4`` and
+   ``neus-facto-bigmlp`` (JAX's registered entries at full width; bigmlp
+   from the outward-facing init, ``CLI_EXTRA``) through the train command
+   with JAX's grammar: ``scripts/train.py::main`` with ``--experiment-name``,
+   ``--output-dir``, ``--timestamp``, ``--vis none``, 40 steps, an eval
+   image every 20 steps, the final evaluation (3 of the 7 eval views, the
+   128^3 mesh) and ``sdfstudio-data --data .parity/dtu_like
+   --skip-every-for-val-split 8``; the run's layout (``config.yml``, the
+   step directory with ``step.txt``, the metrics, the mesh), the step-20
+   eval image by JAX's index rule, the ms a step over steps 12-39 (the eval
+   image taken out); launches counted exactly by kernel and by chain in the
+   train steps (a step's captured calls times the steps, backwards on
+   update steps only for the proposal nets), in each eval image, the final
+   evaluation, ``scripts/eval.py`` and ``scripts/extract_mesh.py
+   --resolution 128`` run on the written ``config.yml``; one kernel step
+   against one plain step (losses and every group's gradient); p4's
+   hidden-64 chains [39 / 51 -> 64 -> 64 -> 1] alone (a forward and a
+   backward an update step); ``neus-facto-tpu``'s F = 4 hash kernels on the
+   step's captured SDF call (``hash_case``);
+13. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+   F = 8; the fused-MLP entries carry the surface chains' and p4's rows, the
+   hash entries the cli phases' launches and the F = 4 captured call), the
    ``nvidia-smi`` line, and the result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
@@ -253,6 +273,18 @@ ANGELO_SCHED_STEPS = (0, 75_000)
 # are held to that tolerance times delta_0 / delta, and the curvature loss and
 # its gradient to it times (delta_0 / delta)^2.
 ANGELO_DELTA0 = 1.0 / 32
+# phase 12: the remaining neus-facto presets through JAX's command line
+CLI_PRESETS = ("neus-facto-tpu", "neus-facto-tpu-p4", "neus-facto-bigmlp")
+CLI_EVAL_STEP = 20  # --trainer.steps-per-eval-image
+CLI_EVAL_SPLIT = 8  # --skip-every-for-val-split: 7 eval views
+CLI_MESH_RES = 128  # --trainer.final-eval-resolution, extract_mesh.py --resolution
+CLI_FINAL_IMAGES = 3  # --trainer.final-eval-max-images
+# neus-facto-bigmlp is JAX's default field, whose init faces inwards (a camera
+# inside the scene): on the object-centred parity scene its SDF turns negative
+# over the whole cube within 40 steps and the final eval finds no surface (on
+# the CPU at 256 rays: min / max -1.61 / -0.049 over a 33^3 grid at step 40),
+# so it runs from the outward-facing init, set through JAX's grammar
+CLI_EXTRA = {"neus-facto-bigmlp": ["--pipeline.model.sdf-field.inside-outside", "False"]}
 
 
 def angelo_tols(delta: float):
@@ -716,15 +748,15 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
     the step's shapes, profile one step.
     Returns what the ``kernels`` line reports."""
     from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
 
     if not os.path.isfile(os.path.join(SCENE, "meta_data.json")):
         raise FileNotFoundError(
             f"the committed DTU-like scene is missing: {SCENE} (the train phase needs "
             ".parity/dtu_like in the checkout)")
     t = time.perf_counter()
-    trainer = setup_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS,
-                            num_rays=TRAIN_RAYS, device="cuda")
+    trainer = setup_method_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS,
+                                   num_rays=TRAIN_RAYS, device="cuda")
     torch.cuda.synchronize()
     dm, model = trainer.datamanager, trainer.model
     phase = "train" if method == "neus-facto-tpu-p8" else f"train[{method}]"
@@ -1303,13 +1335,14 @@ def surface_phase(fm, smi: str, method: str) -> dict:
     step and the forward on both in every render chunk; UniSurf starts from
     the outward-facing init (``outward_sdf_init``). Returns what the
     ``kernels`` line reports."""
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
 
     phase = f"surface[{method}]"
     torch.cuda.empty_cache()
     t = time.perf_counter()
     with outward_sdf_init() if method == "unisurf" else contextlib.nullcontext():
-        trainer = setup_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
+        trainer = setup_method_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS,
+                                       device="cuda")
     dm, model = trainer.datamanager, trainer.model
     rays = dm.config.train_num_rays_per_batch
     torch.cuda.synchronize()
@@ -1421,12 +1454,12 @@ def neuralangelo_phase(fm, smi: str) -> dict:
     ``kernels`` line reports, in ``surface_phase``'s keys and more."""
     from sdfstudio_tpu_torch.ops.launches import LAUNCHES
     from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
 
     method, phase = "neuralangelo", "surface[neuralangelo]"
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    trainer = setup_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
+    trainer = setup_method_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
     dm, model = trainer.datamanager, trainer.model
     enc = model.field.encoding
     rays = dm.config.train_num_rays_per_batch
@@ -1677,7 +1710,7 @@ def final_eval_phase(fm, smi: str) -> dict:
     on one 8192-ray chunk at the trained step. Returns the launch counts of
     ``run_final_eval`` and what the phase printed."""
     from sdfstudio_tpu_torch.engine.final_eval import run_final_eval
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
 
     ckpt = os.path.join(JAX_P8_RUN, "sdfstudio_models", f"step-{JAX_P8_STEP:09d}")
     packed = os.path.join(ckpt, "packed.npz")
@@ -1688,8 +1721,8 @@ def final_eval_phase(fm, smi: str) -> dict:
     log("final_eval", f"{os.path.relpath(packed)}: {os.path.getsize(packed)} bytes, sha256 {sha}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    trainer = setup_trainer("neus-facto-tpu-p8", SCENE, device="cuda",
-                            load_dir=os.path.dirname(ckpt), load_step=JAX_P8_STEP)
+    trainer = setup_method_trainer("neus-facto-tpu-p8", SCENE, device="cuda",
+                                   load_dir=os.path.dirname(ckpt), load_step=JAX_P8_STEP)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t
     check(trainer.step == JAX_P8_STEP, f"loaded step {trainer.step}, expected {JAX_P8_STEP}")
@@ -1752,8 +1785,10 @@ def final_eval_phase(fm, smi: str) -> dict:
     fm.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
-        rec, details = run_final_eval(trainer, "neus-facto-tpu-p8", trainer.step,
-                                      Path(tmp) / "parity_metrics.json", resolution=256)
+        trainer.config = dataclasses.replace(
+            trainer.config, final_eval_gt="dtu-like", final_eval_resolution=256,
+            final_eval_output=str(Path(tmp) / "parity_metrics.json"))
+        rec, details = run_final_eval(trainer, "neus-facto-tpu-p8", trainer.step)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t
     launches = dict(fm.LAUNCHES)
@@ -1805,10 +1840,10 @@ def resume_phase(fm, smi: str, method: str = "neus-facto-tpu-p8") -> dict:
     segment sum (whose launches are checked, and the atomic kernel's
     absence)."""
     from sdfstudio_tpu_torch.engine.trainer import CHECKPOINT_FILE
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
 
     def setup(**kw):
-        return setup_trainer(method, SCENE, num_rays=TRAIN_RAYS, device="cuda", **kw)
+        return setup_method_trainer(method, SCENE, num_rays=TRAIN_RAYS, device="cuda", **kw)
 
     def params(trainer):
         return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
@@ -1822,9 +1857,9 @@ def resume_phase(fm, smi: str, method: str = "neus-facto-tpu-p8") -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         first = setup(output_dir=tmp, steps_per_save=RESUME_STEPS)
         first.train(RESUME_STEPS)
-        path = Path(tmp) / "sdfstudio_models" / f"step-{RESUME_STEPS:09d}"
+        path = first.ckpt_dir / f"step-{RESUME_STEPS:09d}"
         saved = torch.load(path / CHECKPOINT_FILE, map_location="cpu", weights_only=True)
-        resumed = setup(load_dir=Path(tmp) / "sdfstudio_models")
+        resumed = setup(load_dir=first.ckpt_dir)
         loaded = {n: p.detach().cpu() for n, p in resumed.model.named_parameters()}
         adam = saved["optimizers"]
         same = {
@@ -1871,6 +1906,275 @@ def resume_phase(fm, smi: str, method: str = "neus-facto-tpu-p8") -> dict:
     del straight, resumed
     torch.cuda.empty_cache()
     return out
+
+
+def _counts(fm) -> tuple:
+    return dict(fm.LAUNCHES), dict(fm.CHAIN_LAUNCHES)
+
+
+def _minus(a: tuple, b: tuple) -> tuple:
+    """Launches by kernel and by chain of ``a`` less ``b``."""
+    return ({k: a[0][k] - b[0].get(k, 0) for k in a[0]},
+            {k: n - b[1].get(k, 0) for k, n in a[1].items() if n - b[1].get(k, 0)})
+
+
+def cli_phase(fm, smi: str, method: str) -> dict:
+    """A remaining ``neus-facto`` preset through JAX's command line at full
+    width on the committed scene: ``scripts/train.py::main`` with JAX's
+    grammar (40 steps, an eval image every 20, the final evaluation of 3
+    views and the 128^3 mesh, the eval split every 8th view); the run's
+    layout; the eval image of step 20 by JAX's index rule; the ms a step over
+    steps 12-39 (the eval image's time taken out); launches by kernel and by
+    chain, exact, in the training steps (from one captured step's calls),
+    the eval images, the final evaluation, ``scripts/eval.py`` and
+    ``scripts/extract_mesh.py`` (both run on the written ``config.yml``);
+    one kernel step against one plain step (losses and every group's
+    gradient); for ``neus-facto-tpu`` the F = 4 hash kernels on the step's
+    captured SDF call, for ``neus-facto-tpu-p4`` its hidden-64 chains alone.
+    Returns what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine import trainer as trainer_mod
+    from sdfstudio_tpu_torch.engine.trainer import eval_image_index, loss_and_metrics
+    from sdfstudio_tpu_torch.scripts import eval as eval_script
+    from sdfstudio_tpu_torch.scripts import extract_mesh as mesh_script
+    from sdfstudio_tpu_torch.scripts import train as train_script
+    from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
+
+    phase = f"cli[{method}]"
+    torch.cuda.empty_cache()
+    made, marks, evals, finals = [], {}, [], []
+    setup, final = train_script.setup_lib.setup_trainer, trainer_mod.run_final_eval
+
+    def keep(*args, **kw):
+        """The trainer ``main`` builds, its steps 12 and 40 marked and its
+        eval images timed and counted apart."""
+        t = setup(*args, **kw)
+        step, eval_image = t.train_step, t._eval_image
+
+        def marked_step():
+            if t.step == CHECK_STEPS:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            out = step()
+            if t.step == TRAIN_STEPS:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return out
+
+        def timed_eval(*a):
+            torch.cuda.synchronize()
+            c0, s0 = _counts(fm), time.perf_counter()
+            m = eval_image(*a)
+            torch.cuda.synchronize()
+            evals.append({"step": a[0], "seconds": time.perf_counter() - s0,
+                          "launches": _minus(_counts(fm), c0)})
+            return m
+
+        t.train_step, t._eval_image = marked_step, timed_eval
+        made.append(t)
+        return t
+
+    def counted_final(*a):
+        c0, s0 = _counts(fm), time.perf_counter()
+        out = final(*a)
+        torch.cuda.synchronize()
+        finals.append({"seconds": time.perf_counter() - s0, "launches": _minus(_counts(fm), c0)})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [method, *CLI_EXTRA.get(method, ()), "--experiment-name", "smoke", "--output-dir", tmp,
+                "--timestamp", "t", "--vis", "none", "--trainer.max-num-iterations", str(TRAIN_STEPS),
+                "--trainer.steps-per-eval-image", str(CLI_EVAL_STEP),
+                "--trainer.final-eval-gt", "dtu-like",
+                "--trainer.final-eval-output", f"{tmp}/metrics.json",
+                "--trainer.final-eval-mesh", f"{tmp}/mesh.ply",
+                "--trainer.final-eval-resolution", str(CLI_MESH_RES),
+                "--trainer.final-eval-max-images", str(CLI_FINAL_IMAGES),
+                "sdfstudio-data", "--data", SCENE, "--skip-every-for-val-split", str(CLI_EVAL_SPLIT)]
+        torch.cuda.synchronize()
+        fm.reset_launch_counts()
+        train_script.setup_lib.setup_trainer, trainer_mod.run_final_eval = keep, counted_final
+        t = time.perf_counter()
+        try:
+            check(train_script.main(argv) == 0, f"{phase}: the train command failed")
+        finally:
+            train_script.setup_lib.setup_trainer, trainer_mod.run_final_eval = setup, final
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        total = _counts(fm)
+        trainer = made[0]
+        dm, model = trainer.datamanager, trainer.model
+        run = Path(tmp) / "smoke" / method / "t"
+        ckpt = run / "sdfstudio_models" / f"step-{TRAIN_STEPS:09d}"
+        layout = {"config.yml": (run / "config.yml").is_file(),
+                  "step.txt": (ckpt / "step.txt").is_file() and (ckpt / "step.txt").read_text() == str(TRAIN_STEPS),
+                  "metrics": (Path(tmp) / "metrics.json").is_file(),
+                  "mesh": (Path(tmp) / "mesh.ply").is_file()}
+        check(all(layout.values()), f"{phase}: the run's layout is incomplete: {layout}")
+        metrics = json.loads((Path(tmp) / "metrics.json").read_text())
+        saved = json.loads((run / "config.yml").read_text())
+        # every preset runs from the outward-facing init (bigmlp's through its override)
+        check(saved["model"]["sdf_field"]["inside_outside"] is False
+              and model.field.config.inside_outside is False,
+              f"{phase}: the run's sdf_field.inside_outside is not False")
+        n_eval = dm.num_eval_images
+        check(n_eval == math.ceil(49 / CLI_EVAL_SPLIT), f"{phase}: {n_eval} eval views")
+        history = [{k: v for k, v in e.items() if k != "launches"} for e in trainer.eval_history]
+        at20 = [e for e in trainer.eval_history if e["step"] == CLI_EVAL_STEP]
+        check(len(at20) == 1 and at20[0]["image"] == eval_image_index(CLI_EVAL_STEP, n_eval)
+              and math.isfinite(at20[0]["psnr"]),
+              f"{phase}: the eval image of step {CLI_EVAL_STEP}: {history}")
+        check([e["step"] for e in evals] == [CLI_EVAL_STEP, TRAIN_STEPS] and len(finals) == 1,
+              f"{phase}: eval images at {[e['step'] for e in evals]}, {len(finals)} final evals")
+        eval_ms = evals[0]["seconds"] * 1e3
+        step_ms = (marks["t1"] - marks["t0"] - evals[0]["seconds"]) * 1e3 / (TRAIN_STEPS - CHECK_STEPS)
+        rays = dm.config.train_num_rays_per_batch
+        check(all(math.isfinite(metrics[k]) for k in ("psnr", "ssim", "chamfer_l1"))
+              and metrics["num_images"] == CLI_FINAL_IMAGES,
+              f"{phase}: final evaluation {metrics}")
+
+        # eval.py and extract_mesh.py on the written config.yml
+        c0, t = _counts(fm), time.perf_counter()
+        check(eval_script.main(["--load-config", str(run / "config.yml"),
+                                "--output-path", f"{tmp}/eval.json"]) == 0, f"{phase}: eval.py failed")
+        torch.cuda.synchronize()
+        eval_s, eval_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
+        ev = json.loads((Path(tmp) / "eval.json").read_text())
+        check(set(ev) == {"experiment_name", "method_name", "checkpoint", "results", "num_images",
+                          "seconds"} and ev["num_images"] == n_eval
+              and all(math.isfinite(v) for v in ev["results"].values()), f"{phase}: eval.py wrote {ev}")
+        c0, t = _counts(fm), time.perf_counter()
+        check(mesh_script.main(["--load-config", str(run / "config.yml"), "--output-path",
+                                f"{tmp}/extracted.ply", "--resolution", str(CLI_MESH_RES)]) == 0,
+              f"{phase}: extract_mesh.py failed")
+        torch.cuda.synchronize()
+        mesh_s, mesh_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
+        header = (Path(tmp) / "extracted.ply").read_bytes()[:400].split(b"end_header")[0].decode()
+        mesh_vertices = int(header.split("element vertex ")[1].split()[0])
+        check(mesh_vertices > 0, f"{phase}: extract_mesh.py wrote an empty mesh")
+    train_launches = _minus(total, _counts_sum([e["launches"] for e in evals + finals]))
+    log(phase, f"main: {main_s:.1f} s; {TRAIN_STEPS} steps of {rays} rays, steps {CHECK_STEPS}-"
+        f"{TRAIN_STEPS - 1}: {step_ms:.2f} ms a step, {rays / step_ms * 1e3:.0f} rays/s; eval images "
+        f"{history} ({eval_ms:.1f} ms the step-{CLI_EVAL_STEP} image, 384x384 in 1024-ray chunks); final "
+        f"eval {json.dumps(metrics)}; eval.py {eval_s:.1f} s {json.dumps(ev['results'])}; "
+        f"extract_mesh.py {mesh_s:.1f} s, {mesh_vertices} vertices; layout {layout}")
+
+    # one step twice from the same state: the kernels, then the plain versions
+    sched = model.schedules(trainer.step)
+    check(sched["train_proposal"], f"step {trainer.step} is not an update step")
+
+    def one_step():
+        gen = torch.Generator(device=dm.device).manual_seed(777)
+        idx, batch = dm.sample_train_batch(gen)
+        total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
+
+    calls, hash_calls = [], []
+    with uncounted(fm):
+        with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls):
+            k_loss, k_grads = one_step()
+        with swap_fused_mlp(fm.fused_mlp_plain), swap_hash_plain():
+            p_loss, p_grads = one_step()
+        torch.cuda.synchronize()
+    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
+    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
+    grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
+    log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); gradient "
+        f"rel err {grad_err} (tol {STEP_GRAD_TOL}); gradient norms {grad_norm}")
+    for k, e in loss_err.items():
+        check(e <= STEP_LOSS_TOL, f"{phase} {k}: kernel step and plain step differ by {e}")
+    for g, e in grad_err.items():
+        check(e <= STEP_GRAD_TOL and grad_norm[g] > 0,
+              f"{phase} {g} gradient: kernel step and plain step differ by {e} (norm {grad_norm[g]})")
+
+    # exact launches: a step's calls (captured) times the steps, each render chunk a step's forwards
+    def widths(c):
+        return tuple([c["x"].shape[-1]] + [w.shape[1] for w in c["ws"]])
+
+    proposal_chains = {tuple([net.mlp.layers[0].kernel.shape[0]]
+                             + [l.kernel.shape[1] for l in net.mlp.layers])
+                       for net in model.proposal_networks}
+    proposal_specs = [net.encoding.spec for net in model.proposal_networks
+                      if net.field_type == "hash"]
+    n_update = sum(bool(model.schedules(i)["train_proposal"]) for i in range(TRAIN_STEPS))
+    per_step = {}
+    for c in calls:
+        f, b = per_step.get(widths(c), (0, 0))
+        per_step[widths(c)] = (f + 1, b + ("g" in c))
+    hash_fwd = len(hash_calls)
+    hash_bwd = sum(("g_out" in r) * (n_update if r["spec"] in proposal_specs else TRAIN_STEPS)
+                   for r in hash_calls)
+    sdf_hash = model.field.encoding is not None and model.field.config.encoding_type == "hash"
+    image_chunks = math.ceil(IMAGE * IMAGE / 1024)
+    final_chunks = CLI_FINAL_IMAGES * math.ceil(IMAGE * IMAGE / EVAL_CHUNK)
+    mesh_chunks = math.ceil(CLI_MESH_RES ** 3 / 131072) if sdf_hash else 0
+
+    def want(steps: int, chunks: int, mesh: int) -> tuple:
+        """Launches by kernel and by chain of ``steps`` train steps and ``chunks`` render chunks."""
+        chains = {}
+        for w, (f, b) in per_step.items():
+            chains[("fused_mlp_fwd", w)] = f * (steps + chunks)
+            if steps and b:
+                chains[("fused_mlp_bwd", w)] = b * (n_update if w in proposal_chains else steps)
+        kernels = {"fused_mlp_fwd": sum(n for (k, _), n in chains.items() if k == "fused_mlp_fwd"),
+                   "fused_mlp_bwd": sum(n for (k, _), n in chains.items() if k == "fused_mlp_bwd"),
+                   "hash_encode_fwd": hash_fwd * (steps + chunks) + mesh,
+                   "hash_encode_bwd": hash_bwd if steps else 0}
+        return kernels, {k: n for k, n in chains.items() if n}
+
+    def held(name: str, got: tuple, expected: tuple) -> dict:
+        kernels = {k: got[0].get(k, 0) for k in expected[0]}
+        others = {k: n for k, n in got[0].items() if k not in expected[0] and n}
+        check(kernels == expected[0] and not others and got[1] == expected[1],
+              f"{phase} {name}: launches {got}, expected {expected}")
+        return {"kernels": kernels, "chains": {f"{k}:{'-'.join(map(str, w))}": n
+                                               for (k, w), n in got[1].items()}}
+
+    launches = {
+        "train": held("train", train_launches, want(TRAIN_STEPS, 0, 0)),
+        "eval_images": [held(f"eval image {e['step']}", e["launches"], want(0, image_chunks, 0))
+                        for e in evals],
+        "final_eval": held("final eval", finals[0]["launches"], want(0, final_chunks, mesh_chunks)),
+        "eval_py": held("eval.py", eval_launches, want(0, n_eval * image_chunks, 0)),
+        "extract_mesh": held("extract_mesh.py", mesh_launches, want(0, 0, mesh_chunks)),
+    }
+    log(phase, f"launches, exact: {json.dumps(launches)}")
+    if method == "neus-facto-tpu-p4":
+        for w in ((39, 64, 64, 1), (51, 64, 64, 1)):
+            check(launches["train"]["chains"].get(f"fused_mlp_fwd:{'-'.join(map(str, w))}") == TRAIN_STEPS
+                  and launches["train"]["chains"].get(f"fused_mlp_bwd:{'-'.join(map(str, w))}") == n_update,
+                  f"{phase}: the hidden-64 chain {w} took {launches['train']['chains']}")
+
+    out = {"method": method, "rays": rays, "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
+           "eval_image_ms": eval_ms, "main_s": main_s, "eval_py_s": eval_s, "extract_mesh_s": mesh_s,
+           "final_eval": metrics, "eval_py": ev["results"], "mesh_vertices": mesh_vertices,
+           "eval_history": history, "launches": launches, "total_launches": total[0],
+           "step_loss_err": loss_err, "step_grad_err": grad_err, "n_update": n_update,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if method == "neus-facto-tpu-p4":
+        names = [("proposal_0" if i == 0 else "proposal_1" if i == 1 else "color") for i in range(len(calls))]
+        out["chains"] = chain_checks(fm, calls, names, phase, method)
+    if method == "neus-facto-tpu":
+        sdf = [r for r in hash_calls if r["spec"] == model.field.encoding.spec and "g_out" in r]
+        check(len(sdf) == 1 and sdf[0]["F"] == 4 and sdf[0]["want_jac"],
+              f"{phase}: captured {len(sdf)} F = 4 SDF calls with a backward")
+        r = sdf[0]
+        with uncounted(fm):
+            out["hash_f4"] = hash_case(phase, "sdf", "captured", r["x"], r["spec"], r["rows"], 4,
+                                       True, r["g_out"], r["g_jac"])
+    del trainer, model, made, calls, hash_calls, k_grads, p_grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _counts_sum(parts: list) -> tuple:
+    kernels, chains = {}, {}
+    for k, c in parts:
+        for name, n in k.items():
+            kernels[name] = kernels.get(name, 0) + n
+        for name, n in c.items():
+            chains[name] = chains.get(name, 0) + n
+    return kernels, chains
 
 
 def main() -> int:
@@ -2069,7 +2373,10 @@ def main() -> int:
     angelo = neuralangelo_phase(fm, smi)
     surface["neuralangelo"] = angelo  # its two fused-MLP chains are the surface methods'
 
-    # 12. results -----------------------------------------------------------
+    # 12. the remaining neus-facto presets through JAX's command line ---------
+    cli = {m: cli_phase(fm, smi, m) for m in CLI_PRESETS}
+
+    # 13. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -2098,6 +2405,21 @@ def main() -> int:
 
     def surface_launches(name: str) -> int:
         return sum(r["train_launches"][name] + r["render_launches"][name] for r in surface.values())
+
+    def cli_launches(name: str) -> int:
+        return sum(r["total_launches"][name] for r in cli.values())
+
+    def cli_chain_rows(which: str) -> list:
+        """p4's chains alone, at a captured step's inputs."""
+        rows = []
+        for c in cli["neus-facto-tpu-p4"]["chains"]:
+            d = c[which]
+            key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
+            rows.append({"method": c["method"], "call": c["call"], "rows": c["rows"], "dims": c["dims"],
+                         "launches": cli["neus-facto-tpu-p4"]["launches"]["train"]["chains"].get(key, 0),
+                         **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
+                                              "bound_ms", "bound_ms_fp32", "bound_by")}})
+        return rows
 
     def surface_chains(which: str) -> list:
         """The new chains of phase 10, one row per method and call, each
@@ -2130,11 +2452,15 @@ def main() -> int:
             "route": "cuda",
             "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
             "replaces": replaces,
-            "launches": nf_launches[name],
+            "launches": nf_launches[name] + cli_launches(name),
             "launches_render": nf["render_launches"][name],
             "launches_train": nf_train["launches"][name],
             "launches_resume": nf["resume"]["launches"][name],
-            "max_abs_err": max(c[which]["max_abs_err"] for c in calls),
+            "launches_cli": {m: r["total_launches"][name] for m, r in cli.items()},
+            # neus-facto-tpu's F = 4 SDF grid on a CLI train step's captured call
+            "F4_step_captured": cli["neus-facto-tpu"]["hash_f4"].get(which),
+            "max_abs_err": max([c[which]["max_abs_err"] for c in calls]
+                               + [cli["neus-facto-tpu"]["hash_f4"][which]["max_abs_err"]]),
             # one train step's three calls on their captured inputs
             "ms": hash_sum(which, "ms"),
             "plain_ms": hash_sum(which, "plain_ms"),
@@ -2224,7 +2550,10 @@ def main() -> int:
         "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:94",
         "launches": (launches["fused_mlp_fwd"] + train["launches"]["fused_mlp_fwd"]
                      + final["launches"]["fused_mlp_fwd"] + resume["launches"]["fused_mlp_fwd"]
-                     + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")),
+                     + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")
+                     + cli_launches("fused_mlp_fwd")),
+        "launches_cli": {m: r["total_launches"]["fused_mlp_fwd"] for m, r in cli.items()},
+        "cli_chains": cli_chain_rows("fwd"),
         "launches_neus_facto": nf_launches["fused_mlp_fwd"],
         "launches_surface": {m: {"train": r["train_launches"]["fused_mlp_fwd"],
                                  "render": r["render_launches"]["fused_mlp_fwd"]}
@@ -2235,7 +2564,7 @@ def main() -> int:
         "launches_final_eval": final["launches"]["fused_mlp_fwd"],
         "launches_resume": resume["launches"]["fused_mlp_fwd"],
         "max_abs_err": max([r["max_abs_err"] for r in per_call]
-                           + [c["max_abs_err"] for c in surface_chains("fwd")]),
+                           + [c["max_abs_err"] for c in surface_chains("fwd") + cli_chain_rows("fwd")]),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
@@ -2255,14 +2584,17 @@ def main() -> int:
         "source": "sdfstudio_tpu_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:151",
         "launches": (train["launches"]["fused_mlp_bwd"] + resume["launches"]["fused_mlp_bwd"]
-                     + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")),
+                     + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")
+                     + cli_launches("fused_mlp_bwd")),
+        "launches_cli": {m: r["total_launches"]["fused_mlp_bwd"] for m, r in cli.items()},
+        "cli_chains": cli_chain_rows("bwd"),
         "launches_neus_facto": nf_launches["fused_mlp_bwd"],
         "launches_surface": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in surface.items()},
         "surface_chains": surface_chains("bwd"),
         "launches_train": train["launches"]["fused_mlp_bwd"],
         "launches_resume": resume["launches"]["fused_mlp_bwd"],
         "max_abs_err": max([r["max_abs_err"] for r in bwd]
-                           + [c["max_abs_err"] for c in surface_chains("bwd")]),
+                           + [c["max_abs_err"] for c in surface_chains("bwd") + cli_chain_rows("bwd")]),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
@@ -2304,6 +2636,11 @@ def main() -> int:
                                                       "train_step_idle_share", "render_idle_share",
                                                       "loss_first", "loss_last")}
                                 for m, r in surface.items()}))
+    log("cli", json.dumps({m: {k: r[k] for k in ("rays", "step_ms", "rays_per_s", "eval_image_ms",
+                                                  "main_s", "eval_py_s", "extract_mesh_s",
+                                                  "final_eval", "eval_py", "step_loss_err",
+                                                  "step_grad_err", "peak_memory_gib")}
+                            for m, r in cli.items()}))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)

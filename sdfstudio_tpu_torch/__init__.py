@@ -5,9 +5,11 @@ its counterpart there by file and line. This package imports ``torch``,
 ``numpy`` and the standard library only -- never ``jax`` and nothing of
 ``sdfstudio_tpu`` -- so it runs on a machine that has neither.
 
-It covers ``neus-facto-tpu-p8``: rendering an image from a trained (or
-seeded) model (``engine/final_eval.py``) and training it on an
-SDFStudio-format scene (``scripts/train.py``), with the fully-fused MLP as
+Its entry points are JAX's: ``scripts/train.py`` (``sst-train``'s grammar
+and run layout), ``scripts/eval.py`` and ``scripts/extract_mesh.py``, for
+the registered methods of ``configs/methods.py``: rendering an image from a
+trained (or seeded) model (``engine/final_eval.py``) and training it on an
+SDFStudio-format scene, with the fully-fused MLP as
 hand-written CUDA kernels, forward and backward (``ops/fused_mlp.py`` +
 ``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``). The gather-probe
 entry points (``scripts/benchmarking/``) run the row-gather kernels

@@ -72,10 +72,11 @@ class VanillaDataManager:
         self.eval_data = on_device(eval_outputs) if eval_outputs is not None else None
 
     def sample_train_batch(
-        self, generator: torch.Generator
+        self, generator: torch.Generator, num_rays: Optional[int] = None
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Uniform (camera, y, x) indices [R, 3] and the pixels there."""
-        R = self.config.train_num_rays_per_batch
+        """Uniform (camera, y, x) indices [R, 3] and the pixels there; R is
+        ``num_rays``, by default ``train_num_rays_per_batch``."""
+        R = num_rays or self.config.train_num_rays_per_batch
         kw = dict(generator=generator, device=self.device)
         cam = torch.randint(0, self.num_train_images, (R,), **kw)
         y = torch.randint(0, self.image_height, (R,), **kw)

@@ -10,14 +10,16 @@ With the defaults both splits hold every frame: the eval split is the
 training views, as in the reference (and ``PARITY.json``'s ``holdout`` 0).
 The other options of the JAX parser (mono priors, sensor depth, foreground
 masks, SfM points, pairs, pose re-orientation and re-scaling) are not
-ported.
+ported; ``SDFStudioDataParserConfig`` carries all of JAX's options
+(sdfstudio.py:29-47) for the command line's ``sdfstudio-data`` flags, and
+``parse_config`` raises on any of those set away from its default.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -32,6 +34,48 @@ class DataparserOutputs:
     image_filenames: List[Path]
     cameras: Cameras
     scene_box: SceneBox
+
+
+@dataclasses.dataclass(frozen=True)
+class SDFStudioDataParserConfig:
+    """JAX's ``SDFStudioDataParserConfig`` (sdfstudio.py:29-47), its fields
+    and defaults. The port reads ``data``, ``skip_every_for_val_split`` and
+    ``train_val_no_overlap``; ``PORTED`` lists them."""
+
+    data: Path = Path("data/DTU/scan65")
+    include_mono_prior: bool = False
+    include_sensor_depth: bool = False
+    include_foreground_mask: bool = False
+    include_sfm_points: bool = False
+    scale_factor: float = 1.0
+    orientation_method: str = "up"
+    center_poses: bool = False
+    auto_scale_poses: bool = False
+    load_pairs: bool = False
+    neighbors_num: Optional[int] = None
+    neighbors_shuffle: bool = False
+    pairs_sorted_ascending: bool = True
+    skip_every_for_val_split: int = 1
+    train_val_no_overlap: bool = False
+    auto_orient: bool = False
+
+
+PORTED = ("data", "skip_every_for_val_split", "train_val_no_overlap")
+
+
+def parse_config(config: SDFStudioDataParserConfig, split: str = "train") -> DataparserOutputs:
+    """``parse`` with the options of ``config``; an option the port does
+    not read, set away from its default, raises (ROADMAP queue 1 item 12:
+    priors, masks, pairs and pose re-orientation come with the mono-* and
+    geo-* methods)."""
+    default = SDFStudioDataParserConfig()
+    off = [f.name for f in dataclasses.fields(config)
+           if f.name not in PORTED and getattr(config, f.name) != getattr(default, f.name)]
+    if off:
+        raise NotImplementedError(f"sdfstudio-data options {off} are not ported (ROADMAP queue 1 "
+                                  "item 12)")
+    return parse(Path(config.data), split, config.skip_every_for_val_split,
+                 config.train_val_no_overlap)
 
 
 def split_indices(num_frames: int, split: str, skip_every_for_val_split: int = 1,

@@ -1,4 +1,4 @@
-"""A PNG reader from the standard library and numpy.
+"""A PNG reader and writer from the standard library and numpy.
 
 The JAX package reads images with PIL (``data/dataparsers/base.py:57``
 ``load_image``); the card's machine has no PIL, so the port keeps its own
@@ -7,6 +7,9 @@ filters, and a byte loop for Average and Paeth, whose every byte depends on
 its reconstructed left neighbour. It reads non-interlaced 8-bit greyscale, grey + alpha, RGB and RGBA images with
 the five filter types (None, Sub, Up, Average, Paeth) and raises on every
 other format (palette, 1/2/4/16-bit, interlaced); it never falls back.
+``write_png`` writes the same 8-bit formats, every row with filter None,
+where the JAX package writes with PIL (``Image.fromarray(...).save``): the
+files differ, their pixels do not.
 """
 from __future__ import annotations
 
@@ -109,3 +112,30 @@ def load_image(path: Union[str, Path]) -> np.ndarray:
     if img.ndim == 2:
         img = img[..., None]
     return img
+
+
+COLOUR_TYPES = {c: t for t, c in CHANNELS.items()}  # samples per pixel -> colour type
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: Union[str, Path], image: np.ndarray) -> None:
+    """uint8 [H, W] (greyscale) or [H, W, C] with C in 1-4 -> a non-interlaced
+    8-bit PNG (PNG spec 11.2: IHDR, one IDAT, IEND)."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[..., 0]
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[-1] not in COLOUR_TYPES):
+        raise ValueError(f"write_png takes [H, W] or [H, W, 1-4], got {img.shape}")
+    height, width = img.shape[:2]
+    ctype = COLOUR_TYPES[1 if img.ndim == 2 else img.shape[-1]]
+    rows = np.ascontiguousarray(img).reshape(height, -1)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)  # filter byte 0 a row
+    header = struct.pack(">IIBBBBB", width, height, 8, ctype, 0, 0, 0)
+    Path(path).write_bytes(SIGNATURE + _chunk(b"IHDR", header)
+                           + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))

@@ -8,10 +8,12 @@ chunk padded by repeating its last ray as ``_chunked`` does
 
 ``run_final_eval`` is the parity protocol's evaluation
 (``docs/parity-protocol.md``, final_eval.py:70-198): PSNR and SSIM over
-the eval split rendered at the trained step (``eval_all_images``), and
-Chamfer-L1 of the mesh extracted from the SDF against the DTU-like scene's
-analytic surface (``eval_geometry``), written in ``parity_metrics.json``'s
-schema.
+the eval split rendered at the trained step (``eval_all_images``, all of
+its images or an even spread of ``final_eval_max_images``), and Chamfer-L1
+of the mesh extracted from the SDF against the analytic surface of the
+DTU-like scene or of the sphere scene (``eval_geometry``; the mesh is
+written to ``final_eval_mesh`` when that is set), written in
+``parity_metrics.json``'s schema.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from sdfstudio_tpu_torch.cameras.cameras import Cameras
 from sdfstudio_tpu_torch.core.rays import RayBundle
 from sdfstudio_tpu_torch.data.synthetic_dtu import chamfer_l1_to_gt
+from sdfstudio_tpu_torch.scripts.benchmarking.eval_geometry import chamfer_l1_to_sphere
 from sdfstudio_tpu_torch.utils.marching_cubes import get_surface_sliding
 from sdfstudio_tpu_torch.utils.metrics import psnr, ssim  # psnr: callers import it from here
 
@@ -122,12 +125,14 @@ def eval_all_images(trainer, max_images: int = 0) -> Dict:
 def eval_geometry(trainer, gt: str = "dtu-like", resolution: int = 256,
                   mesh_path: Optional[Path] = None) -> Dict:
     """Mesh of the trained SDF on a ``resolution^3`` grid over ``[-1, 1]^3``
-    and its Chamfer-L1 against the analytic surface
-    (final_eval.py:114-166). Only the DTU-like scene's judge is ported. The
-    mesh is written to ``mesh_path`` when one is given. Returns the
-    metrics, ``num_vertices`` and the seconds of each part."""
-    if gt != "dtu-like":
-        raise NotImplementedError(f"final-eval judge {gt!r} is not ported (ROADMAP queue 1 item 12)")
+    and its Chamfer-L1 against the analytic surface (final_eval.py:114-166):
+    the DTU-like scene's (``gt="dtu-like"``) or the sphere of radius 0.5
+    (``"sphere"``); the heritage judge comes with ``neusW`` (ROADMAP queue 1
+    item 12). The mesh is written to ``mesh_path`` when one is given.
+    Returns the metrics, ``num_vertices`` and the seconds of each part."""
+    if gt not in ("dtu-like", "sphere"):
+        raise NotImplementedError(f"final-eval judge {gt!r} is not ported (ROADMAP queue 1 item 12, "
+                                  "with neusW)")
     device = next(trainer.model.parameters()).device
     seconds = {}
     t0 = time.perf_counter()
@@ -141,7 +146,8 @@ def eval_geometry(trainer, gt: str = "dtu-like", resolution: int = 256,
     if len(mesh.vertices) == 0:
         print("[final-eval] no surface found", flush=True)
         return {"chamfer_l1": None, "num_vertices": 0, "seconds": seconds}
-    m = chamfer_l1_to_gt(np.asarray(mesh.vertices))
+    verts = np.asarray(mesh.vertices)
+    m = chamfer_l1_to_gt(verts) if gt == "dtu-like" else chamfer_l1_to_sphere(verts, radius=0.5)
     seconds["judge"] = time.perf_counter() - t1
     print(f"[final-eval] geometry: verts={len(mesh.vertices)} chamfer_l1={m['chamfer_l1']:.4f} "
           f"(res={resolution}, {time.perf_counter() - t0:.1f}s)", flush=True)
@@ -155,17 +161,19 @@ def eval_geometry(trainer, gt: str = "dtu-like", resolution: int = 256,
     }
 
 
-def run_final_eval(trainer, method_name: str, reached_step: int, output: Path,
-                   resolution: int = 256) -> Tuple[Dict, Dict]:
-    """The protocol's evaluation at the trained step (final_eval.py:169-198):
-    writes ``output`` in ``parity_metrics.json``'s schema (``method``,
+def run_final_eval(trainer, method_name: str, reached_step: int) -> Tuple[Dict, Dict]:
+    """The protocol's evaluation at the trained step, by the trainer's
+    ``final_eval_*`` settings (final_eval.py:169-198): writes
+    ``final_eval_output`` in ``parity_metrics.json``'s schema (``method``,
     ``iters``, ``psnr``, ``ssim``, ``num_images``, ``chamfer_l1``,
     ``chamfer_accuracy``, ``chamfer_completeness``, ``mc_resolution``,
     ``eval_seconds``, ``eval_backend``, ``source``) and returns (that record,
     the details of ``eval_all_images`` and ``eval_geometry``)."""
+    cfg = trainer.config
     t0 = time.time()
-    images = eval_all_images(trainer)
-    geometry = eval_geometry(trainer, gt="dtu-like", resolution=resolution)
+    images = eval_all_images(trainer, max_images=cfg.final_eval_max_images)
+    geometry = eval_geometry(trainer, gt=cfg.final_eval_gt, resolution=cfg.final_eval_resolution,
+                             mesh_path=Path(cfg.final_eval_mesh) if cfg.final_eval_mesh else None)
     rec = {"method": method_name, "iters": reached_step}
     rec.update({k: images[k] for k in ("psnr", "ssim", "num_images")})
     rec.update({k: geometry.get(k) for k in ("chamfer_l1", "chamfer_accuracy",
@@ -173,7 +181,7 @@ def run_final_eval(trainer, method_name: str, reached_step: int, output: Path,
     rec["eval_seconds"] = round(time.time() - t0, 1)
     rec["eval_backend"] = next(trainer.model.parameters()).device.type
     rec["source"] = "trainer-final-eval"
-    output = Path(output)
+    output = Path(cfg.final_eval_output)
     output.parent.mkdir(parents=True, exist_ok=True)
     output.write_text(json.dumps(rec, indent=2))
     print(f"[final-eval] {json.dumps(rec)}", flush=True)

@@ -89,7 +89,9 @@ class NeuSFactoModel(NeuSModel):
     def sample_and_forward_field(
         self, ray_bundle: RayBundle, sched: Dict, rng: Rng = None, train: bool = False
     ) -> Dict:
-        """neus_facto.py:169-235; jitter only in training (``perturb``)."""
+        """neus_facto.py:169-235; jitter only in training (``perturb``). With
+        a background field (``neus-facto-bigmlp``) the samples outside the
+        unit sphere take its alpha and colour."""
         cfg = self.config
         with record_function("sst/proposal_sampler"):
             ray_samples, weights_list, ray_samples_list = proposal_network_sampler(
@@ -107,6 +109,9 @@ class NeuSFactoModel(NeuSModel):
             ray_samples, cos_anneal_ratio=sched["cos_anneal_ratio"], return_alphas=True,
             train=train,
         )
+        if cfg.background_model != "none":
+            # the background field's alpha and colour outside the unit sphere (neus_facto.py:216-219)
+            field_outputs = self.forward_background_field_and_merge(ray_samples, field_outputs)
         weights, transmittance = R.weights_and_transmittance_from_alphas(field_outputs["alpha"])
         return {
             "ray_samples": ray_samples,

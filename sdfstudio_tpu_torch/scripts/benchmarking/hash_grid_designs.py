@@ -319,10 +319,10 @@ def capture_step(method: str = "neus-facto", steps: int = CHECK_STEPS, num_rays:
     one more step's hash calls (forward and backward, not applied). Returns
     (records, the model's encodings by call name)."""
     from sdfstudio_tpu_torch.engine.trainer import group_grads, loss_and_metrics
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
 
-    trainer = setup_trainer(method, str(SCENE), max_num_iterations=steps + 1, num_rays=num_rays,
-                            device="cuda")
+    trainer = setup_method_trainer(method, str(SCENE), max_num_iterations=steps + 1,
+                                   num_rays=num_rays, device="cuda")
     for _ in range(steps):
         trainer.train_step()
     model, dm = trainer.model, trainer.datamanager

@@ -2,25 +2,32 @@
 ``sdfstudio_tpu/scripts/benchmarking/parity.py``; ``docs/parity-protocol.md``):
 
     python -m sdfstudio_tpu_torch.scripts.benchmarking.parity \\
-        [--method neus-facto-tpu-p8|neus-facto] [--segment 5000] \\
+        [--method neus-facto-tpu-p8|neus-facto|neus-facto-tpu] [--segment 5000] \\
         [--budget-seconds S] [--device cuda|cpu]
 
 Trains the method (default ``neus-facto-tpu-p8``, the preset) for 20,000
 steps of 2048 rays on the committed scene ``.parity/dtu_like`` (never
 regenerated; every view trains and every view is evaluated, ``holdout`` 0,
-as ``PARITY.json`` was made), then runs the trainer's final evaluation
-(eval-split PSNR and SSIM, Chamfer-L1 of the 256^3 mesh against the
-analytic surface) and writes its arm into ``PARITY_CUDA.json``, judged
-against ``PARITY.json``'s control with the same criteria: PSNR at most 0.3
-dB below it, Chamfer-L1 at most 10% above. The preset's arm fills
+as ``PARITY.json`` was made) through the train command
+(``scripts/train.py::main``), with the argv JAX's ``train_segment`` builds
+(parity.py:135-176): ``--experiment-name parity --output-dir
+.parity/cuda_runs --timestamp parity --vis none``, deferred heavy
+operations, no eval images, and on the last segment the trainer's final
+evaluation (eval-split PSNR and SSIM, Chamfer-L1 of the 256^3 mesh against
+the analytic surface). Then it writes its arm into ``PARITY_CUDA.json``,
+judged against ``PARITY.json``'s control with the same criteria: PSNR at
+most 0.3 dB below it, Chamfer-L1 at most 10% above. The preset's arm fills
 ``PARITY.json``'s schema (``method``, ``pass``, ``preset``, ``control``,
 ...); ``neus-facto``, the control method itself trained by the port, goes
-under ``control_cuda`` beside them. Each arm leaves the other's keys as
-they are.
+under ``control_cuda``, and ``neus-facto-tpu`` under ``neus_facto_tpu_cuda``
+beside JAX's TPU score of the same method
+(``.parity/runs/parity/neus-facto-tpu/parity/parity_metrics.json``). Each
+arm leaves the other arms' keys as they are.
 
-Training runs in segments of ``--segment`` steps in this one process, each
-ending in a checkpoint under ``.parity/cuda_runs/``; a new invocation
-resumes from the newest one. ``--budget-seconds`` stops before a segment
+Each segment of ``--segment`` steps is one call of the train command in
+this process, ending in a checkpoint under
+``.parity/cuda_runs/parity/<method>/parity/``; the next resumes from it,
+and so does a new invocation. ``--budget-seconds`` stops before a segment
 that would start after that much wall time, so one call of bounded length
 makes progress.
 """
@@ -30,9 +37,9 @@ import argparse
 import json
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
-from sdfstudio_tpu_torch.scripts.train import setup_trainer
+from sdfstudio_tpu_torch.scripts import train as train_script
 
 REPO = Path(__file__).resolve().parents[3]
 PARITY_DIR = REPO / ".parity"
@@ -40,11 +47,14 @@ DATA_DIR = PARITY_DIR / "dtu_like"
 RUNS_DIR = PARITY_DIR / "cuda_runs"
 CONTROL = REPO / "PARITY.json"
 ATTESTATION = REPO / "PARITY_CUDA.json"
-METHODS = ("neus-facto-tpu-p8", "neus-facto")
+METHODS = ("neus-facto-tpu-p8", "neus-facto", "neus-facto-tpu")
+# JAX's 20k TPU scores of the arms the port trains beside them
+JAX_RUNS = PARITY_DIR / "runs" / "parity"
 ITERS = 20000
 NUM_RAYS = 2048
 PSNR_TOL_DB = 0.3  # parity.py:57-58
 CHAMFER_TOL = 0.10
+GEO_RES = 256
 
 
 def arm_base_dir(method: str) -> Path:
@@ -58,16 +68,49 @@ def latest_step(method: str) -> int:
     return max(steps, default=0)
 
 
+def train_argv(method: str, end: int, resume: bool, final_eval: bool,
+               device: Optional[str] = None) -> List[str]:
+    """The argv of JAX's ``train_segment`` (parity.py:135-176), with the
+    port's ``--device``."""
+    args = [method, "--experiment-name", "parity", "--output-dir", str(RUNS_DIR),
+            "--timestamp", "parity", "--vis", "none",
+            "--trainer.max-num-iterations", str(end),
+            "--trainer.defer-heavy-ops", "True",
+            "--trainer.steps-per-eval-image", "0",
+            "--datamanager.train-num-rays-per-batch", str(NUM_RAYS)]
+    if final_eval:
+        base = arm_base_dir(method)
+        args += ["--trainer.final-eval-gt", "dtu-like",
+                 "--trainer.final-eval-output", str(base / "parity_metrics.json"),
+                 "--trainer.final-eval-mesh", str(base / "mesh.ply"),
+                 "--trainer.final-eval-resolution", str(GEO_RES)]
+    if resume:
+        args += ["--trainer.load-dir", str(arm_base_dir(method) / "sdfstudio_models"),
+                 "--trainer.load-step", str(latest_step(method))]
+    if device:
+        args += ["--device", device]
+    return args + ["sdfstudio-data", "--data", str(DATA_DIR)]
+
+
 def write_attestation(arm: dict, control: dict) -> dict:
     """``PARITY.json``'s schema and pass rule (parity.py:247-267) for the
-    preset's arm; the ``control_cuda`` key for ``neus-facto``'s. The other
-    arm's keys in ``PARITY_CUDA.json`` stay as they are."""
+    preset's arm; ``control_cuda`` for ``neus-facto``'s, and
+    ``neus_facto_tpu_cuda`` for ``neus-facto-tpu``'s with JAX's TPU score
+    beside it. The other arms' keys in ``PARITY_CUDA.json`` stay as they
+    are."""
     ok = bool(arm["psnr"] >= control["psnr"] - PSNR_TOL_DB
               and arm["chamfer_l1"] <= control["chamfer_l1"] * (1 + CHAMFER_TOL))
     scores = {"psnr": arm["psnr"], "chamfer_l1": arm["chamfer_l1"], "iters": arm["iters"]}
     rec = json.loads(ATTESTATION.read_text()) if ATTESTATION.exists() else {}
     if arm["method"] == "neus-facto":
         rec["control_cuda"] = {**scores, "pass": ok}
+    elif arm["method"] == "neus-facto-tpu":
+        jax_file = JAX_RUNS / arm["method"] / "parity" / "parity_metrics.json"
+        jax = json.loads(jax_file.read_text())
+        rec["neus_facto_tpu_cuda"] = {
+            **scores, "ssim": arm["ssim"], "pass": ok,
+            "jax_tpu": {k: jax[k] for k in ("psnr", "ssim", "chamfer_l1", "iters", "eval_backend")},
+        }
     else:
         rec.update({
             "method": arm["method"],
@@ -97,27 +140,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise FileNotFoundError(f"the committed parity scene is missing: {DATA_DIR}")
     control = json.loads(CONTROL.read_text())["control"]
     method = args.method
-    base = arm_base_dir(method)
-    metrics = base / "parity_metrics.json"
+    metrics = arm_base_dir(method) / "parity_metrics.json"
     start = latest_step(method)
-    trainer = setup_trainer(
-        method, DATA_DIR, max_num_iterations=ITERS, num_rays=NUM_RAYS, device=args.device,
-        output_dir=base, steps_per_save=args.segment, final_eval_output=str(metrics),
-        load_dir=base / "sdfstudio_models" if start > 0 else None, load_step=start or None,
-    )
-    if metrics.exists() and start >= ITERS and json.loads(metrics.read_text())["iters"] == start:
-        rec = json.loads(metrics.read_text())
-    else:
+    if not (metrics.exists() and start >= ITERS
+            and json.loads(metrics.read_text())["iters"] == start):
         metrics.unlink(missing_ok=True)
-        while trainer.step < ITERS or not metrics.exists():
+        while not (start >= ITERS and metrics.exists()):
             if args.budget_seconds and time.time() - t_start > args.budget_seconds:
-                print(f"[parity] budget spent at step {trainer.step}; re-run to resume", flush=True)
+                print(f"[parity] budget spent at step {start}; re-run to resume", flush=True)
                 return 0
-            end = min(trainer.step + args.segment, ITERS)
+            end = min(start + args.segment, ITERS)
             t0 = time.time()
-            trainer.train(end)  # at ITERS it also runs the final evaluation
+            # at ITERS the trainer also runs the final evaluation
+            train_script.main(train_argv(method, end, start > 0, end >= ITERS, args.device))
             print(f"[parity] {method}: segment -> {end} done in {time.time() - t0:.0f}s", flush=True)
-        rec = json.loads(metrics.read_text())
+            start = latest_step(method)
+    rec = json.loads(metrics.read_text())
     print(f"[parity] {method}: {json.dumps(rec)}", flush=True)
     write_attestation(rec, control)
     return 0

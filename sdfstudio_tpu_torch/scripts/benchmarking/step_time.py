@@ -50,15 +50,17 @@ def main(argv=None) -> int:
     from sdfstudio_tpu_torch.configs.methods import build_model
     from sdfstudio_tpu_torch.core.scene_box import SceneBox
     from sdfstudio_tpu_torch.engine.final_eval import render_image, set_fp32_precision
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts import train as train_script
 
     import sdfstudio_tpu_torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     set_fp32_precision()
-    trainer = setup_trainer(args.method, os.path.join(REPO, ".parity", "dtu_like"),
-                            max_num_iterations=args.steps, num_rays=2048, device="cuda")
+    # a checkout from before the helper took its name calls it setup_trainer
+    setup = getattr(train_script, "setup_method_trainer", None) or train_script.setup_trainer
+    trainer = setup(args.method, os.path.join(REPO, ".parity", "dtu_like"),
+                    max_num_iterations=args.steps, num_rays=2048, device="cuda")
     first = 12
     for _ in range(first):
         trainer.train_step()

@@ -74,14 +74,14 @@ def jax_restored(tmp_path_factory):
 def port_resumed():
     """``method`` -> the port's trainer on the CPU resumed from the JAX
     checkpoint, made once."""
-    from sdfstudio_tpu_torch.scripts.train import setup_trainer
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
 
     cache = {}
 
     def get(method):
         if method not in cache:
-            cache[method] = setup_trainer(method, SCENE, num_rays=64, device="cpu",
-                                          load_dir=RUNS[method], load_step=STEP)
+            cache[method] = setup_method_trainer(method, SCENE, num_rays=64, device="cpu",
+                                                 load_dir=RUNS[method], load_step=STEP)
         return cache[method]
 
     return get

@@ -491,15 +491,15 @@ def _shrunk_method(name):
 
 
 def test_trainer_takes_a_step_of_the_shrunk_registered_method(monkeypatch, tmp_path, capsys):
-    """``scripts/train.py``'s ``setup_trainer`` on the committed scene with
+    """``scripts/train.py``'s ``setup_method_trainer`` on the committed scene with
     the registered ``neuralangelo`` shrunk to the test size: three steps
     through ``Trainer.train`` (AdamW on both groups), finite losses with the
     curvature term, and a save. The geometric init gives the grid feature
     zero weight in the first layer and the warmup a zero learning rate at
     step 0, so the table first takes a gradient on step 2."""
     monkeypatch.setattr(train_script, "get_method_config", _shrunk_method)
-    trainer = train_script.setup_trainer("neuralangelo", SCENE, max_num_iterations=3, num_rays=16,
-                                         device="cpu", output_dir=tmp_path)
+    trainer = train_script.setup_method_trainer("neuralangelo", SCENE, max_num_iterations=3,
+                                                num_rays=16, device="cpu", output_dir=tmp_path)
     assert {g: o.kind for g, o in trainer.optimizers.items()} == {"field": "adamw",
                                                                  "field_background": "adamw"}
     table = trainer.model.field.encoding.hash_table
@@ -508,7 +508,8 @@ def test_trainer_takes_a_step_of_the_shrunk_registered_method(monkeypatch, tmp_p
     assert trainer.step == 3 and {"loss", "rgb_loss", "eikonal_loss", "curvature_loss"} <= set(last)
     assert all(np.isfinite(v) for v in last.values())
     assert not torch.equal(before, table.detach())
-    assert (tmp_path / "sdfstudio_models" / "step-000000003" / "step.txt").exists()
+    assert trainer.ckpt_dir.parent.parent.parent.parent == tmp_path
+    assert (trainer.ckpt_dir / "step-000000003" / "step.txt").exists()
 
 
 def test_jax_checkpoint_with_adamw_state_loads_leaf_for_leaf(tmp_path):

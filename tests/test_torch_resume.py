@@ -47,7 +47,7 @@ def data():
 
 
 def _setup(data, output_dir=None, method="neus-facto-tpu-p8", **fields):
-    """A set-up trainer as ``scripts/train.py::setup_trainer`` builds it."""
+    """A set-up trainer as ``scripts/train.py::setup_method_trainer`` builds it."""
     scene_box, dm = data
     cfg = get_method_config(method)
     model = build_model(cfg, scene_box, num_train_data=dm.num_train_images, seed=0,

@@ -90,13 +90,14 @@ def test_datamanager_rays_and_pixels_match_jax(parsed):
 
 
 @pytest.mark.parametrize("method", ["neus-facto-tpu-p8", "neus-facto"])
-def test_train_entry_point_and_frozen_proposal_step(method):
+def test_train_entry_point_and_frozen_proposal_step(method, tmp_path):
     """Twelve steps at 16 rays on the CPU: step 10 (index 10, an update)
     moves the proposal nets, step 11 (frozen) leaves them bit-for-bit."""
     assert train_script.main([method, "--data", str(SCENE), "--device", "cpu",
+                              "--output-dir", str(tmp_path), "--vis", "none",
                               "--trainer.max-num-iterations", "2",
                               "--datamanager.train-num-rays-per-batch", "16"]) == 0
-    trainer = train_script.setup_trainer(method, SCENE, num_rays=16, device="cpu")
+    trainer = train_script.setup_method_trainer(method, SCENE, num_rays=16, device="cpu")
     prop = trainer.optimizers["proposal_networks"]
     moved = []
     for step in range(12):
