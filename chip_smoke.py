@@ -130,9 +130,9 @@ Phases, each printing its own line with wall-clock seconds:
    from the outward-facing init, ``CLI_EXTRA``) through the train command
    with JAX's grammar: ``scripts/train.py::main`` with ``--experiment-name``,
    ``--output-dir``, ``--timestamp``, ``--vis none``, 40 steps, an eval
-   image every 20 steps, the final evaluation (3 of the 7 eval views, the
+   image every 20 steps, the final evaluation (3 of the 4 eval views, the
    128^3 mesh) and ``sdfstudio-data --data .parity/dtu_like
-   --skip-every-for-val-split 8``; the run's layout (``config.yml``, the
+   --skip-every-for-val-split 16``; the run's layout (``config.yml``, the
    step directory with ``step.txt``, the metrics, the mesh), the step-20
    eval image by JAX's index rule, the ms a step over steps 12-39 (the eval
    image taken out); launches counted exactly by kernel and by chain in the
@@ -144,10 +144,24 @@ Phases, each printing its own line with wall-clock seconds:
    hidden-64 chains [39 / 51 -> 64 -> 64 -> 1] alone (a forward and a
    backward an update step); ``neus-facto-tpu``'s F = 4 hash kernels on the
    step's captured SDF call (``hash_case``);
-13. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+13. cue (``cue[<method>]``): ``monosdf``, ``mono-neus``, ``mono-unisurf``,
+   ``geo-neus``, ``geo-volsdf`` and ``geo-unisurf`` (JAX's registered
+   entries at full width and 1024 rays, from the outward-facing init set
+   through JAX's grammar) on the DTU-like scene with its monocular depth
+   and normals, generated at run time by the port's copy of JAX's generator
+   at its defaults (49 views, 384 x 384) in a process started with the
+   smoke, beside ``pairs.txt`` (8 ring neighbours) and SfM point files; the
+   generated images must equal the committed ``.parity/dtu_like`` pixel for
+   pixel. Each entry trains ``CUE_STEPS`` steps (ms a step, rays/s; launches
+   by chain exactly), holds a kernel step to a plain one (every loss term and
+   group), checks its new terms (``normal_loss`` and ``depth_loss`` above 0,
+   or ``patch_loss`` above 0 with more than ``CUE_VALID_SHARE`` of the rays
+   warping a fully valid source patch), and traces one step
+   (``sst/patch_warping``, ``sst/cue_losses``, the idle share);
+14. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
    F = 8; the fused-MLP entries carry the surface chains' and p4's rows, the
-   hash entries the cli phases' launches and the F = 4 captured call), the
-   ``nvidia-smi`` line, and the result line.
+   hash entries the cli phases' launches and the F = 4 captured call; the
+   cue phases' launches), the ``nvidia-smi`` line, and the result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
 call (unless the caller set it), so that cuBLAS accepts the deterministic
@@ -276,7 +290,7 @@ ANGELO_DELTA0 = 1.0 / 32
 # phase 12: the remaining neus-facto presets through JAX's command line
 CLI_PRESETS = ("neus-facto-tpu", "neus-facto-tpu-p4", "neus-facto-bigmlp")
 CLI_EVAL_STEP = 20  # --trainer.steps-per-eval-image
-CLI_EVAL_SPLIT = 8  # --skip-every-for-val-split: 7 eval views
+CLI_EVAL_SPLIT = 16  # --skip-every-for-val-split: 4 eval views (views 0, 16, 32, 48)
 CLI_MESH_RES = 128  # --trainer.final-eval-resolution, extract_mesh.py --resolution
 CLI_FINAL_IMAGES = 3  # --trainer.final-eval-max-images
 # neus-facto-bigmlp is JAX's default field, whose init faces inwards (a camera
@@ -285,6 +299,36 @@ CLI_FINAL_IMAGES = 3  # --trainer.final-eval-max-images
 # the CPU at 256 rays: min / max -1.61 / -0.049 over a 33^3 grid at step 40),
 # so it runs from the outward-facing init, set through JAX's grammar
 CLI_EXTRA = {"neus-facto-bigmlp": ["--pipeline.model.sdf-field.inside-outside", "False"]}
+# phase 13: the MonoSDF and Geo-NeuS entries at their registered 1024 rays on the DTU-like scene
+# with its monocular cues, made at run time (JAX's generator at its defaults: 49 views, 384 x 384)
+CUE_METHODS = ("monosdf", "mono-neus", "mono-unisurf", "geo-neus", "geo-volsdf", "geo-unisurf")
+CUE_STEPS = 20
+CUE_RAYS = 1024  # the six entries' registered rays a step
+CUE_PAIRS = 8  # pairs.txt: +-1..+-4 around the ring, 7 sources after the parser's quirk
+CUE_SFM_POINTS = 500  # GT surface points a view (geo-neus's parser reads them; no loss does)
+CUE_VALID_SHARE = 0.10  # geo: rays with a crossing and a fully valid source patch, at least
+# the scene's generator runs in a process of its own from the start (~60-80 s of numpy);
+# it also holds the generated images to the committed ones
+CUE_SCENE_CHILD = r"""
+import json, sys, time
+from pathlib import Path
+import numpy as np
+from sdfstudio_tpu_torch.data import png, synthetic_dtu
+out, committed, pairs, points = Path(sys.argv[1]), Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+t = time.perf_counter()
+synthetic_dtu.generate_dtu_like_dataset(out, with_mono_prior=True)
+generate_s = time.perf_counter() - t
+synthetic_dtu.write_pairs_and_sfm_points(out, num_pair_srcs=pairs, points_per_view=points)
+diff, n = 0, 0
+for f in sorted(committed.glob("*.png")):
+    a, b = png.read_png(out / f.name), png.read_png(f)
+    d = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) if a.shape == b.shape else 255
+    diff, n = max(diff, d), n + 1
+print(json.dumps({"generate_s": generate_s, "total_s": time.perf_counter() - t, "pngs_compared": n,
+                  "max_pixel_diff": diff, "files": len(list(out.iterdir())),
+                  "bytes": sum(p.stat().st_size for p in out.iterdir())}))
+"""
+_CUE_SCENE = {}  # the generator's process and directory, stopped and removed at exit
 
 
 def angelo_tols(delta: float):
@@ -2167,6 +2211,216 @@ def cli_phase(fm, smi: str, method: str) -> dict:
     return out
 
 
+def start_cue_scene() -> None:
+    """Start the DTU-like scene's generator (with its monocular cues, pairs
+    and SfM points) in a process of its own, into a temporary directory."""
+    out = tempfile.mkdtemp(prefix="sst_cue_scene_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    _CUE_SCENE["dir"] = out
+    _CUE_SCENE["t0"] = time.perf_counter()
+    _CUE_SCENE["proc"] = subprocess.Popen(
+        [sys.executable, "-c", CUE_SCENE_CHILD, out, SCENE, str(CUE_PAIRS), str(CUE_SFM_POINTS)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cue_scene() -> dict:
+    """Wait for the generator; its images must equal the committed scene's
+    pixel for pixel (JAX's generator at its defaults wrote them)."""
+    proc = _CUE_SCENE["proc"]
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"the cue scene's generator failed: {err[-2000:]}")
+    info = json.loads(out.strip().splitlines()[-1])
+    info["waited_s"] = time.perf_counter() - _CUE_SCENE["t0"]
+    log("cue", f"generated {_CUE_SCENE['dir']}: {json.dumps(info)}")
+    check(info["pngs_compared"] == 98 and info["max_pixel_diff"] == 0,
+          f"the generated scene differs from the committed one: {info}")
+    return info
+
+
+def stop_cue_scene() -> None:
+    proc = _CUE_SCENE.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if "dir" in _CUE_SCENE:
+        shutil.rmtree(_CUE_SCENE["dir"], ignore_errors=True)
+
+
+def cue_phase(fm, smi: str, method: str, scene: str) -> dict:
+    """A MonoSDF or Geo-NeuS entry (``cue[<method>]``) at its registered
+    width and 1024 rays, built through JAX's grammar from the outward-facing
+    init (``--pipeline.model.sdf-field.inside-outside False``, as
+    SDFStudio's DTU commands run: from the registered inward one no ray from
+    outside the object crosses from + to -, and the geo term would be empty)
+    on the generated scene with its cues: ``CUE_STEPS`` steps through
+    ``Trainer.train`` (ms a step over steps 2 onwards), launches counted by
+    chain exactly (a forward and a backward a step on the colour net and the
+    background head), one step with the kernels against one with the plain
+    versions (every loss term, every group's gradient), the new terms
+    (``normal_loss`` and ``depth_loss``, or ``patch_loss`` with the share of
+    rays that have a crossing and a fully valid source patch), and one
+    traced step (``sst/patch_warping``, ``sst/cue_losses``, the idle
+    share). Returns what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine.setup import setup_trainer
+    from sdfstudio_tpu_torch.scripts import train as train_script
+
+    phase = f"cue[{method}]"
+    geo = method.startswith("geo")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = [method, "--pipeline.model.sdf-field.inside-outside", "False", "--vis", "none",
+            "--trainer.max-num-iterations", str(CUE_STEPS),
+            "--pipeline.datamanager.train-num-rays-per-batch", str(CUE_RAYS),
+            "sdfstudio-data", "--data", scene]
+    config, _ = train_script.parse_args(argv)
+    t = time.perf_counter()
+    trainer = setup_trainer(config, device="cuda", checkpoints=False)
+    trainer.setup()
+    dm, model = trainer.datamanager, trainer.model
+    rays = dm.config.train_num_rays_per_batch
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    check(rays == CUE_RAYS and (type(dm).__name__ == "FlexibleDataManager") == geo,
+          f"{phase}: {type(dm).__name__} at {rays} rays")
+    check(sorted(dm.train_data) == (["image"] if geo else ["depth", "image", "normal"]),
+          f"{phase}: the image stack holds {sorted(dm.train_data)}")
+    log(phase, f"{sum(p.numel() for p in model.parameters())} parameters, {type(dm).__name__}, "
+        f"parser {config.dataparser}, {rays} rays a step"
+        + (f", sources a view {tuple(dm.pairs_srcs.shape)}" if geo else "")
+        + f"; set up in {setup_s:.2f} s")
+    rows = []
+    step_fn = trainer.train_step
+    trainer.train_step = lambda: rows.append(step_fn()) or rows[-1]  # every step's metrics, read later
+    fm.reset_launch_counts()
+    trainer.train_step()
+    trainer.train_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last = trainer.train(CUE_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / (CUE_STEPS - 2)
+    train_launches = dict(fm.LAUNCHES)
+    train_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
+    trainer.train_step = step_fn
+    per_step = {k: torch.stack(rows)[:, i].cpu().tolist() for i, k in enumerate(trainer.metric_keys)}
+    first = {k: v[0] for k, v in per_step.items()}
+    log(phase, f"Trainer.train, steps 2-{CUE_STEPS - 1}: {step_ms:.2f} ms a step, "
+        f"{rays / step_ms * 1e3:.0f} rays/s; launches {train_launches}, by chain {train_chains}; "
+        f"losses at step 1 / {CUE_STEPS}: "
+        + " ".join(f"{k}={first[k]:.5g}/{last[k]:.5g}" for k in trainer.metric_keys))
+    check(trainer.step == CUE_STEPS, f"{phase}: Trainer.train stopped at step {trainer.step}")
+    check(all(math.isfinite(v) for v in list(first.values()) + list(last.values())),
+          f"{phase}: a training loss or metric is not finite")
+    every_step = {chain: CUE_STEPS for chain in SURFACE_CHAINS}
+    check(train_chains == {"fwd": every_step, "bwd": every_step},
+          f"{phase}: expected a forward and a backward launch a step on each chain: {train_chains}")
+    check(train_launches["fused_mlp_fwd"] == train_launches["fused_mlp_bwd"] == 2 * CUE_STEPS,
+          f"{phase}: fused-MLP launches {train_launches}")
+    new_terms = ("patch_loss",) if geo else ("normal_loss", "depth_loss")
+    # a batch's patch term is 0 where no ray has fewer than topk invalid or flat source
+    # patches (they score exactly 0 and rank first): the term is held over the run's steps
+    term_mean = {k: sum(per_step[k]) / len(per_step[k]) for k in new_terms}
+    log(phase, f"new terms over the {CUE_STEPS} steps: " + "; ".join(
+        f"{k} mean {term_mean[k]:.5g}, above 0 on {sum(v > 0 for v in per_step[k])} steps"
+        for k in new_terms))
+    for k in new_terms:
+        check(term_mean[k] > 0, f"{phase}: {k} is 0 on every step: {per_step[k]}")
+
+    # one step twice from the same state and batch: the kernels, then the plain versions
+    sched = model.schedules(trainer.step)
+
+    def one_step():
+        gen = torch.Generator(device=dm.device).manual_seed(777)
+        if geo:
+            idx, batch, additional = dm.sample_train_batch_flexible(gen)
+            outputs = model.get_outputs_flexible(dm.generate_rays(idx), additional, sched=sched,
+                                                 train=True, rng=gen)
+        else:
+            idx, batch = dm.sample_train_batch(gen)
+            outputs = model.get_outputs(dm.generate_rays(idx), sched=sched, train=True, rng=gen)
+        ld = model.get_loss_dict(outputs, batch, sched, gen)
+        share = None
+        if geo:
+            valid = outputs["patches_valid_mask"]
+            share = float(valid[1:].all(dim=2).any(dim=0).float().mean())
+        return ({k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, sum(ld.values())),
+                share)
+
+    with uncounted(fm):
+        k_loss, k_grads, share = one_step()
+        with swap_fused_mlp(fm.fused_mlp_plain):
+            p_loss, p_grads, _ = one_step()
+    grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
+    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
+    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
+    patch_bytes = None
+    if geo:
+        n_views = int(dm.pairs_srcs.shape[1])
+        patch_bytes = n_views * rays * model.config.patch_size ** 2 * 3 * 4
+    log(phase, f"the step's losses {k_loss}; gradient norms {grad_norm}"
+        + (f"; rays with a crossing and a fully valid source patch {share:.4f} "
+           f"(at least {CUE_VALID_SHARE}); warped colours {n_views} views x {rays} rays x "
+           f"{model.config.patch_size ** 2} pixels, {patch_bytes / 2**20:.1f} MiB" if geo else ""))
+    log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); "
+        f"gradient rel err {grad_err} (tol {STEP_GRAD_TOL})")
+    for k in new_terms:
+        check(k in k_loss and math.isfinite(k_loss[k]), f"{phase}: {k} is {k_loss.get(k)}")
+    if geo:
+        check(share > CUE_VALID_SHARE, f"{phase}: only {share} of the rays warp a valid patch")
+    for g, v in grad_norm.items():
+        check(v > 0, f"{phase}: the {g} group's gradient is zero")
+    for k, e in loss_err.items():
+        check(e <= STEP_LOSS_TOL, f"{phase} {k}: kernel step and plain step differ by {e}")
+    for g, e in grad_err.items():
+        check(e <= STEP_GRAD_TOL, f"{phase} {g} gradient: kernel step and plain step differ by {e}")
+    del k_grads, p_grads
+
+    # one step under the sync debug mode: the host's waits for the device inside a step
+    import warnings
+
+    with uncounted(fm), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0][:120] for w in caught if "synchroniz" in str(w.message)]
+    log(phase, f"host waits in one step (sync debug mode): {len(syncs)} {sorted(set(syncs))[:6]}")
+
+    # one traced update step: the patch warp's and the cue losses' device time, the idle share
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with uncounted(fm), torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    profile = {"traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms)}
+    ranges = profile["ranges"]
+    check("sst/cue_losses" in ranges and (not geo or "sst/patch_warping" in ranges),
+          f"{phase}: the traced step has no sst/cue_losses or sst/patch_warping range: {sorted(ranges)}")
+    warp_ms = ranges.get("sst/patch_warping", {}).get("kernel_ms")
+    cue_ms = ranges["sst/cue_losses"]["kernel_ms"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(phase.replace("cue", "cue_profile"), json.dumps({"train_step": profile}))
+    log(phase, f"traced step: {traced_ms:.2f} ms wall, device busy {profile['device_busy_ms']:.2f} ms, "
+        f"idle share {profile['device_idle_share']:.3f}; sst/patch_warping {warp_ms} ms, "
+        f"sst/cue_losses {cue_ms:.3f} ms of kernels; peak memory {peak_gib:.2f} GiB")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"method": method, "rays": rays, "setup_s": setup_s, "step_ms": step_ms,
+            "rays_per_s": rays / step_ms * 1e3, "loss_first": first, "loss_last": last,
+            "train_launches": train_launches, "chains": train_chains, "step_loss": k_loss,
+            "step_loss_err": loss_err, "step_grad_err": grad_err, "valid_share": share,
+            "patch_bytes": patch_bytes, "patch_warping_ms": warp_ms, "cue_losses_ms": cue_ms,
+            "term_mean": term_mean, "syncs": len(syncs),
+            "train_step_idle_share": profile["device_idle_share"],
+            "traced_step_ms": traced_ms, "device_busy_ms": profile["device_busy_ms"],
+            "peak_memory_gib": peak_gib}
+
+
 def _counts_sum(parts: list) -> tuple:
     kernels, chains = {}, {}
     for k, c in parts:
@@ -2189,6 +2443,9 @@ def main() -> int:
     from sdfstudio_tpu_torch.ops import fused_mlp as fm
     from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
     from sdfstudio_tpu_torch.utils import cuda_build, host_build
+
+    # the cue phases' scene, generated on the host while the card works
+    start_cue_scene()
 
     # 1. device -------------------------------------------------------------
     smi = nvidia_smi_line()
@@ -2376,7 +2633,11 @@ def main() -> int:
     # 12. the remaining neus-facto presets through JAX's command line ---------
     cli = {m: cli_phase(fm, smi, m) for m in CLI_PRESETS}
 
-    # 13. results -----------------------------------------------------------
+    # 13. the MonoSDF and Geo-NeuS entries on the generated scene with its cues
+    cue_scene = finish_cue_scene()
+    cue = {m: cue_phase(fm, smi, m, _CUE_SCENE["dir"]) for m in CUE_METHODS}
+
+    # 14. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -2408,6 +2669,9 @@ def main() -> int:
 
     def cli_launches(name: str) -> int:
         return sum(r["total_launches"][name] for r in cli.values())
+
+    def cue_launches(name: str) -> int:
+        return sum(r["train_launches"][name] for r in cue.values())
 
     def cli_chain_rows(which: str) -> list:
         """p4's chains alone, at a captured step's inputs."""
@@ -2551,8 +2815,9 @@ def main() -> int:
         "launches": (launches["fused_mlp_fwd"] + train["launches"]["fused_mlp_fwd"]
                      + final["launches"]["fused_mlp_fwd"] + resume["launches"]["fused_mlp_fwd"]
                      + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")
-                     + cli_launches("fused_mlp_fwd")),
+                     + cli_launches("fused_mlp_fwd") + cue_launches("fused_mlp_fwd")),
         "launches_cli": {m: r["total_launches"]["fused_mlp_fwd"] for m, r in cli.items()},
+        "launches_cue": {m: r["train_launches"]["fused_mlp_fwd"] for m, r in cue.items()},
         "cli_chains": cli_chain_rows("fwd"),
         "launches_neus_facto": nf_launches["fused_mlp_fwd"],
         "launches_surface": {m: {"train": r["train_launches"]["fused_mlp_fwd"],
@@ -2585,8 +2850,9 @@ def main() -> int:
         "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:151",
         "launches": (train["launches"]["fused_mlp_bwd"] + resume["launches"]["fused_mlp_bwd"]
                      + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")
-                     + cli_launches("fused_mlp_bwd")),
+                     + cli_launches("fused_mlp_bwd") + cue_launches("fused_mlp_bwd")),
         "launches_cli": {m: r["total_launches"]["fused_mlp_bwd"] for m, r in cli.items()},
+        "launches_cue": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in cue.items()},
         "cli_chains": cli_chain_rows("bwd"),
         "launches_neus_facto": nf_launches["fused_mlp_bwd"],
         "launches_surface": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in surface.items()},
@@ -2641,6 +2907,13 @@ def main() -> int:
                                                   "final_eval", "eval_py", "step_loss_err",
                                                   "step_grad_err", "peak_memory_gib")}
                             for m, r in cli.items()}))
+    log("cue", json.dumps({"scene": cue_scene, **{
+        m: {k: r[k] for k in ("rays", "setup_s", "step_ms", "rays_per_s", "step_loss", "valid_share",
+                              "term_mean", "syncs",
+                              "patch_bytes", "patch_warping_ms", "cue_losses_ms",
+                              "train_step_idle_share", "step_loss_err", "step_grad_err",
+                              "peak_memory_gib")}
+        for m, r in cue.items()}}))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)
@@ -2650,4 +2923,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_cue_scene()
+    sys.exit(code)

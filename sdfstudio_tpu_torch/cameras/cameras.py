@@ -80,6 +80,22 @@ class Cameras:
             self, **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
         )
 
+    def __getitem__(self, indices: torch.Tensor) -> "Cameras":
+        """The cameras at ``indices`` [M] (``gather_cameras``, datamanager.py:279-284)."""
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name)[indices] for f in dataclasses.fields(self)}
+        )
+
+    def get_intrinsics_matrices(self) -> torch.Tensor:
+        """[N, 3, 3] pinhole intrinsics in the focal lengths' type (cameras.py:113-122)."""
+        K = torch.zeros((self.num_cameras, 3, 3), dtype=self.fx.dtype, device=self.device)
+        K[:, 0, 0] = self.fx
+        K[:, 1, 1] = self.fy
+        K[:, 0, 2] = self.cx
+        K[:, 1, 2] = self.cy
+        K[:, 2, 2] = 1.0
+        return K
+
     def generate_rays(self, camera_indices: torch.Tensor, coords: torch.Tensor) -> RayBundle:
         """Pixel coords (y, x) -> world rays (cameras.py:134-230, perspective
         branch), each ray from its own camera ``camera_indices[i]``. Pixel

@@ -1,13 +1,17 @@
 """Training losses of the ported methods (counterpart of
 ``sdfstudio_tpu/components/losses.py``): rgb L1, eikonal, the zip-NeRF
-interlevel loss with its step-function blur, the foreground-mask BCE and
-Neuralangelo's curvature loss.
+interlevel loss with its step-function blur, the foreground-mask BCE,
+Neuralangelo's curvature loss, MonoSDF's monocular normal and
+scale-and-shift-invariant depth losses, Geo-NeuS's top-k NCC over warped
+patches, the sensor-depth losses and S3IM.
 Weights are [R, S] (no trailing channel), as in the JAX package."""
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sdfstudio_tpu_torch.core.math import searchsorted_right
 
@@ -83,3 +87,196 @@ def curvature_loss(sampled_sdf: torch.Tensor, sdf: torch.Tensor, delta) -> torch
     pairs = sampled_sdf.reshape(*sampled_sdf.shape[:-1], 3, 2)
     curvature = (torch.sum(pairs, dim=-1) - 2.0 * sdf[..., None]) / (delta * delta + 1e-12)
     return torch.mean(torch.abs(curvature))
+
+
+# --- MonoSDF's monocular cues (losses.py:180-250) --------------------------
+
+
+def monosdf_normal_loss(normal_pred: torch.Tensor, normal_gt: torch.Tensor) -> torch.Tensor:
+    """L1 plus cosine distance between unit normals (losses.py:180-189)."""
+    def normalize(v):
+        return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-12)
+
+    normal_gt, normal_pred = normalize(normal_gt), normalize(normal_pred)
+    l1 = torch.mean(torch.sum(torch.abs(normal_pred - normal_gt), dim=-1))
+    cos = torch.mean(1.0 - torch.sum(normal_pred * normal_gt, dim=-1))
+    return l1 + cos
+
+
+def compute_scale_and_shift(prediction: torch.Tensor, target: torch.Tensor,
+                            mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The closed-form 2x2 least-squares scale and shift of ``prediction``
+    onto ``target`` under ``mask``, [B, H, W] -> ([B], [B]); 0 where the
+    system is singular (losses.py:192-205)."""
+    a_00 = torch.sum(mask * prediction * prediction, dim=(1, 2))
+    a_01 = torch.sum(mask * prediction, dim=(1, 2))
+    a_11 = torch.sum(mask, dim=(1, 2))
+    b_0 = torch.sum(mask * prediction * target, dim=(1, 2))
+    b_1 = torch.sum(mask * target, dim=(1, 2))
+    det = a_00 * a_11 - a_01 * a_01
+    valid = det != 0
+    safe_det = torch.where(valid, det, torch.ones_like(det))
+    zero = torch.zeros_like(det)
+    x_0 = torch.where(valid, (a_11 * b_0 - a_01 * b_1) / safe_det, zero)
+    x_1 = torch.where(valid, (-a_01 * b_0 + a_00 * b_1) / safe_det, zero)
+    return x_0, x_1
+
+
+def _midas_mse(prediction, target, mask):
+    """losses.py:208-213."""
+    M = torch.sum(mask, dim=(1, 2))
+    res = prediction - target
+    image_loss = torch.sum(mask * res * res, dim=(1, 2))
+    divisor = torch.sum(2 * M)
+    return torch.where(divisor == 0, torch.zeros_like(divisor),
+                       torch.sum(image_loss) / torch.clamp(divisor, min=1.0))
+
+
+def _gradient_loss(prediction, target, mask):
+    """Neighbour differences of the masked residual along x and y (losses.py:216-224)."""
+    M = torch.sum(mask, dim=(1, 2))
+    diff = mask * (prediction - target)
+    grad_x = torch.abs(diff[:, :, 1:] - diff[:, :, :-1]) * (mask[:, :, 1:] * mask[:, :, :-1])
+    grad_y = torch.abs(diff[:, 1:, :] - diff[:, :-1, :]) * (mask[:, 1:, :] * mask[:, :-1, :])
+    image_loss = torch.sum(grad_x, dim=(1, 2)) + torch.sum(grad_y, dim=(1, 2))
+    divisor = torch.sum(M)
+    return torch.where(divisor == 0, torch.zeros_like(divisor),
+                       torch.sum(image_loss) / torch.clamp(divisor, min=1.0))
+
+
+def scale_and_shift_invariant_loss(prediction: torch.Tensor, target: torch.Tensor,
+                                   mask: torch.Tensor, alpha: float = 0.5,
+                                   scales: int = 4) -> torch.Tensor:
+    """MiDaS's scale-and-shift-invariant depth loss with multi-scale
+    gradient matching, [B, H, W] inputs (losses.py:226-244)."""
+    scale, shift = compute_scale_and_shift(prediction, target, mask)
+    pred_ssi = scale[:, None, None] * prediction + shift[:, None, None]
+    total = _midas_mse(pred_ssi, target, mask)
+    if alpha > 0:
+        for s in range(scales):
+            step = 2**s
+            total = total + alpha * _gradient_loss(pred_ssi[:, ::step, ::step],
+                                                   target[:, ::step, ::step], mask[:, ::step, ::step])
+    return total
+
+
+# --- Geo-NeuS's multi-view photometric consistency (losses.py:252-300) -----
+
+
+def ncc_score(x: torch.Tensor, y: torch.Tensor, min_patch_variance: float = 0.01) -> torch.Tensor:
+    """1 - NCC of grey patches [N, P, P, C], in [0, 2]; 0 where either
+    patch's variance is below ``min_patch_variance`` (losses.py:252-270)."""
+    xg, yg = torch.mean(x, dim=-1), torch.mean(y, dim=-1)
+    x_c = xg - torch.mean(xg, dim=(1, 2), keepdim=True)
+    y_c = yg - torch.mean(yg, dim=(1, 2), keepdim=True)
+    norm = torch.sum(x_c * y_c, dim=(1, 2))
+    x_var = torch.sum(x_c**2, dim=(1, 2))
+    y_var = torch.sum(y_c**2, dim=(1, 2))
+    denom = torch.sqrt(x_var * y_var + 1e-6)
+    ncc = norm / (denom + 1e-6)
+    not_valid = (x_var < min_patch_variance) | (y_var < min_patch_variance)
+    ncc = torch.where(not_valid, torch.ones_like(ncc), torch.clamp(ncc, -1.0, 1.0))
+    return 1.0 - ncc
+
+
+def smallest_k(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row and their indices, ties to the lower
+    index first, as ``jax.lax.top_k(-score, k)`` orders them (a stable
+    ascending sort)."""
+    idx = torch.sort(score, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(score, -1, idx), idx
+
+
+def multi_view_loss(patches: torch.Tensor, valid: torch.Tensor, patch_size: int = 11,
+                    topk: int = 4, min_patch_variance: float = 0.01) -> torch.Tensor:
+    """Geo-NeuS's loss (losses.py:273-300): each source patch's NCC score
+    against the reference's (``patches[0]``, no gradient), the ``topk``
+    smallest per ray over the sources, the ones whose every pixel warped
+    validly averaged. ``patches`` [1 + S, R, P^2, C], ``valid`` [1 + S, R,
+    P^2, 1]."""
+    num_imgs, num_rays = patches.shape[0], patches.shape[1]
+    C, P = patches.shape[-1], patch_size
+    ref = patches[:1].reshape(1, num_rays, P, P, C).expand(num_imgs - 1, num_rays, P, P, C)
+    ref = ref.reshape(-1, P, P, C)
+    src = patches[1:].reshape(-1, P, P, C)
+    src_valid = valid[1:].reshape(-1, P * P)
+    score = ncc_score(ref.detach(), src, min_patch_variance).reshape(num_imgs - 1, num_rays)
+    score_valid = torch.all(src_valid, dim=-1).reshape(num_imgs - 1, num_rays)
+    min_score, idx = smallest_k(score.T, min(topk, num_imgs - 1))
+    min_valid = torch.gather(score_valid.T, -1, idx)
+    min_score = torch.where(min_valid, min_score, torch.zeros_like(min_score))
+    return torch.sum(min_score) / (torch.sum(min_valid.to(min_score.dtype)) + 1e-6)
+
+
+# --- sensor depth (losses.py:308-333) --------------------------------------
+
+
+def sensor_depth_loss(depth_pred: torch.Tensor, depth_gt: torch.Tensor, starts: torch.Tensor,
+                      pred_sdf: torch.Tensor, directions_norm: torch.Tensor, truncation: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(L1 on the rays with a sensor depth, free-space, truncated SDF)
+    (losses.py:308-333): ``depth_pred`` / ``depth_gt`` / ``directions_norm``
+    [R, 1], ``starts`` and ``pred_sdf`` [R, S]."""
+    valid_gt = depth_gt > 0.0
+    l1 = torch.sum(valid_gt * torch.abs(depth_gt - depth_pred)) / (torch.sum(valid_gt) + 1e-6)
+    z_vals = starts / directions_norm
+    front = valid_gt & (z_vals < (depth_gt - truncation))
+    back = valid_gt & (z_vals > (depth_gt + truncation))
+    sdf_mask = valid_gt & (~front) & (~back)
+    num_fs = torch.sum(front)
+    num_sdf = torch.sum(sdf_mask)
+    num = num_fs + num_sdf + 1e-6
+    fs_weight = 1.0 - num_fs / num
+    sdf_weight = 1.0 - num_sdf / num
+    free_space = torch.mean((torch.relu(truncation - pred_sdf) * front) ** 2) * fs_weight
+    sdf_l = torch.mean(((z_vals + pred_sdf) - depth_gt) ** 2 * sdf_mask) * sdf_weight
+    return l1, free_space, sdf_l
+
+
+# --- S3IM (losses.py:341-398) ----------------------------------------------
+
+
+def _gaussian_kernel(size: int, sigma: float) -> np.ndarray:
+    g = np.exp(-((np.arange(size) - size // 2) ** 2) / (2 * sigma**2))
+    g = g / g.sum()
+    return np.outer(g, g).astype(np.float32)
+
+
+def _ssim_mean(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+    """Mean SSIM under a Gaussian window, a grouped convolution a channel
+    (losses.py:348-374); images [1, C, H, W]."""
+    C = img1.shape[1]
+    k = torch.as_tensor(_gaussian_kernel(kernel_size, 1.5), dtype=img1.dtype, device=img1.device)
+    kernel = k[None, None].repeat(C, 1, 1, 1)
+    pad = (kernel_size - 1) // 2
+
+    def conv(x):
+        return F.conv2d(x, kernel, stride=stride, padding=pad, groups=C)
+
+    mu1, mu2 = conv(img1), conv(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1**2, mu2**2, mu1 * mu2
+    sigma1_sq = conv(img1 * img1) - mu1_sq
+    sigma2_sq = conv(img2 * img2) - mu2_sq
+    sigma12 = conv(img1 * img2) - mu1_mu2
+    C1, C2 = 0.01**2, 0.03**2
+    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
+    return torch.mean(ssim_map)
+
+
+def s3im_loss(src_vec: torch.Tensor, tar_vec: torch.Tensor, rng=None,
+              kernel_size: int = 4, stride: int = 4, repeat_time: int = 10,
+              patch_height: int = 64, perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stochastic structural similarity (losses.py:377-398): the ray batch
+    (colours [N, 3]) in its order and in ``repeat_time - 1`` shuffles, laid
+    out as virtual patches of ``patch_height`` rows, 1 - their SSIM. The
+    shuffles are ``perms`` [repeat_time - 1, N] when given (a test hands in
+    JAX's), else drawn from ``rng``, a ``torch.Generator`` on the rays' device."""
+    n = tar_vec.shape[0]
+    if perms is None:
+        perms = torch.stack([torch.randperm(n, generator=rng, device=tar_vec.device)
+                             for _ in range(repeat_time - 1)])
+    idx = torch.cat([torch.arange(n, device=tar_vec.device), perms.reshape(-1).to(tar_vec.device)])
+    tar_patch = tar_vec[idx].T.reshape(1, 3, patch_height, -1)
+    src_patch = src_vec[idx].T.reshape(1, 3, patch_height, -1)
+    return 1.0 - _ssim_mean(src_patch, tar_patch, kernel_size, stride)

@@ -1,7 +1,11 @@
 """Method registry (counterpart of ``sdfstudio_tpu/configs/methods.py``).
 
 Registers ``neus`` (methods.py:113-123), ``volsdf`` (:125-135), ``unisurf``
-(:193-213), the ``neus-facto`` family -- ``neus-facto`` (:216-240),
+(:193-213), the MonoSDF and Geo-NeuS variants of those three --
+``monosdf`` (:137-149), ``mono-neus`` (:152-164), ``geo-neus`` (:167-179),
+``geo-volsdf`` (:181-191), ``mono-unisurf`` and ``geo-unisurf`` (:194-213),
+the geo entries with the flexible data manager (:876-882) -- the
+``neus-facto`` family -- ``neus-facto`` (:216-240),
 ``neus-facto-tpu`` (:270-312), ``neus-facto-tpu-p4`` (:314-359),
 ``neus-facto-tpu-p8`` (:361-393) and ``neus-facto-bigmlp`` (:396-412) --
 and ``neuralangelo`` (:461-501), each a ``Config`` (``configs/base.py``)
@@ -37,6 +41,12 @@ descriptions = {
     "neus": "Implementation of NeuS.",
     "volsdf": "Implementation of VolSDF.",
     "unisurf": "Implementation of UniSurf.",
+    "monosdf": "Implementation of MonoSDF.",
+    "mono-neus": "MonoSDF with NeuS rendering formulation.",
+    "geo-neus": "Patch warping from Geo-NeuS with NeuS.",
+    "geo-volsdf": "Patch warping from Geo-NeuS with VolSDF.",
+    "mono-unisurf": "MonoSDF with unisurf rendering formulation.",
+    "geo-unisurf": "Patch warping from Geo-NeuS with UniSurf.",
     "neus-facto": "NeuS with proposal-network sampling (recommended).",
     "neus-facto-tpu": "neus-facto with a TPU-optimized hash layout (8x4).",
     "neus-facto-tpu-p4": "neus-facto-tpu with a permutohedral L4xF4 encoding.",
@@ -49,12 +59,14 @@ descriptions = {
 def MethodConfig(method_name: str, model_class: type, model: SurfaceModelConfig,
                  optimizers: Optional[Dict[str, OptimizerGroupConfig]] = None,
                  trainer: Optional[TrainerConfig] = None,
-                 datamanager: Optional[DataManagerConfig] = None) -> Config:
-    """A registry entry: a ``Config`` with the SDFStudio parser."""
+                 datamanager: Optional[DataManagerConfig] = None,
+                 dataparser: Optional[SDFStudioDataParserConfig] = None) -> Config:
+    """A registry entry: a ``Config`` with the SDFStudio parser (at its
+    defaults unless given)."""
     return Config(method_name=method_name, model_class=model_class, model=model,
                   optimizers=dict(optimizers or {}), trainer=trainer or TrainerConfig(),
                   datamanager=datamanager or DataManagerConfig(),
-                  dataparser=SDFStudioDataParserConfig())
+                  dataparser=dataparser or SDFStudioDataParserConfig())
 
 
 def _adam(lr: float, kind: str = "adam", weight_decay: float = 0.0) -> OptimizerConfig:
@@ -89,11 +101,13 @@ _SURFACE_TRAINER = dict(
 
 def _surface_cfg(name: str, model_class: type, model: SurfaceModelConfig,
                  optimizers: Dict[str, OptimizerGroupConfig], trainer_kwargs: Dict,
-                 rays_per_batch: int = 1024) -> Config:
+                 rays_per_batch: int = 1024, dataparser: Optional[SDFStudioDataParserConfig] = None,
+                 kind: str = "vanilla") -> Config:
     """``_surface_cfg`` (methods.py:93-110)."""
     return MethodConfig(name, model_class, model, optimizers,
                         TrainerConfig(**{**_SURFACE_TRAINER, **trainer_kwargs}),
-                        DataManagerConfig(train_num_rays_per_batch=rays_per_batch))
+                        DataManagerConfig(train_num_rays_per_batch=rays_per_batch, kind=kind),
+                        dataparser)
 
 
 def _facto_optimizers(max_steps: int = 20000) -> Dict[str, OptimizerGroupConfig]:
@@ -129,6 +143,15 @@ def _facto(name: str, sdf_field: SDFFieldConfig, trainer_kwargs: Dict, **model_k
 
 _CLASSIC = {"field": OptimizerGroupConfig(_adam(5e-4), _neus_sched()),
             "field_background": OptimizerGroupConfig(_adam(5e-4), _neus_sched())}
+
+
+def _exp(max_steps: int) -> SchedulerConfig:
+    return SchedulerConfig(kind="exponential", decay_rate=0.1, max_steps=max_steps)  # methods.py:82-83
+
+
+_MONO = dict(mono_depth_loss_mult=0.1, mono_normal_loss_mult=0.05)  # methods.py:141, 156, 198
+_MONO_PARSER = SDFStudioDataParserConfig(include_mono_prior=True)
+_GEO_PARSER = SDFStudioDataParserConfig(load_pairs=True)
 # steps_per_call=25 is the TPU's K-step scan (methods.py:309-311): taken, no effect here
 _PRESET_TRAINER = dict(max_num_iterations=20001, steps_per_eval_image=5000, steps_per_call=25)
 
@@ -137,13 +160,37 @@ method_configs: Dict[str, Config] = {
                          _CLASSIC, dict(max_num_iterations=100000)),
     "volsdf": _surface_cfg(
         "volsdf", VolSDFModel, VolSDFModelConfig(eval_num_rays_per_chunk=1024),
-        {g: OptimizerGroupConfig(_adam(5e-4), SchedulerConfig(kind="exponential", decay_rate=0.1,
-                                                              max_steps=100000))
-         for g in ("field", "field_background")},
+        {g: OptimizerGroupConfig(_adam(5e-4), _exp(100000)) for g in ("field", "field_background")},
         dict(max_num_iterations=100000)),
     "unisurf": _surface_cfg("unisurf", UniSurfModel,
                             UniSurfModelConfig(eval_num_rays_per_chunk=1024), _CLASSIC,
                             dict(max_num_iterations=100000)),
+    "monosdf": _surface_cfg(
+        "monosdf", VolSDFModel, VolSDFModelConfig(eval_num_rays_per_chunk=1024, **_MONO),
+        {g: OptimizerGroupConfig(_adam(5e-4), _exp(200000)) for g in ("field", "field_background")},
+        dict(max_num_iterations=200000), dataparser=_MONO_PARSER),
+    "mono-neus": _surface_cfg(
+        "mono-neus", NeuSModel, NeuSModelConfig(eval_num_rays_per_chunk=1024, **_MONO), _CLASSIC,
+        dict(max_num_iterations=100000), dataparser=_MONO_PARSER),
+    "geo-neus": _surface_cfg(
+        "geo-neus", NeuSModel,
+        NeuSModelConfig(patch_warp_loss_mult=0.1, eval_num_rays_per_chunk=1024), _CLASSIC,
+        dict(max_num_iterations=200000),
+        dataparser=SDFStudioDataParserConfig(load_pairs=True, include_sfm_points=True),
+        kind="flexible"),
+    "geo-volsdf": _surface_cfg(
+        "geo-volsdf", VolSDFModel,
+        VolSDFModelConfig(patch_warp_loss_mult=0.1, eval_num_rays_per_chunk=1024),
+        {"field": OptimizerGroupConfig(_adam(5e-4), _multistep(1000000)),
+         "field_background": OptimizerGroupConfig(_adam(5e-4), _exp(200000))},
+        dict(max_num_iterations=200001), dataparser=_GEO_PARSER, kind="flexible"),
+    "mono-unisurf": _surface_cfg(
+        "mono-unisurf", UniSurfModel, UniSurfModelConfig(eval_num_rays_per_chunk=1024, **_MONO),
+        _CLASSIC, dict(max_num_iterations=100000), dataparser=_MONO_PARSER),
+    "geo-unisurf": _surface_cfg(
+        "geo-unisurf", UniSurfModel,
+        UniSurfModelConfig(patch_warp_loss_mult=0.1, eval_num_rays_per_chunk=1024), _CLASSIC,
+        dict(max_num_iterations=100000), dataparser=_GEO_PARSER, kind="flexible"),
     "neus-facto": _facto("neus-facto", _facto_field(),
                          dict(max_num_iterations=20001, steps_per_eval_image=5000)),
     # methods.py:270-312: hash L8xF4 at 2^19 rows, max_res 512, PE+MLP proposals at hidden 128

@@ -8,8 +8,12 @@ Every training image is decoded once, stacked and moved to the device
 (datamanager.py:236-253). The eval split's images and cameras sit on the
 device beside them (datamanager.py:255-275); without an eval split, or
 with one of the same frames (the parser's default), the training images and
-cameras serve. The camera optimizer is not ported:
-``neus-facto-tpu-p8`` sets ``mode="off"`` (ROADMAP queue 1 item 12).
+cameras serve. The parser's cues sit beside the images (``depth``,
+``normal``, ``sensor_depth``, ``fg_mask``) and a batch gathers them too.
+``FlexibleDataManager`` (datamanager.py:287-332, the Geo-NeuS methods) draws
+a batch from one reference image and hands its source views along. The
+camera optimizer is not ported: every registered surface method sets
+``mode="off"`` (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -27,24 +31,39 @@ from sdfstudio_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class DataManagerConfig:
-    """The fields of ``DataManagerConfig`` (datamanager.py:29-44) this port reads."""
+    """The fields of ``DataManagerConfig`` (datamanager.py:29-44) this port
+    reads: ``kind`` is ``vanilla`` or ``flexible`` (``engine/setup.py``
+    builds the data manager it names); ``neighbors_num`` cuts a flexible
+    batch's sources to that many."""
 
     train_num_rays_per_batch: int = 1024
+    kind: str = "vanilla"
+    neighbors_num: Optional[int] = None
+
+
+def _stack(arrays, what: str) -> np.ndarray:
+    if len({a.shape for a in arrays}) != 1:
+        raise NotImplementedError(f"{what} of different sizes are not ported (_pad_stack)")
+    return np.stack(arrays)
 
 
 def stack_images(outputs: DataparserOutputs) -> Dict[str, np.ndarray]:
-    """Host image stack [N, H, W, 3] as datamanager.py:128-152 builds it:
-    RGBA composited over white."""
+    """Host stacks as datamanager.py:128-152 builds them: images [N, H, W,
+    3] (RGBA composited over white), and the parser's cues where it read
+    them: ``depth`` and ``sensor_depth`` [N, H, W], ``normal`` [N, H, W, 3],
+    ``fg_mask`` [N, H, W, 1]."""
     def load(f):
         img = load_image(f)
         if img.shape[-1] == 4:
             img = img[..., :3] * img[..., 3:] + np.ones(3, np.float32) * (1.0 - img[..., 3:])
         return img[..., :3]
 
-    images = [load(f) for f in outputs.image_filenames]
-    if len({im.shape for im in images}) != 1:
-        raise NotImplementedError("images of different sizes are not ported (_pad_stack)")
-    return {"image": np.stack(images)}
+    data = {"image": _stack([load(f) for f in outputs.image_filenames], "images")}
+    for key, cues in (("depth", outputs.depths), ("normal", outputs.normals),
+                      ("sensor_depth", outputs.sensor_depths), ("fg_mask", outputs.fg_masks)):
+        if cues:
+            data[key] = _stack(list(cues), key)
+    return data
 
 
 class VanillaDataManager:
@@ -102,3 +121,57 @@ class VanillaDataManager:
     def num_eval_images(self) -> int:
         data = self.eval_data if self.eval_data is not None else self.train_data
         return data["image"].shape[0]
+
+
+class FlexibleDataManager(VanillaDataManager):
+    """The patch-warping data manager (datamanager.py:287-332): a batch's
+    rays all come from one reference image, and the batch carries that
+    image's row of ``pairs_srcs`` (the reference, then its sources), cut to
+    ``neighbors_num + 1``, with those views' images and cameras."""
+
+    def __init__(
+        self,
+        config: DataManagerConfig,
+        train_outputs: DataparserOutputs,
+        eval_outputs: Optional[DataparserOutputs] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__(config, train_outputs, eval_outputs, device)
+        if train_outputs.pairs_srcs is None:
+            raise ValueError("the flexible data manager needs pairs.txt (sdfstudio-data "
+                             "--load-pairs True)")
+        pairs = np.asarray(train_outputs.pairs_srcs)
+        if config.neighbors_num is not None:
+            pairs = pairs[:, : config.neighbors_num + 1]
+        self.pairs_srcs = torch.as_tensor(pairs, dtype=torch.int64, device=self.device)
+
+    def sample_train_batch_flexible(
+        self, generator: torch.Generator, num_rays: Optional[int] = None
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
+        """One uniform reference image and R uniform pixels in it
+        (datamanager.py:304-332): ``flexible_batch`` of the draw."""
+        R = num_rays or self.config.train_num_rays_per_batch
+        kw = dict(generator=generator, device=self.device)
+        ref = torch.randint(0, self.num_train_images, (), **kw)
+        y = torch.randint(0, self.image_height, (R,), **kw)
+        x = torch.randint(0, self.image_width, (R,), **kw)
+        return self.flexible_batch(ref, y, x)
+
+    def flexible_batch(
+        self, ref: torch.Tensor, y: torch.Tensor, x: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
+        """(ray indices [R, 3], the pixels' batch, the additional inputs:
+        ``uv`` [R, 2] as (y, x), ``src_idxs`` [1 + S], ``src_imgs`` [1 + S,
+        H, W, 3], ``src_cameras``) of reference image ``ref`` (0-dim) at
+        pixels (y, x)."""
+        cam = ref.expand(y.shape[0])
+        batch = {k: v[cam, y, x] for k, v in self.train_data.items()}
+        # index_select: indexing by a 0-dim tensor would read it back to the host
+        src_idxs = torch.index_select(self.pairs_srcs, 0, ref.reshape(1))[0]
+        additional = {
+            "uv": torch.stack([y, x], dim=-1),
+            "src_idxs": src_idxs,
+            "src_imgs": self.train_data["image"][src_idxs],
+            "src_cameras": self.train_cameras[src_idxs],
+        }
+        return torch.stack([cam, y, x], dim=-1), batch, additional

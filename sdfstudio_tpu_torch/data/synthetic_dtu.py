@@ -1,16 +1,27 @@
-"""Ground truth of the DTU-like parity scene and the Chamfer-L1 judge
-(counterpart of ``sdfstudio_tpu/data/synthetic_dtu.py``: ``gt_sdf`` :39,
-``gt_normal`` :74, ``gt_surface_samples`` :238, ``chamfer_l1_to_gt`` :258),
-in numpy float64 with scipy's ``cKDTree`` for the nearest-vertex search, as
-the reference does. The scene renderer is not ported: the parity scene is
-committed (``.parity/dtu_like``) and never regenerated.
+"""The DTU-like parity scene: its ground truth, its renderer and the
+Chamfer-L1 judge (counterpart of ``sdfstudio_tpu/data/synthetic_dtu.py``:
+``gt_sdf`` :39, ``gt_normal`` :74, ``_sphere_trace`` :99, ``_shade`` :112,
+``generate_dtu_like_dataset`` :128, ``gt_surface_samples`` :238,
+``chamfer_l1_to_gt`` :258), in numpy as the reference computes them, with
+scipy's ``cKDTree`` for the nearest-vertex search. The renderer writes its
+PNGs through the port's ``data/png.py`` where JAX uses PIL: the same
+pixels (at its defaults, the committed ``.parity/dtu_like`` images) and,
+with ``with_mono_prior``, the same monocular depth and normal files.
+``write_pairs_and_sfm_points`` adds what the Geo-NeuS methods' parser
+reads: ``pairs.txt`` by ring adjacency (``data/synthetic.py:132-144``) and
+per-view files of GT surface points.
 
 The object fits in ``|x| < 0.62``; the judge crops predicted vertices to
 ``r < crop_radius`` (default 0.75), the scene's analog of DTU's ObsMask.
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import numpy as np
+
+from sdfstudio_tpu_torch.data.png import write_png
 
 
 def _smin(a, b, k):
@@ -52,6 +63,171 @@ def gt_normal(p: np.ndarray, eps: float = 5e-4) -> np.ndarray:
     offs = np.eye(3) * eps
     n = np.stack([gt_sdf(p + offs[i]) - gt_sdf(p - offs[i]) for i in range(3)], axis=-1)
     return n / (np.linalg.norm(n, axis=-1, keepdims=True) + 1e-12)
+
+
+def _albedo(p):
+    """Procedural 3D texture: multi-frequency colour bands + speckle (synthetic_dtu.py:83-96)."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    base = np.stack(
+        [
+            0.55 + 0.30 * np.sin(6.0 * x + 2.0 * np.sin(3.0 * y)),
+            0.50 + 0.30 * np.sin(7.0 * y + 2.0 * np.sin(3.0 * z) + 1.7),
+            0.45 + 0.30 * np.sin(8.0 * z + 2.0 * np.sin(3.0 * x) + 3.1),
+        ],
+        axis=-1,
+    )
+    speckle = 0.12 * np.sin(37.0 * x) * np.sin(41.0 * y) * np.sin(43.0 * z)
+    stripes = 0.10 * np.sin(24.0 * (x + y + z))
+    return np.clip(base + speckle[..., None] + stripes[..., None], 0.02, 1.0)
+
+
+def _sphere_trace(origins, dirs, t0, t1, iters=96, step=0.7):
+    """Sphere tracing of ``gt_sdf`` in float32: (t, hit) (synthetic_dtu.py:99-109)."""
+    t = np.full(origins.shape[:-1], t0, np.float32)
+    for _ in range(iters):
+        pts = origins + t[..., None] * dirs
+        d = gt_sdf(pts).astype(np.float32)
+        t = t + step * d
+        t = np.minimum(t, t1)
+    pts = origins + t[..., None] * dirs
+    hit = (gt_sdf(pts) < 2.5e-3) & (t < t1 - 1e-3)
+    return t, hit
+
+
+def _shade(pts, normals, view_dirs):
+    """Two directional lights, ambient and Blinn-Phong specular (synthetic_dtu.py:112-125)."""
+    lights = np.array([[0.5, -0.4, 0.77], [-0.7, 0.3, 0.65]], np.float64)
+    lights /= np.linalg.norm(lights, axis=-1, keepdims=True)
+    light_rgb = np.array([[1.0, 0.96, 0.9], [0.35, 0.4, 0.5]])
+    alb = _albedo(pts)
+    col = 0.16 * alb
+    for L, lc in zip(lights, light_rgb):
+        lam = np.clip(np.einsum("...i,i->...", normals, L), 0, 1)
+        col = col + alb * lam[..., None] * lc
+        h = L - view_dirs
+        h = h / (np.linalg.norm(h, axis=-1, keepdims=True) + 1e-9)
+        spec = np.clip(np.einsum("...i,...i->...", normals, h), 0, 1) ** 48
+        col = col + 0.25 * spec[..., None] * lc
+    return np.clip(col, 0, 1)
+
+
+def generate_dtu_like_dataset(
+    out_dir: Path,
+    num_images: int = 49,
+    width: int = 384,
+    height: int = 384,
+    cam_radius: float = 2.2,
+    with_fg_mask: bool = True,
+    with_mono_prior: bool = False,
+    val_every: int = 8,
+    seed: int = 0,
+) -> Path:
+    """Render the scene to SDFStudio format under ``out_dir`` and return it
+    (synthetic_dtu.py:128-230): a ring of ``num_images`` cameras with jittered
+    elevation and radius from ``RandomState(seed)``, sphere-traced and
+    shaded views over a dark vignetted backdrop, foreground masks and, with
+    ``with_mono_prior``, camera-frame z depth and normals (omnidata's [3, H,
+    W] layout in [0, 1]; [0, 0, -1] off the object). ``val_every`` is kept
+    for JAX's signature and not read, as in JAX."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fx = fy = 1.1 * width
+    cx, cy = width / 2.0, height / 2.0
+    intrinsics = np.array([[fx, 0, cx, 0], [0, fy, cy, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float64)
+
+    rng = np.random.RandomState(seed)
+    frames = []
+    for i in range(num_images):
+        # a DTU-style rig: a ring with varying elevation and a little radius jitter
+        phi = 2 * np.pi * i / num_images
+        elev = 0.30 + 0.28 * np.sin(2.0 * phi + 0.7) + 0.05 * rng.randn()
+        rad = cam_radius * (1.0 + 0.03 * rng.randn())
+        pos = rad * np.array([np.cos(phi) * np.cos(elev), np.sin(phi) * np.cos(elev), np.sin(elev)])
+        forward = -pos / np.linalg.norm(pos)
+        right = np.cross(forward, np.array([0.0, 0.0, 1.0]))
+        right /= np.linalg.norm(right)
+        down = np.cross(forward, right)
+        R = np.stack([right, down, forward], axis=1)
+        c2w = np.eye(4)
+        c2w[:3, :3] = R
+        c2w[:3, 3] = pos
+
+        ys, xs = np.meshgrid(np.arange(height) + 0.5, np.arange(width) + 0.5, indexing="ij")
+        d_cam = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)], axis=-1)
+        d_cam /= np.linalg.norm(d_cam, axis=-1, keepdims=True)
+        d_world = (d_cam @ R.T).astype(np.float32)
+        o_world = np.broadcast_to(pos.astype(np.float32), d_world.shape)
+        t, hit = _sphere_trace(o_world, d_world, t0=rad - 0.75, t1=rad + 0.75)
+        pts = o_world + t[..., None] * d_world
+        normals = gt_normal(pts)
+        rgb_fg = _shade(pts, normals, d_world)
+        rr = np.sqrt((xs / width - 0.5) ** 2 + (ys / height - 0.5) ** 2)
+        bg = (0.055 + 0.03 * (1 - rr))[..., None] * np.array([1.0, 1.05, 1.1])
+        img = np.where(hit[..., None], rgb_fg, np.clip(bg, 0, 1))
+
+        name = f"{i:06d}_rgb.png"
+        write_png(out_dir / name, (img * 255).astype(np.uint8))
+        frame = {"rgb_path": name, "camtoworld": c2w.tolist(), "intrinsics": intrinsics.tolist()}
+        if with_fg_mask:
+            mname = f"{i:06d}_foreground_mask.png"
+            write_png(out_dir / mname, (hit * 255).astype(np.uint8))
+            frame["foreground_mask"] = mname
+        if with_mono_prior:
+            z_depth = np.where(hit, t * d_cam[..., 2], 0.0).astype(np.float32)
+            np.save(out_dir / f"{i:06d}_depth.npy", z_depth)
+            n_cam = np.einsum("ij,hwj->hwi", R.T, normals)
+            n_cam = np.where(hit[..., None], n_cam, np.array([0, 0, -1.0]))
+            n01 = ((np.moveaxis(n_cam, -1, 0) + 1.0) / 2.0).astype(np.float32)
+            np.save(out_dir / f"{i:06d}_normal.npy", n01)
+            frame["mono_depth_path"] = f"{i:06d}_depth.npy"
+            frame["mono_normal_path"] = f"{i:06d}_normal.npy"
+        frames.append(frame)
+
+    meta = {
+        "camera_model": "OPENCV",
+        "height": height,
+        "width": width,
+        "has_mono_prior": with_mono_prior,
+        "has_sensor_depth": False,
+        "has_foreground_mask": with_fg_mask,
+        "has_sparse_sfm_points": False,
+        "worldtogt": np.eye(4).tolist(),
+        "scene_box": {"aabb": [[-1, -1, -1], [1, 1, 1]], "near": 0.8, "far": 4.0, "radius": 1.0,
+                      "collider_type": "near_far"},
+        "frames": frames,
+    }
+    (out_dir / "meta_data.json").write_text(json.dumps(meta, indent=1))
+    return out_dir
+
+
+def write_pairs_and_sfm_points(out_dir: Path, num_pair_srcs: int = 8,
+                               points_per_view: int = 500, seed: int = 0) -> Path:
+    """Add the Geo-NeuS parser's inputs to a scene under ``out_dir``:
+    ``pairs.txt``, each view's ``num_pair_srcs`` sources by ring adjacency
+    (+-1, +-2, ..., as ``data/synthetic.py:132-144`` writes them), and
+    ``sfm_sparse_points_view`` files of ``points_per_view`` GT surface
+    points a view (``gt_surface_samples``), ``has_sparse_sfm_points`` set."""
+    out_dir = Path(out_dir)
+    meta = json.loads((out_dir / "meta_data.json").read_text())
+    n = len(meta["frames"])
+    lines = []
+    for i in range(n):
+        srcs = []
+        for d in range(1, num_pair_srcs // 2 + 1):
+            srcs += [(i - d) % n, (i + d) % n]
+        lines.append(" ".join([f"{i:06d}.png"] + [f"{s:06d}.png" for s in srcs[:num_pair_srcs]]))
+    (out_dir / "pairs.txt").write_text("\n".join(lines) + "\n")
+    # gt_surface_samples keeps the draws that project onto the surface: ask for plenty
+    pts = gt_surface_samples(8 * n * points_per_view, seed=seed)[: n * points_per_view]
+    if len(pts) < n * points_per_view:
+        raise ValueError(f"only {len(pts)} surface points for {n} views of {points_per_view}")
+    for i, frame in enumerate(meta["frames"]):
+        name = f"{i:06d}_sfm_points.txt"
+        np.savetxt(out_dir / name, pts[i * points_per_view:(i + 1) * points_per_view])
+        frame["sfm_sparse_points_view"] = name
+    meta["has_sparse_sfm_points"] = True
+    (out_dir / "meta_data.json").write_text(json.dumps(meta, indent=1))
+    return out_dir
 
 
 def gt_surface_samples(n: int = 200_000, seed: int = 0) -> np.ndarray:

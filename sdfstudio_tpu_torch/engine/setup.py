@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 from sdfstudio_tpu_torch.configs.base import Config
 from sdfstudio_tpu_torch.configs.methods import build_model
-from sdfstudio_tpu_torch.data.datamanager import VanillaDataManager
+from sdfstudio_tpu_torch.data.datamanager import FlexibleDataManager, VanillaDataManager
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig, parse_config
 from sdfstudio_tpu_torch.engine.trainer import Trainer
 from sdfstudio_tpu_torch.utils.device import resolve_device
@@ -44,7 +44,12 @@ def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str]
     config.dataparser = parser  # as JAX's setup does, so that config.yml names the scene
     train_outputs = parse_config(parser, "train")
     eval_outputs = parse_config(parser, "val")
-    datamanager = VanillaDataManager(config.datamanager, train_outputs, eval_outputs, device=dev)
+    # setup.py:42-52: the Geo-NeuS methods' data manager draws from one reference image
+    kinds = {"vanilla": VanillaDataManager, "flexible": FlexibleDataManager}
+    if config.datamanager.kind not in kinds:
+        raise ValueError(f"datamanager kind {config.datamanager.kind!r}: one of {sorted(kinds)}")
+    datamanager = kinds[config.datamanager.kind](config.datamanager, train_outputs, eval_outputs,
+                                                 device=dev)
     model = build_model(config, train_outputs.scene_box, num_train_data=datamanager.num_train_images,
                         seed=MODEL_SEED, device=dev).train()
     run_dir = config.get_base_dir() if checkpoints else None

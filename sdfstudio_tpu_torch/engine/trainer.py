@@ -14,7 +14,11 @@ parameters stay as they are (trainer.py:403-418). With
 as ``A`` sub-batches in order, each from the same generator state (JAX's
 scan hands every sub-batch the same ``rng_model``), then averages the
 gradients and the loss and reports the last sub-batch's loss dict
-(trainer.py:329-401).
+(trainer.py:329-401). With a ``FlexibleDataManager`` (the Geo-NeuS
+methods) a step draws ``train_num_rays_per_batch`` rays from one reference
+image with its source views and runs ``get_outputs_flexible``; it takes no
+accumulation, as JAX's scan runs only without those inputs
+(trainer.py:330-336, 366).
 
 The loop keeps JAX's cadences, each a crossing of a multiple in the
 window just run (``crossed``): every ``steps_per_log`` the last step's
@@ -113,10 +117,16 @@ def eval_image_index(step: int, num_eval_images: int) -> int:
 
 
 def loss_and_metrics(
-    model, ray_bundle, batch: Dict[str, torch.Tensor], sched: Dict, rng: Rng = None
+    model, ray_bundle, batch: Dict[str, torch.Tensor], sched: Dict, rng: Rng = None,
+    additional: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """``loss_fn`` of trainer.py:352-364: (total loss, loss dict, metrics)."""
-    outputs = model.get_outputs(ray_bundle, sched=sched, train=True, rng=rng)
+    """``loss_fn`` of trainer.py:352-364: (total loss, loss dict, metrics);
+    with a flexible batch's ``additional`` inputs through
+    ``get_outputs_flexible``."""
+    if additional is not None:
+        outputs = model.get_outputs_flexible(ray_bundle, additional, sched=sched, train=True, rng=rng)
+    else:
+        outputs = model.get_outputs(ray_bundle, sched=sched, train=True, rng=rng)
     loss_dict = model.get_loss_dict(outputs, batch, sched, rng)
     total = sum(loss_dict.values())
     return total, loss_dict, model.get_metrics_dict(outputs, batch)
@@ -204,14 +214,18 @@ class Trainer:
         """One step; returns its metrics as one device vector (``metric_keys``)."""
         model, dm, gen = self.model, self.datamanager, self.generator
         sched = model.schedules(self.step)
-        accum = max(self.config.accumulate_grad_steps, 1)
+        accum = self.rays_multiple()
         R = dm.config.train_num_rays_per_batch
+        additional = None
         with record_function("sst/train_batch"):
-            ray_indices, batch = dm.sample_train_batch(gen, num_rays=R * accum)
+            if hasattr(dm, "sample_train_batch_flexible"):
+                ray_indices, batch, additional = dm.sample_train_batch_flexible(gen)
+            else:
+                ray_indices, batch = dm.sample_train_batch(gen, num_rays=R * accum)
         if accum == 1:
             with record_function("sst/train_forward"):
                 total, loss_dict, metrics = loss_and_metrics(
-                    model, dm.generate_rays(ray_indices), batch, sched, gen)
+                    model, dm.generate_rays(ray_indices), batch, sched, gen, additional)
             with record_function("sst/train_backward"):
                 grads = group_grads(total, self.optimizers)
         else:
@@ -237,6 +251,13 @@ class Trainer:
         out = {"loss": total.detach(), **{k: v.detach() for k, v in loss_dict.items()}, **metrics}
         self.metric_keys = sorted(out)
         return torch.stack([out[k].reshape(()).to(torch.float32) for k in self.metric_keys])
+
+    def rays_multiple(self) -> int:
+        """Sub-batches a step: ``accumulate_grad_steps``, or 1 with a
+        flexible data manager (trainer.py:366)."""
+        if hasattr(self.datamanager, "sample_train_batch_flexible"):
+            return 1
+        return max(self.config.accumulate_grad_steps, 1)
 
     @torch.no_grad()
     def eval_image_metrics(self, camera_index: int) -> Dict[str, float]:
@@ -296,7 +317,7 @@ class Trainer:
         """The loop of trainer.py:668-742, one step a window."""
         cfg, dm = self.config, self.datamanager
         window_t0, window_steps = time.perf_counter(), 0
-        rays = dm.config.train_num_rays_per_batch * max(cfg.accumulate_grad_steps, 1)
+        rays = dm.config.train_num_rays_per_batch * self.rays_multiple()
         while self.step < max_iters:
             lo = self.step
             vec = self.train_step()

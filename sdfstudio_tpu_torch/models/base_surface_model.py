@@ -6,6 +6,11 @@ dict computed from ``step`` (base_surface_model.py:1-9), as in JAX.
 The ``"mlp"`` background is the NeRF field, evaluated on each ray beyond its
 far bound and blended by the foreground's last transmittance; the
 ``"grid"`` background (``NerfactoField``) is not ported yet.
+``get_outputs_flexible`` adds Geo-NeuS's warped patches from the source
+views (under the profiler range ``sst/patch_warping``), and
+``get_loss_dict`` takes every term of JAX's but the periodic encoding's TV
+(ROADMAP queue 1 item 3): the monocular normal and depth cues, the sensor
+depth, the patch NCC, the SfM points' SDF and S3IM (``sst/cue_losses``).
 """
 from __future__ import annotations
 
@@ -14,11 +19,13 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
 from sdfstudio_tpu_torch.components import losses as L
 from sdfstudio_tpu_torch.components.colliders import apply_collider
+from sdfstudio_tpu_torch.components.patch_warping import patch_warping
 from sdfstudio_tpu_torch.core.rays import RayBundle, RaySamples
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
 from sdfstudio_tpu_torch.fields.sdf_field import SDFField, SDFFieldConfig
@@ -30,7 +37,9 @@ from sdfstudio_tpu_torch.samplers.spaced import Rng, linear_disparity_sampler
 
 @dataclasses.dataclass(frozen=True)
 class SurfaceModelConfig:
-    """The fields of ``SurfaceModelConfig`` (base_surface_model.py:29-69) this slice reads."""
+    """The fields of ``SurfaceModelConfig`` (base_surface_model.py:29-69)
+    the port reads, with JAX's defaults. ``periodic_tvl_mult > 0`` raises:
+    it needs the periodic encoding (ROADMAP queue 1 item 3)."""
 
     near_plane: float = 0.05
     far_plane: float = 4.0
@@ -38,9 +47,27 @@ class SurfaceModelConfig:
     background_color: str = "black"
     eikonal_loss_mult: float = 0.1
     fg_mask_loss_mult: float = 0.01
+    mono_normal_loss_mult: float = 0.0
+    mono_depth_loss_mult: float = 0.0
+    patch_warp_loss_mult: float = 0.0
+    patch_size: int = 11
+    patch_warp_angle_thres: float = 0.3
+    min_patch_variance: float = 0.01
+    topk: int = 4
+    sensor_depth_truncation: float = 0.015
+    sensor_depth_l1_loss_mult: float = 0.0
+    sensor_depth_freespace_loss_mult: float = 0.0
+    sensor_depth_sdf_loss_mult: float = 0.0
+    sparse_points_sdf_loss_mult: float = 0.0
+    s3im_loss_mult: float = 0.0
+    s3im_kernel_size: int = 4
+    s3im_stride: int = 4
+    s3im_repeat_time: int = 10
+    s3im_patch_height: int = 32
     sdf_field: SDFFieldConfig = SDFFieldConfig()
     background_model: str = "mlp"  # mlp | none ("grid" is not ported yet)
     num_samples_outside: int = 32
+    periodic_tvl_mult: float = 0.0
     overwrite_near_far_plane: bool = False
     scene_contraction_norm: str = "inf"
     eval_num_rays_per_chunk: int = 1024
@@ -55,6 +82,9 @@ class SurfaceModel(nn.Module):
             raise NotImplementedError(
                 f"background_model={config.background_model!r} is not ported yet (ROADMAP queue 1 "
                 "item 5); 'mlp' and 'none' are")
+        if config.periodic_tvl_mult > 0.0:
+            raise NotImplementedError("periodic_tvl_mult > 0 needs the periodic encoding, which is "
+                                      "not ported yet (ROADMAP queue 1 item 3)")
         self.config = config
         self.scene_box = scene_box
         self.num_train_data = num_train_data
@@ -181,22 +211,102 @@ class SurfaceModel(nn.Module):
             )
         return outputs
 
+    def get_outputs_flexible(
+        self,
+        ray_bundle: RayBundle,
+        additional_inputs: Dict,
+        sched: Optional[Dict] = None,
+        train: bool = False,
+        rng: Rng = None,
+    ) -> Dict[str, torch.Tensor]:
+        """``get_outputs`` and, in training with a patch loss, each ray's
+        patch warped from the reference view into its source views
+        (base_surface_model.py:247-277): ``additional_inputs`` holds ``uv``
+        (the rays' pixels), ``src_imgs`` and ``src_cameras`` (the reference
+        first), as ``FlexibleDataManager`` hands them over."""
+        outputs = self.get_outputs(ray_bundle, sched=sched, train=train, rng=rng)
+        if self.config.patch_warp_loss_mult > 0 and "field_outputs" in outputs:
+            with record_function("sst/patch_warping"):
+                patches, valid = patch_warping(
+                    outputs["ray_samples"], outputs["field_outputs"]["sdf"],
+                    outputs["field_outputs"]["normal"], additional_inputs["src_cameras"],
+                    additional_inputs["src_imgs"], additional_inputs["uv"],
+                    patch_size=self.config.patch_size,
+                    valid_angle_thres=self.config.patch_warp_angle_thres,
+                )
+            outputs["patches"] = patches
+            outputs["patches_valid_mask"] = valid
+        return outputs
+
     def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict,
                       rng: Rng = None) -> Dict[str, torch.Tensor]:
-        """rgb L1 + eikonal (+ fg-mask BCE when the batch carries masks)
-        (base_surface_model.py:280-318); the other terms of the JAX method
-        are off in every configuration this port registers. ``rng`` is the
-        noise of the losses that draw any (UniSurf's)."""
+        """rgb L1 and eikonal, and each term whose multiplier is above 0
+        and whose input the batch or the outputs carry
+        (base_surface_model.py:280-393): S3IM (with an ``rng``), the
+        foreground mask's BCE, the monocular normal and depth losses, the
+        three sensor-depth terms, the patch NCC and the SfM points' SDF.
+        ``rng`` is the noise of the losses that draw any (S3IM's shuffles,
+        UniSurf's neighbours)."""
         cfg = self.config
+        image = batch["image"]
         loss_dict = {
-            "rgb_loss": L.l1_loss(batch["image"], outputs["rgb"]),
+            "rgb_loss": L.l1_loss(image, outputs["rgb"]),
             "eikonal_loss": L.eikonal_loss(outputs["eik_grad"]) * cfg.eikonal_loss_mult,
         }
-        if "fg_mask" in batch and cfg.fg_mask_loss_mult > 0.0:
-            fg_label = batch["fg_mask"].to(torch.float32)
-            weights_sum = torch.clamp(torch.sum(outputs["weights"], dim=-1, keepdim=True), 1e-3, 1 - 1e-3)
-            loss_dict["fg_mask_loss"] = L.binary_cross_entropy(weights_sum, fg_label) * cfg.fg_mask_loss_mult
+        with record_function("sst/cue_losses"):
+            if cfg.s3im_loss_mult > 0 and rng is not None:
+                loss_dict["s3im_loss"] = L.s3im_loss(
+                    outputs["rgb"], image, rng, kernel_size=cfg.s3im_kernel_size,
+                    stride=cfg.s3im_stride, repeat_time=cfg.s3im_repeat_time,
+                    patch_height=cfg.s3im_patch_height) * cfg.s3im_loss_mult
+            if "fg_mask" in batch and cfg.fg_mask_loss_mult > 0.0:
+                fg_label = batch["fg_mask"].to(image.dtype)
+                weights_sum = torch.clamp(torch.sum(outputs["weights"], dim=-1, keepdim=True),
+                                          1e-3, 1 - 1e-3)
+                loss_dict["fg_mask_loss"] = (L.binary_cross_entropy(weights_sum, fg_label)
+                                             * cfg.fg_mask_loss_mult)
+            if "normal" in batch and cfg.mono_normal_loss_mult > 0.0:
+                loss_dict["normal_loss"] = (L.monosdf_normal_loss(outputs["normal"], batch["normal"])
+                                            * cfg.mono_normal_loss_mult)
+            if "depth" in batch and cfg.mono_depth_loss_mult > 0.0:
+                loss_dict["depth_loss"] = self.mono_depth_loss(outputs["depth"], batch["depth"])
+            if "sensor_depth" in batch and (cfg.sensor_depth_l1_loss_mult > 0.0
+                                            or cfg.sensor_depth_freespace_loss_mult > 0.0
+                                            or cfg.sensor_depth_sdf_loss_mult > 0.0):
+                l1, free_space, sdf_l = L.sensor_depth_loss(
+                    outputs["depth"], batch["sensor_depth"][..., None],
+                    outputs["ray_samples"].starts, outputs["field_outputs"]["sdf"],
+                    outputs["directions_norm"], truncation=cfg.sensor_depth_truncation)
+                loss_dict["sensor_l1_loss"] = l1 * cfg.sensor_depth_l1_loss_mult
+                loss_dict["sensor_freespace_loss"] = free_space * cfg.sensor_depth_freespace_loss_mult
+                loss_dict["sensor_sdf_loss"] = sdf_l * cfg.sensor_depth_sdf_loss_mult
+            if "patches" in outputs and cfg.patch_warp_loss_mult > 0.0:
+                loss_dict["patch_loss"] = L.multi_view_loss(
+                    outputs["patches"], outputs["patches_valid_mask"], patch_size=cfg.patch_size,
+                    topk=cfg.topk, min_patch_variance=cfg.min_patch_variance,
+                ) * cfg.patch_warp_loss_mult
+            if "sparse_sfm_points" in batch and cfg.sparse_points_sdf_loss_mult > 0.0:
+                sdf = self.field.geonetwork(batch["sparse_sfm_points"], sched.get("hash_mask"))[..., 0]
+                loss_dict["sparse_sfm_points_sdf_loss"] = (torch.mean(torch.abs(sdf))
+                                                           * cfg.sparse_points_sdf_loss_mult)
         return loss_dict
+
+    def mono_depth_loss(self, depth: torch.Tensor, depth_cue: torch.Tensor) -> torch.Tensor:
+        """The monocular depth term (base_surface_model.py:325-349): the cue
+        scaled by 50 and shifted by 0.5, the rays in batch order laid out as
+        a (1, 32, -1) image padded with masked zeros, and the
+        scale-and-shift-invariant loss with one scale of gradient matching,
+        whose neighbour differences run along that layout."""
+        depth_gt = depth_cue.reshape(-1) * 50 + 0.5
+        depth_pred = depth.reshape(-1)
+        n = depth_pred.shape[0]
+        rows = 32 if n >= 32 else n
+        pad = (-n) % rows
+        mask = F.pad(torch.ones_like(depth_pred), (0, pad))
+        depth_gt, depth_pred = F.pad(depth_gt, (0, pad)), F.pad(depth_pred, (0, pad))
+        return L.scale_and_shift_invariant_loss(
+            depth_pred.reshape(1, rows, -1), depth_gt.reshape(1, rows, -1),
+            mask.reshape(1, rows, -1), alpha=0.5, scales=1) * self.config.mono_depth_loss_mult
 
     @torch.no_grad()
     def get_metrics_dict(self, outputs: Dict, batch: Dict) -> Dict[str, torch.Tensor]:

@@ -161,11 +161,12 @@ def test_unported_options_raise():
         Trainer(config.trainer, None, None, {})
     with pytest.raises(NotImplementedError, match="mixed_precision"):
         Trainer(TrainerConfig(mixed_precision=True), None, None, {})
+    # the parser reads every option of JAX's now; a cue the scene lacks raises, as JAX asserts
     config, _ = train_script.parse_args(["neus-facto", "sdfstudio-data", "--data", str(SCENE),
                                          "--include-mono-prior", "True"])
     from sdfstudio_tpu_torch.engine.setup import setup_trainer
 
-    with pytest.raises(NotImplementedError, match="include_mono_prior"):
+    with pytest.raises(ValueError, match="include_mono_prior=True needs a scene with has_mono_prior"):
         setup_trainer(config, device="cpu")
 
 
