@@ -158,10 +158,30 @@ Phases, each printing its own line with wall-clock seconds:
    or ``patch_loss`` above 0 with more than ``CUE_VALID_SHARE`` of the rays
    warping a fully valid source patch), and traces one step
    (``sst/patch_warping``, ``sst/cue_losses``, the idle share);
-14. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
-   F = 8; the fused-MLP entries carry the surface chains' and p4's rows, the
-   hash entries the cli phases' launches and the F = 4 captured call; the
-   cue phases' launches), the ``nvidia-smi`` line, and the result line.
+14. grid: ``surface[neus-facto-angelo]`` (JAX's registered entry at full
+   width: the F = 8 field with the appearance embedding live in the colour
+   chain, the F = 2 hash proposals, the ``"grid"`` background under AdamW)
+   trains 40 steps of 2048 rays, holds its kernel step to the plain step
+   (``angelo_tols``), counts launches by kernel and by chain exactly (the
+   background's [32 -> 64 -> 16] chain twice a step, the F = 8 and F = 2
+   hash calls apart), holds its colour and background chains alone, traces
+   a step and renders the view with kernels and without; then
+   ``heritage[neusW]`` and ``heritage[dto]`` on the committed
+   ``.parity/heritage_like`` through ``heritage-data`` (the fine grid
+   refreshed and armed at ``GRID_REFRESH`` through the config's own
+   fields: empty before it, occupied from it on, a batch's rays inside the
+   shell) and ``surface[neus-acc]`` on the DTU-like scene (its grid
+   refreshed every 16 steps) run 40 steps of 2048 rays through the train
+   command (``grid_phase``): exact launches in the steps and in the final
+   eval (3 views, the 128^3 mesh through the heritage or DTU-like judge),
+   the kernel step against the plain step (1e-4), both chains alone, the
+   background's F = 2 hash call (``hash_case``), the refresh timed and one
+   traced step;
+15. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+   F = 8; the fused-MLP entries carry the surface chains', p4's and phase
+   14's rows, the hash entries the cli and grid phases' launches, the F = 4
+   captured call and the background's F = 2 call; the cue phases'
+   launches), the ``nvidia-smi`` line, and the result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
 call (unless the caller set it), so that cuBLAS accepts the deterministic
@@ -266,6 +286,11 @@ GATHER_REPS = 50  # warm launches per CUDA-event timing of a gather
 SURFACE_METHODS = ("neus", "volsdf", "unisurf")  # phase 10, at their registered 1024 rays a step
 # phase 10's fused-MLP chains by their widths: the SDF field's colour net, the NeRF background's head
 SURFACE_CHAINS = {"321-256-256-256-256-3": "color", "283-128-128": "background_head"}
+# the grid background's chain beside the colour net (neusW, dto, neus-facto-angelo)
+GRID_CHAINS = {"321-256-256-256-256-3": "color", "32-64-16": "background_base"}
+GRID_METHODS = ("neusW", "dto", "neus-acc")  # the occupancy-grid family, at its registered 2048 rays
+GRID_REFRESH = TRAIN_STEPS // 2  # the heritage phases' fine_grid_update_every and fine_grid_warmup
+HERITAGE_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".parity", "heritage_like")
 # phase 11: Neuralangelo at its registered 512 rays a step. A step's encodes:
 # one a round of the NeuS sampler (4 rounds, 64 + 3 x 16 points a ray,
 # without a gradient) and one over the field's centre and six taps (7 x 512
@@ -294,10 +319,13 @@ CLI_EVAL_SPLIT = 16  # --skip-every-for-val-split: 4 eval views (views 0, 16, 32
 CLI_MESH_RES = 128  # --trainer.final-eval-resolution, extract_mesh.py --resolution
 CLI_FINAL_IMAGES = 3  # --trainer.final-eval-max-images
 # neus-facto-bigmlp is JAX's default field, whose init faces inwards (a camera
-# inside the scene): on the object-centred parity scene its SDF turns negative
-# over the whole cube within 40 steps and the final eval finds no surface (on
-# the CPU at 256 rays: min / max -1.61 / -0.049 over a 33^3 grid at step 40),
-# so it runs from the outward-facing init, set through JAX's grammar
+# inside the scene). On the object-centred parity scene a 40-step run from that
+# init keeps or loses the surface depending on the seed, in JAX and in the port
+# alike: on the CPU at 256 rays the largest SDF over a 33^3 grid at step 40 was
+# -0.049, +0.039, +0.497, +0.547 for the port's seeds 0-3 (JAX's: +0.493,
+# -0.024, +0.073, +0.562). The port's seed 0, the smoke's, is one that loses
+# it (min / max -1.61 / -0.049), and the final eval then finds no surface; so
+# the phase runs from the outward-facing init, set through JAX's grammar
 CLI_EXTRA = {"neus-facto-bigmlp": ["--pipeline.model.sdf-field.inside-outside", "False"]}
 # phase 13: the MonoSDF and Geo-NeuS entries at their registered 1024 rays on the DTU-like scene
 # with its monocular cues, made at run time (JAX's generator at its defaults: 49 views, 384 x 384)
@@ -884,28 +912,14 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
     sched = model.schedules(trainer.step)
     check(sched["train_proposal"], f"step {trainer.step} is not an update step")
 
-    def one_step(capture=None):
+    def one_step():
         gen = torch.Generator(device="cuda").manual_seed(777)
         idx, batch = dm.sample_train_batch(gen)
         total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
         return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
 
-    from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
-
-    calls: list = []
-    hash_calls: list = []  # the step's hash-grid calls: x and the cotangents of their backward
-    with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls):
-        k_loss, k_grads = one_step()
-    with swap_fused_mlp(fm.fused_mlp_plain), swap_hash_plain():
-        p_loss, p_grads = one_step()
-    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
-    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
-    log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); "
-        f"gradient rel err {grad_err} (tol {STEP_GRAD_TOL})")
-    for k, e in loss_err.items():
-        check(e <= STEP_LOSS_TOL, f"{k}: kernel step and plain step differ by {e}")
-    for g, e in grad_err.items():
-        check(e <= STEP_GRAD_TOL, f"{g} gradient: kernel step and plain step differ by {e}")
+    step = step_vs_plain(fm, phase, one_step)
+    calls, hash_calls = step["calls"], step["hash_calls"]
 
     # the forward and backward kernels against their plain versions on the three captured calls
     check(len(calls) == 3 and all("g" in c for c in calls),
@@ -919,16 +933,9 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
     fwd_calls = [{**{k: c[k] for k in head}, **c["fwd"]} for c in chains]
 
     # where a step's time goes: one traced step (an update step)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        trainer.train_step()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    profile = {"step": trainer.step - 1, "traced_wall_ms": traced_ms, **render_breakdown(
-        prof.events(), traced_ms,
-        windows=[("backward (between forward and optimizer)", "sst/train_forward", "sst/train_optimizer")])}
+    profile = traced_step(trainer, windows=[("backward (between forward and optimizer)",
+                                              "sst/train_forward", "sst/train_optimizer")])
+    profile = {"step": trainer.step - 1, **profile}
     log(phase.replace("train", "train_profile"), json.dumps(profile))
     captured = {}
     if model.field.config.encoding_type == "hash":
@@ -943,7 +950,8 @@ def train_phase(fm, method: str = "neus-facto-tpu-p8") -> dict:
     return {"launches": launches, "step_ms": train_ms, "rays_per_s": TRAIN_RAYS / train_ms * 1e3,
             "synced_step_median_ms": float(np.median(warm)), "hash_captured": captured,
             "bwd_calls": bwd_calls, "fwd_calls": fwd_calls, "profile": profile,
-            "probe_l1": [l1_before, l1_after], "step_loss_err": loss_err, "step_grad_err": grad_err}
+            "probe_l1": [l1_before, l1_after], "step_loss_err": step["loss_err"],
+            "step_grad_err": step["grad_err"]}
 
 
 def time_pair_ms(a, b, reps: int = 20):
@@ -1182,13 +1190,69 @@ def neus_facto_phase(fm, smi: str, cams, scene_box, designs) -> dict:
 def uncounted(fm):
     """Launches made to compare a kernel with its plain version are not the
     main path's: every count, by kernel and by chain, is put back."""
-    before, chains = dict(fm.LAUNCHES), dict(fm.CHAIN_LAUNCHES)
+    before, chains, widths = dict(fm.LAUNCHES), dict(fm.CHAIN_LAUNCHES), dict(fm.WIDTH_LAUNCHES)
     try:
         yield
     finally:
         fm.LAUNCHES.update(before)
-        fm.CHAIN_LAUNCHES.clear()
-        fm.CHAIN_LAUNCHES.update(chains)
+        for counter, kept in ((fm.CHAIN_LAUNCHES, chains), (fm.WIDTH_LAUNCHES, widths)):
+            counter.clear()
+            counter.update(kept)
+
+
+def width_counts(fm) -> dict:
+    """This run's launches of the hash-grid kernels by feature width, as
+    ``"<kernel>[F=<F>]"`` -> count."""
+    return {f"{k}[F={f}]": n for (k, f), n in fm.WIDTH_LAUNCHES.items() if n}
+
+
+def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=STEP_LOSS_TOL,
+                  grad_tol: float = STEP_GRAD_TOL) -> dict:
+    """One step twice from the same state and batch, its launches not
+    counted: with the kernels (their fused-MLP and hash-grid calls
+    captured), then with their plain versions (the fused MLP's and, with
+    ``plain_hash``, the hash grid's). ``one_step()`` returns the losses,
+    each group's gradient, and anything else (the kernel step's is kept as
+    ``extra``). Each loss is held to ``loss_tol`` (a number, or a function
+    of the loss's name), each gradient to ``grad_tol`` relative, and no
+    group's gradient may be zero."""
+    from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
+
+    calls, hash_calls = [], []
+    with uncounted(fm):
+        with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls):
+            k_loss, k_grads, *extra = one_step()
+        with swap_fused_mlp(fm.fused_mlp_plain), \
+                (swap_hash_plain() if plain_hash else contextlib.nullcontext()):
+            p_loss, p_grads, *_ = one_step()
+        torch.cuda.synchronize()
+    tol_of = loss_tol if callable(loss_tol) else (lambda k: loss_tol)
+    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
+    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
+    grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
+    log(phase, f"the step's losses {k_loss}; kernel step vs plain step: loss rel err {loss_err} "
+        f"(tol {tol_of('rgb_loss')}); gradient rel err {grad_err} (tol {grad_tol}); gradient norms "
+        f"{grad_norm}")
+    for k, e in loss_err.items():
+        check(e <= tol_of(k), f"{phase} {k}: kernel step and plain step differ by {e}")
+    for g, e in grad_err.items():
+        check(e <= grad_tol and grad_norm[g] > 0,
+              f"{phase} {g} gradient: kernel step and plain step differ by {e} (norm {grad_norm[g]})")
+    return {"loss": k_loss, "loss_err": loss_err, "grad_err": grad_err, "grad_norm": grad_norm,
+            "calls": calls, "hash_calls": hash_calls, "extra": extra}
+
+
+def traced_step(trainer, windows=()) -> dict:
+    """One train step under the profiler: its wall time and where its
+    device time goes (``render_breakdown``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    return {"traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms, windows=windows)}
 
 
 def chain_counts(fm, which: str) -> dict:
@@ -1329,7 +1393,7 @@ def render_view(fm, model, cams, step: int, phase: str, plain_swap, chunk_chains
     out = render_image(model, cams, 0, chunk=1024, step=step)
     torch.cuda.synchronize()
     image_ms = (time.perf_counter() - t) * 1e3
-    render_launches = dict(fm.LAUNCHES)
+    render_launches, render_widths = dict(fm.LAUNCHES), width_counts(fm)
     render_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
     want = {"fwd": {chain: k * n_chunks for chain, k in chunk_chains.items()}, "bwd": {}}
     check(render_chains == want, f"expected {want} launches by chain in the render: {render_chains}")
@@ -1364,8 +1428,8 @@ def render_view(fm, model, cams, step: int, phase: str, plain_swap, chunk_chains
         check(render_q[k] < SLICE_TOL, f"{k}: kernel and plain renders differ by {render_q[k]} on "
               f"more than {1 - RENDER_QUANTILE:.1%} of the rays")
     del out, plain_out
-    return {"launches": render_launches, "chains": render_chains, "image_ms": image_ms,
-            "err": render_err, "quantile_err": render_q, "profile": render_profile}
+    return {"launches": render_launches, "chains": render_chains, "widths": render_widths,
+            "image_ms": image_ms, "err": render_err, "quantile_err": render_q, "profile": render_profile}
 
 
 def surface_phase(fm, smi: str, method: str) -> dict:
@@ -1426,43 +1490,23 @@ def surface_phase(fm, smi: str, method: str) -> dict:
         return ({k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, sum(ld.values())),
                 None if mask is None else int(mask.sum()))
 
-    calls: list = []
-    with capture_fused_mlp_calls(calls):
-        k_loss, k_grads, surface_rays = one_step()
-    with swap_fused_mlp(fm.fused_mlp_plain):
-        p_loss, p_grads, _ = one_step()
-    grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
-    log(phase, f"the step's gradient norms {grad_norm}; rays with a surface point {surface_rays} of {rays}")
-    for g, v in grad_norm.items():
-        check(v > 0, f"the {g} group's gradient is zero: it took no part in the step")
+    step = step_vs_plain(fm, phase, one_step, plain_hash=False)
+    k_loss, grad_norm, (surface_rays,) = step["loss"], step["grad_norm"], step["extra"]
+    loss_err, grad_err = step["loss_err"], step["grad_err"]
+    log(phase, f"rays with a surface point {surface_rays} of {rays}")
     if method == "unisurf":
         check(0 < surface_rays and k_loss["normal_smoothness_loss"] > 0,
               f"UniSurf's surface search found {surface_rays} rays, smoothness loss "
               f"{k_loss['normal_smoothness_loss']}")
-    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
-    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
-    log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); "
-        f"gradient rel err {grad_err} (tol {STEP_GRAD_TOL})")
-    for k, e in loss_err.items():
-        check(e <= STEP_LOSS_TOL, f"{k}: kernel step and plain step differ by {e}")
-    for g, e in grad_err.items():
-        check(e <= STEP_GRAD_TOL, f"{g} gradient: kernel step and plain step differ by {e}")
-    widths = ["-".join(str(d) for d in [c["x"].shape[-1]] + [w.shape[1] for w in c["ws"]])
-              for c in calls]
+    calls = step["calls"]
+    widths = [_chain_key(c) for c in calls]
     check(sorted(widths) == sorted(SURFACE_CHAINS) and all("g" in c for c in calls),
           f"expected a call with a backward on each chain, captured {widths}")
     chains = chain_checks(fm, calls, [SURFACE_CHAINS[w] for w in widths], phase, method)
-    del calls, k_grads, p_grads
+    del calls, step
 
     # one traced update step: where its time goes
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        trainer.train_step()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    step_profile = {"traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms)}
+    step_profile = traced_step(trainer)
     log(phase.replace("surface", "surface_profile"), json.dumps({"train_step": step_profile}))
 
     render = render_view(fm, model, dm.train_cameras, trainer.step, phase,
@@ -1981,7 +2025,6 @@ def cli_phase(fm, smi: str, method: str) -> dict:
     from sdfstudio_tpu_torch.scripts import eval as eval_script
     from sdfstudio_tpu_torch.scripts import extract_mesh as mesh_script
     from sdfstudio_tpu_torch.scripts import train as train_script
-    from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
 
     phase = f"cli[{method}]"
     torch.cuda.empty_cache()
@@ -2112,23 +2155,9 @@ def cli_phase(fm, smi: str, method: str) -> dict:
         total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
         return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
 
-    calls, hash_calls = [], []
-    with uncounted(fm):
-        with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls):
-            k_loss, k_grads = one_step()
-        with swap_fused_mlp(fm.fused_mlp_plain), swap_hash_plain():
-            p_loss, p_grads = one_step()
-        torch.cuda.synchronize()
-    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
-    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
-    grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
-    log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); gradient "
-        f"rel err {grad_err} (tol {STEP_GRAD_TOL}); gradient norms {grad_norm}")
-    for k, e in loss_err.items():
-        check(e <= STEP_LOSS_TOL, f"{phase} {k}: kernel step and plain step differ by {e}")
-    for g, e in grad_err.items():
-        check(e <= STEP_GRAD_TOL and grad_norm[g] > 0,
-              f"{phase} {g} gradient: kernel step and plain step differ by {e} (norm {grad_norm[g]})")
+    step = step_vs_plain(fm, phase, one_step)
+    calls, hash_calls = step["calls"], step["hash_calls"]
+    loss_err, grad_err = step["loss_err"], step["grad_err"]
 
     # exact launches: a step's calls (captured) times the steps, each render chunk a step's forwards
     def widths(c):
@@ -2165,21 +2194,15 @@ def cli_phase(fm, smi: str, method: str) -> dict:
                    "hash_encode_bwd": hash_bwd if steps else 0}
         return kernels, {k: n for k, n in chains.items() if n}
 
-    def held(name: str, got: tuple, expected: tuple) -> dict:
-        kernels = {k: got[0].get(k, 0) for k in expected[0]}
-        others = {k: n for k, n in got[0].items() if k not in expected[0] and n}
-        check(kernels == expected[0] and not others and got[1] == expected[1],
-              f"{phase} {name}: launches {got}, expected {expected}")
-        return {"kernels": kernels, "chains": {f"{k}:{'-'.join(map(str, w))}": n
-                                               for (k, w), n in got[1].items()}}
-
     launches = {
-        "train": held("train", train_launches, want(TRAIN_STEPS, 0, 0)),
-        "eval_images": [held(f"eval image {e['step']}", e["launches"], want(0, image_chunks, 0))
+        "train": launches_held(phase, "train", train_launches, want(TRAIN_STEPS, 0, 0)),
+        "eval_images": [launches_held(phase, f"eval image {e['step']}", e["launches"],
+                                      want(0, image_chunks, 0))
                         for e in evals],
-        "final_eval": held("final eval", finals[0]["launches"], want(0, final_chunks, mesh_chunks)),
-        "eval_py": held("eval.py", eval_launches, want(0, n_eval * image_chunks, 0)),
-        "extract_mesh": held("extract_mesh.py", mesh_launches, want(0, 0, mesh_chunks)),
+        "final_eval": launches_held(phase, "final eval", finals[0]["launches"],
+                                    want(0, final_chunks, mesh_chunks)),
+        "eval_py": launches_held(phase, "eval.py", eval_launches, want(0, n_eval * image_chunks, 0)),
+        "extract_mesh": launches_held(phase, "extract_mesh.py", mesh_launches, want(0, 0, mesh_chunks)),
     }
     log(phase, f"launches, exact: {json.dumps(launches)}")
     if method == "neus-facto-tpu-p4":
@@ -2205,7 +2228,7 @@ def cli_phase(fm, smi: str, method: str) -> dict:
         with uncounted(fm):
             out["hash_f4"] = hash_case(phase, "sdf", "captured", r["x"], r["spec"], r["rows"], 4,
                                        True, r["g_out"], r["g_jac"])
-    del trainer, model, made, calls, hash_calls, k_grads, p_grads
+    del trainer, model, made, calls, hash_calls, step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return out
@@ -2347,34 +2370,21 @@ def cue_phase(fm, smi: str, method: str, scene: str) -> dict:
         return ({k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, sum(ld.values())),
                 share)
 
-    with uncounted(fm):
-        k_loss, k_grads, share = one_step()
-        with swap_fused_mlp(fm.fused_mlp_plain):
-            p_loss, p_grads, _ = one_step()
-    grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
-    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
-    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
+    step = step_vs_plain(fm, phase, one_step, plain_hash=False)
+    k_loss, (share,) = step["loss"], step["extra"]
+    loss_err, grad_err = step["loss_err"], step["grad_err"]
+    del step
     patch_bytes = None
     if geo:
         n_views = int(dm.pairs_srcs.shape[1])
         patch_bytes = n_views * rays * model.config.patch_size ** 2 * 3 * 4
-    log(phase, f"the step's losses {k_loss}; gradient norms {grad_norm}"
-        + (f"; rays with a crossing and a fully valid source patch {share:.4f} "
-           f"(at least {CUE_VALID_SHARE}); warped colours {n_views} views x {rays} rays x "
-           f"{model.config.patch_size ** 2} pixels, {patch_bytes / 2**20:.1f} MiB" if geo else ""))
-    log(phase, f"kernel step vs plain step: loss rel err {loss_err} (tol {STEP_LOSS_TOL}); "
-        f"gradient rel err {grad_err} (tol {STEP_GRAD_TOL})")
+    if geo:
+        log(phase, f"rays with a crossing and a fully valid source patch {share:.4f} (at least "
+            f"{CUE_VALID_SHARE}); warped colours {n_views} views x {rays} rays x "
+            f"{model.config.patch_size ** 2} pixels, {patch_bytes / 2**20:.1f} MiB")
+        check(share > CUE_VALID_SHARE, f"{phase}: only {share} of the rays warp a valid patch")
     for k in new_terms:
         check(k in k_loss and math.isfinite(k_loss[k]), f"{phase}: {k} is {k_loss.get(k)}")
-    if geo:
-        check(share > CUE_VALID_SHARE, f"{phase}: only {share} of the rays warp a valid patch")
-    for g, v in grad_norm.items():
-        check(v > 0, f"{phase}: the {g} group's gradient is zero")
-    for k, e in loss_err.items():
-        check(e <= STEP_LOSS_TOL, f"{phase} {k}: kernel step and plain step differ by {e}")
-    for g, e in grad_err.items():
-        check(e <= STEP_GRAD_TOL, f"{phase} {g} gradient: kernel step and plain step differ by {e}")
-    del k_grads, p_grads
 
     # one step under the sync debug mode: the host's waits for the device inside a step
     import warnings
@@ -2390,15 +2400,9 @@ def cue_phase(fm, smi: str, method: str, scene: str) -> dict:
     log(phase, f"host waits in one step (sync debug mode): {len(syncs)} {sorted(set(syncs))[:6]}")
 
     # one traced update step: the patch warp's and the cue losses' device time, the idle share
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with uncounted(fm), torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        trainer.train_step()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    profile = {"traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms)}
-    ranges = profile["ranges"]
+    with uncounted(fm):
+        profile = traced_step(trainer)
+    traced_ms, ranges = profile["traced_wall_ms"], profile["ranges"]
     check("sst/cue_losses" in ranges and (not geo or "sst/patch_warping" in ranges),
           f"{phase}: the traced step has no sst/cue_losses or sst/patch_warping range: {sorted(ranges)}")
     warp_ms = ranges.get("sst/patch_warping", {}).get("kernel_ms")
@@ -2419,6 +2423,374 @@ def cue_phase(fm, smi: str, method: str, scene: str) -> dict:
             "train_step_idle_share": profile["device_idle_share"],
             "traced_step_ms": traced_ms, "device_busy_ms": profile["device_busy_ms"],
             "peak_memory_gib": peak_gib}
+
+
+def _chain_key(c) -> str:
+    return "-".join(str(d) for d in [c["x"].shape[-1]] + [w.shape[1] for w in c["ws"]])
+
+
+def expected_launches(calls: list, hash_calls: list, steps: int, n_update: int, chunks: int,
+                      proposal_chains=frozenset(), proposal_specs=()) -> tuple:
+    """Launches by kernel and by chain of ``steps`` train steps (a step's
+    captured ``calls`` and ``hash_calls`` each; a proposal net's backward on
+    the ``n_update`` update steps only) and ``chunks`` render chunks (each
+    call's forward once, no backward)."""
+    chains = {}
+    for c in calls:
+        key = ("fused_mlp_fwd", tuple(int(d) for d in _chain_key(c).split("-")))
+        chains[key] = chains.get(key, 0) + steps + chunks
+        if steps and "g" in c:
+            bkey = ("fused_mlp_bwd", key[1])
+            chains[bkey] = chains.get(bkey, 0) + (n_update if key[1] in proposal_chains else steps)
+    hash_bwd = sum(("g_out" in r) * (n_update if r["spec"] in proposal_specs else steps)
+                   for r in hash_calls)
+    kernels = {"fused_mlp_fwd": sum(n for (k, _), n in chains.items() if k == "fused_mlp_fwd"),
+               "fused_mlp_bwd": sum(n for (k, _), n in chains.items() if k == "fused_mlp_bwd"),
+               "hash_encode_fwd": len(hash_calls) * (steps + chunks),
+               "hash_encode_bwd": hash_bwd if steps else 0}
+    return kernels, chains
+
+
+def launches_held(phase: str, name: str, got: tuple, expected: tuple) -> dict:
+    """``got`` (launches by kernel, by chain) equal to ``expected``, exactly."""
+    kernels = {k: got[0].get(k, 0) for k in expected[0]}
+    others = {k: n for k, n in got[0].items() if k not in expected[0] and n}
+    check(kernels == expected[0] and not others and got[1] == expected[1],
+          f"{phase} {name}: launches {got}, expected {expected}")
+    return {"kernels": kernels, "chains": {f"{k}:{'-'.join(map(str, w))}": n
+                                           for (k, w), n in got[1].items()}}
+
+
+def grid_phase(fm, smi: str, method: str) -> dict:
+    """An occupancy-grid entry at full width through JAX's command line:
+    ``neusW`` and ``dto`` (``heritage[<method>]``) on the committed
+    heritage-like scene through ``heritage-data``, their fine grid refreshed
+    and armed at ``GRID_REFRESH`` through the config's own fields
+    (``fine_grid_update_every``, ``fine_grid_warmup``); ``neus-acc``
+    (``surface[neus-acc]``) on the DTU-like scene, refreshed at its own 16.
+    ``TRAIN_STEPS`` steps at the registered 2048 rays (ms a step over steps
+    12-39), the grid's occupied cells after every step (the fine grid empty
+    before ``GRID_REFRESH`` and not after it; neus-acc's binary the
+    threshold of its cells' opacity, refreshed from step 0 on), the share of
+    rays inside the fine shell, the refresh timed; one
+    kernel step against one plain step (1e-4; the kernels of the colour
+    net, the background's chain and, for the grid background, the F = 2
+    hash grid, swapped for their plain versions); launches by kernel and by
+    chain exact in the steps (a captured step's calls times the steps) and
+    the final evaluation (3 views, the 128^3 mesh through the heritage or
+    DTU-like judge); both chains alone (``chain_checks``); the background's
+    F = 2 hash call (``hash_case``, ``neusW`` only); one traced step.
+    Returns what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine import trainer as trainer_mod
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.samplers.grid import grid_near_far
+    from sdfstudio_tpu_torch.scripts import train as train_script
+
+    heritage = method in ("neusW", "dto")
+    phase = f"{'heritage' if heritage else 'surface'}[{method}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    made, marks, occupied, finals = [], {}, [], []
+    setup, final = train_script.setup_lib.setup_trainer, trainer_mod.run_final_eval
+
+    def keep(*args, **kw):
+        """The trainer ``main`` builds: steps 12 and 40 marked, the grid's
+        occupied cells kept after every step (on the device, read later)."""
+        t = setup(*args, **kw)
+        step = t.train_step
+
+        def marked_step():
+            if t.step == CHECK_STEPS:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            out = step()
+            occupied.append(t.model_state.binary.sum())
+            if t.step == TRAIN_STEPS:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return out
+
+        t.train_step = marked_step
+        made.append(t)
+        return t
+
+    def counted_final(*a):
+        c0, s0 = _counts(fm), time.perf_counter()
+        out = final(*a)
+        torch.cuda.synchronize()
+        finals.append({"seconds": time.perf_counter() - s0, "launches": _minus(_counts(fm), c0)})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [method, "--experiment-name", "smoke", "--output-dir", tmp, "--timestamp", "t",
+                "--vis", "none", "--trainer.max-num-iterations", str(TRAIN_STEPS),
+                "--trainer.steps-per-eval-image", "0",
+                "--trainer.final-eval-gt", "heritage-like" if heritage else "dtu-like",
+                "--trainer.final-eval-output", f"{tmp}/metrics.json",
+                "--trainer.final-eval-resolution", str(CLI_MESH_RES),
+                "--trainer.final-eval-max-images", str(CLI_FINAL_IMAGES)]
+        if heritage:
+            argv += ["--pipeline.model.fine-grid-update-every", str(GRID_REFRESH),
+                     "--pipeline.model.fine-grid-warmup", str(GRID_REFRESH),
+                     "heritage-data", "--data", HERITAGE_SCENE]
+        else:
+            argv += ["sdfstudio-data", "--data", SCENE, "--skip-every-for-val-split",
+                     str(CLI_EVAL_SPLIT)]
+        torch.cuda.synchronize()
+        fm.reset_launch_counts()
+        train_script.setup_lib.setup_trainer, trainer_mod.run_final_eval = keep, counted_final
+        t = time.perf_counter()
+        try:
+            check(train_script.main(argv) == 0, f"{phase}: the train command failed")
+        finally:
+            train_script.setup_lib.setup_trainer, trainer_mod.run_final_eval = setup, final
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        total = _counts(fm)
+        metrics = json.loads((Path(tmp) / "metrics.json").read_text())
+    trainer = made[0]
+    dm, model = trainer.datamanager, trainer.model
+    rays = dm.config.train_num_rays_per_batch
+    step_ms = (marks["t1"] - marks["t0"]) * 1e3 / (TRAIN_STEPS - CHECK_STEPS)
+    cells = torch.stack(occupied).cpu().tolist()
+    res = trainer.model_state.resolution
+    check(rays == TRAIN_RAYS and len(cells) == TRAIN_STEPS, f"{phase}: {rays} rays, {len(cells)} steps")
+    if heritage:
+        check(all(c == 0 for c in cells[:GRID_REFRESH]) and all(c > 0 for c in cells[GRID_REFRESH:]),
+              f"{phase}: the fine grid is not empty before step {GRID_REFRESH} and occupied from it "
+              f"on: {cells}")
+    else:
+        # refreshed every 16 steps from step 0: the cells' opacity is held, and the binary is its
+        # threshold (at the initial inv_s of e every cell's crossing opacity exceeds it)
+        st = trainer.model_state
+        check(float(st.occs.max()) > 0 and all(c > 0 for c in cells)
+              and torch.equal(st.binary.reshape(-1), st.occs > model.config.alpha_sample_thre),
+              f"{phase}: the grid was not refreshed from the cells' opacity: {cells}")
+    check(all(math.isfinite(metrics[k]) for k in ("psnr", "ssim", "chamfer_l1"))
+          and metrics["num_images"] == CLI_FINAL_IMAGES, f"{phase}: final evaluation {metrics}")
+    log(phase, f"main: {main_s:.1f} s; {TRAIN_STEPS} steps of {rays} rays, steps {CHECK_STEPS}-"
+        f"{TRAIN_STEPS - 1}: {step_ms:.2f} ms a step, {rays / step_ms * 1e3:.0f} rays/s; the grid's "
+        f"occupied cells of {res}^3 after each step {cells}, inv_s "
+        f"{float(model.field.get_inv_s()):.4g}; final eval {json.dumps(metrics)} "
+        f"({finals[0]['seconds']:.1f} s)")
+
+    # the refresh alone, and the share of a batch's rays that the armed fine grid shells
+    state = trainer.model_state
+    refresh_ms = cuda_time_ms(lambda: model.update_model_state(state, trainer.step,
+                                                               trainer.generator), 1, 0)
+    gen = torch.Generator(device=dm.device).manual_seed(777)
+    idx, _ = dm.sample_train_batch(gen)
+    bundle = model.apply_collider(dm.generate_rays(idx), train=True)
+    shell_share = None
+    if heritage:
+        coarse = model.coarse_grid()
+        nears, fars, _ = grid_near_far(bundle, coarse, num_probes=model.config.coarse_probe_steps)
+        _, _, hit = grid_near_far(bundle.replace(nears=nears, fars=fars), state,
+                                  num_probes=model.config.coarse_probe_steps,
+                                  first_hit_shell=model.config.fine_shell_margin)
+        shell_share = float(hit.float().mean())
+        check(shell_share > 0, f"{phase}: no ray of a batch enters the armed fine grid's shell")
+    log(phase, f"the refresh of the {res}^3 grid: {refresh_ms:.2f} ms; rays in the fine shell "
+        f"{shell_share}")
+
+    # one step twice from the same state and batch: the kernels, then the plain versions.
+    # neus-acc's grid is held full at this inv_s; the step runs on a grid refreshed at
+    # inv_s = e^6 instead, which prunes, so that ``alpha *= valid`` masks samples
+    sched = model.schedules(trainer.step)
+    step_state, pruned = trainer.model_state, None
+    if not heritage:
+        deviation = model.field.deviation.detach().clone()
+        with uncounted(fm), torch.no_grad():
+            model.field.deviation.fill_(0.6)
+            step_state = model.update_model_state(step_state, trainer.step, None)
+            model.field.deviation.copy_(deviation)
+        pruned = int(step_state.binary.sum())
+        log(phase, f"the grid refreshed at inv_s = e^6 for the step: {pruned} of {res ** 3} cells")
+        check(0 < pruned < res ** 3, f"{phase}: the sharper refresh occupies {pruned} of {res ** 3} cells")
+
+    def one_step():
+        g = torch.Generator(device=dm.device).manual_seed(777)
+        i, b = dm.sample_train_batch(g)
+        total_, ld, _ = loss_and_metrics(model, dm.generate_rays(i), b, sched, g,
+                                         model_state=step_state)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
+
+    step = step_vs_plain(fm, phase, one_step)
+    calls, hash_calls = step["calls"], step["hash_calls"]
+    loss_err, grad_err = step["loss_err"], step["grad_err"]
+    del step, step_state
+    names = GRID_CHAINS if heritage else SURFACE_CHAINS
+    widths = [_chain_key(c) for c in calls]
+    check(sorted(widths) == sorted(names) and all("g" in c for c in calls),
+          f"{phase}: expected a call with a backward on each chain {sorted(names)}, captured {widths}")
+    check(len(hash_calls) == (1 if heritage else 0)
+          and all(r["F"] == 2 and not r["want_jac"] and "g_out" in r for r in hash_calls),
+          f"{phase}: captured hash calls {[(r['F'], r['x'].shape[0]) for r in hash_calls]}")
+
+    # exact launches: the steps (the refreshes launch none: the SDF has no grid feature), the final eval
+    final_chunks = CLI_FINAL_IMAGES * math.ceil(IMAGE * IMAGE / EVAL_CHUNK)
+    train_launches = _minus(total, finals[0]["launches"])
+    launches = {
+        "train": launches_held(phase, "train", train_launches,
+                               expected_launches(calls, hash_calls, TRAIN_STEPS, 0, 0)),
+        "final_eval": launches_held(phase, "final eval", finals[0]["launches"],
+                                    expected_launches(calls, hash_calls, 0, 0, final_chunks)),
+    }
+    log(phase, f"launches, exact: {json.dumps(launches)}")
+    chains = chain_checks(fm, calls, [names[w] for w in widths], phase, method)
+    hash_rec = None
+    if method == "neusW":
+        r = hash_calls[0]
+        with uncounted(fm):
+            hash_rec = hash_case(phase, "background", "captured", r["x"], r["spec"], r["rows"], 2,
+                                 False, r["g_out"], None)
+    del calls, hash_calls
+
+    # one traced step without a refresh (timed above): the sampler's host span
+    # against its kernels, the idle share
+    with uncounted(fm):
+        while trainer.step % model.model_state_update_every == 0:
+            trainer.train_step()
+        profile = traced_step(trainer)
+    traced_ms = profile["traced_wall_ms"]
+    log(phase.replace("[", "_profile["), json.dumps({"train_step": profile}))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, model, made
+    torch.cuda.empty_cache()
+    return {"method": method, "rays": rays, "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
+            "main_s": main_s, "final_eval": metrics, "final_eval_s": finals[0]["seconds"],
+            "occupied_cells": cells, "grid_resolution": res, "step_grid_cells": pruned,
+            "refresh_ms": refresh_ms,
+            "shell_share": shell_share, "launches": launches, "total_launches": total[0],
+            "step_loss_err": loss_err, "step_grad_err": grad_err, "chains": chains,
+            "chain_names": names, "hash_background": hash_rec,
+            "train_step_idle_share": profile["device_idle_share"], "traced_step_ms": traced_ms,
+            "device_busy_ms": profile["device_busy_ms"], "ranges": profile["ranges"],
+            "peak_memory_gib": peak_gib}
+
+
+def facto_angelo_phase(fm, smi: str) -> dict:
+    """``neus-facto-angelo`` (``surface[neus-facto-angelo]``) at full width:
+    the F = 8 SDF grid over 2^22 rows a level with numerical gradients, the
+    appearance embedding live in the colour chain, the hash proposals at F =
+    2, and the ``"grid"`` background (F = 2, its ``mlp_base`` chain [32 -> 64
+    -> 16] on the 48 in-sphere samples' merge and the 32 outside samples), at
+    its 2048 rays on the committed scene: ``TRAIN_STEPS`` steps through
+    ``Trainer.train``; the kernel step against the plain step (fused-MLP and
+    hash-grid kernels swapped) with ``angelo_tols`` at the step's delta;
+    launches by kernel and by chain exact (from the captured step; a
+    proposal net's backward on update steps only), and the hash kernels'
+    by width (F = 8 and F = 2) as counted; the colour and background chains alone; one traced step;
+    and the 384x384 view rendered with the kernels and without. Returns
+    what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.scripts.train import setup_method_trainer
+
+    method, phase = "neus-facto-angelo", "surface[neus-facto-angelo]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = setup_method_trainer(method, SCENE, max_num_iterations=TRAIN_STEPS, device="cuda")
+    dm, model = trainer.datamanager, trainer.model
+    rays = dm.config.train_num_rays_per_batch
+    torch.cuda.synchronize()
+    log(phase, f"{sum(p.numel() for p in model.parameters())} parameters, table "
+        f"{tuple(model.field.encoding.hash_table.shape)}, groups "
+        f"{ {g: o.kind for g, o in trainer.optimizers.items()} }, {rays} rays a step; set up in "
+        f"{time.perf_counter() - t:.2f} s")
+    check(rays == TRAIN_RAYS and type(model.field_background).__name__ == "NerfactoField"
+          and model.field.config.use_appearance_embedding, f"{phase}: not the registered entry")
+    fm.reset_launch_counts()
+    trainer.train(CHECK_STEPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last = trainer.train(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / (TRAIN_STEPS - CHECK_STEPS)
+    train_total, train_widths = _counts(fm), width_counts(fm)
+    check(trainer.step == TRAIN_STEPS and all(math.isfinite(v) for v in last.values()),
+          f"{phase}: step {trainer.step}, losses {last}")
+    check(last["curvature_loss"] > 0, f"{phase}: no curvature term at step {TRAIN_STEPS}")
+
+    sched = model.schedules(trainer.step)
+    delta = sched["numerical_delta"]
+    tol1, tol2 = angelo_tols(delta)
+
+    def one_step():
+        g = torch.Generator(device=dm.device).manual_seed(777)
+        i, b = dm.sample_train_batch(g)
+        total_, ld, _ = loss_and_metrics(model, dm.generate_rays(i), b, sched, g)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
+
+    log(phase, f"the kernel step vs the plain step at step {trainer.step}: delta {delta:.6g}, "
+        f"tol {tol1:.3g} / {tol2:.3g} (the curvature loss and the gradients)")
+    step = step_vs_plain(fm, phase, one_step, loss_tol=lambda k: tol2 if k == "curvature_loss" else tol1,
+                         grad_tol=tol2)
+    calls, hash_calls = step["calls"], step["hash_calls"]
+    loss_err, grad_err = step["loss_err"], step["grad_err"]
+    del step
+    by_F = {}
+    for r in hash_calls:
+        by_F.setdefault(r["F"], []).append(r)
+    check(len(by_F.get(8, [])) == 1 and len(by_F.get(2, [])) == 4,
+          f"{phase}: captured hash calls {[(r['F'], r['x'].shape[0]) for r in hash_calls]}")
+
+    proposal_chains = frozenset(tuple([net.mlp.layers[0].kernel.shape[0]]
+                                      + [l.kernel.shape[1] for l in net.mlp.layers])
+                                for net in model.proposal_networks)
+    proposal_specs = [net.encoding.spec for net in model.proposal_networks]
+    n_update = sum(bool(model.schedules(i)["train_proposal"]) for i in range(TRAIN_STEPS))
+    train_want = expected_launches(calls, hash_calls, TRAIN_STEPS, n_update, 0, proposal_chains,
+                                   proposal_specs)
+    launches = {"train": launches_held(phase, "train", train_total, train_want)}
+    # by width, as counted: the SDF's F = 8 call a step with its backward, the rest at F = 2
+    f8_want = {"hash_encode_fwd[F=8]": TRAIN_STEPS, "hash_encode_bwd[F=8]": TRAIN_STEPS}
+    f2_want = {f"hash_encode_{w}[F=2]": train_want[0][f"hash_encode_{w}"] - TRAIN_STEPS
+               for w in ("fwd", "bwd")}
+    check(train_widths == {**f8_want, **f2_want},
+          f"{phase}: hash launches by width {train_widths}, expected {f8_want} and {f2_want}")
+    log(phase, f"Trainer.train, steps {CHECK_STEPS}-{TRAIN_STEPS - 1}: {step_ms:.2f} ms a step, "
+        f"{rays / step_ms * 1e3:.0f} rays/s; losses at step {TRAIN_STEPS}: {json.dumps(last)}; "
+        f"launches, exact: {json.dumps(launches)}; hash launches by width {json.dumps(train_widths)}, "
+        f"{n_update} update steps")
+    # the colour chain and the background's two calls: first the merge on the
+    # in-sphere samples (neus_facto.py:216-219), then the 32 samples beyond far
+    mine = [c for c in calls if GRID_CHAINS.get(_chain_key(c))]
+    names = [GRID_CHAINS[_chain_key(c)] for c in mine]
+    check(sorted(names) == ["background_base", "background_base", "color"] and all("g" in c for c in mine),
+          f"{phase}: captured chains {[_chain_key(c) for c in calls]}")
+    names[names.index("background_base")] = "background_base_merge"
+    chains = chain_checks(fm, mine, names, phase, method)
+    chunk_chains = {}
+    for c in calls:
+        chunk_chains[_chain_key(c)] = chunk_chains.get(_chain_key(c), 0) + 1
+    del calls, hash_calls
+    torch.cuda.empty_cache()
+
+    with uncounted(fm):
+        profile = traced_step(trainer)
+    traced_ms = profile["traced_wall_ms"]
+    log(phase.replace("surface", "surface_profile"), json.dumps({"train_step": profile}))
+    render = render_view(fm, model, dm.train_cameras, trainer.step, phase, lambda: _both_plain(fm),
+                         chunk_chains)
+    n_chunks = math.ceil(IMAGE * IMAGE / 1024)
+    check(render["widths"] == {"hash_encode_fwd[F=8]": n_chunks, "hash_encode_fwd[F=2]": 4 * n_chunks},
+          f"{phase}: expected 5 hash forwards a chunk (the SDF's at F = 8; two proposals' and two "
+          f"background's at F = 2): {render['widths']}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"method": method, "rays": rays, "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
+            "loss_last": last, "launches": launches, "train_launches": train_total[0],
+            "render_launches": render["launches"], "render_chains": render["chains"],
+            "image_ms": render["image_ms"],
+            "hash_launches_by_width": {"train": train_widths, "render": render["widths"]},
+            "step_loss_err": loss_err, "step_grad_err": grad_err, "delta": delta, "tols": [tol1, tol2],
+            "chains": chains, "render_err": render["err"],
+            "render_quantile_err": render["quantile_err"],
+            "train_step_idle_share": profile["device_idle_share"], "traced_step_ms": traced_ms,
+            "device_busy_ms": profile["device_busy_ms"], "ranges": profile["ranges"],
+            "render_idle_share": render["profile"]["device_idle_share"], "peak_memory_gib": peak_gib}
 
 
 def _counts_sum(parts: list) -> tuple:
@@ -2637,7 +3009,11 @@ def main() -> int:
     cue_scene = finish_cue_scene()
     cue = {m: cue_phase(fm, smi, m, _CUE_SCENE["dir"]) for m in CUE_METHODS}
 
-    # 14. results -----------------------------------------------------------
+    # 14. the "grid" background: neus-facto-angelo, and the occupancy-grid family
+    facto_angelo = facto_angelo_phase(fm, smi)
+    grid = {m: grid_phase(fm, smi, m) for m in GRID_METHODS}
+
+    # 15. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -2672,6 +3048,36 @@ def main() -> int:
 
     def cue_launches(name: str) -> int:
         return sum(r["train_launches"][name] for r in cue.values())
+
+    def facto_hash(name: str, F: int) -> int:
+        """neus-facto-angelo's launches of hash kernel ``name`` at width ``F``, as counted."""
+        return sum(part.get(f"{name}[F={F}]", 0)
+                   for part in facto_angelo["hash_launches_by_width"].values())
+
+    def grid_launches(name: str) -> int:
+        """Phase 14's launches of kernel ``name``, neus-facto-angelo's F = 8 calls apart
+        (they are the F = 8 entries')."""
+        a = facto_angelo
+        n = sum(r["total_launches"][name] for r in grid.values())
+        return n + a["train_launches"][name] + a["render_launches"][name] - facto_hash(name, 8)
+
+    def grid_chain_rows(which: str) -> list:
+        """Phase 14's chains alone (the colour net with a live embedding, the
+        grid background's base, neus-acc's background head), one row per
+        method and call, with the chain's launches on that method's path."""
+        rows = []
+        for m, r in [*grid.items(), ("neus-facto-angelo", facto_angelo)]:
+            for c in r["chains"]:
+                d = c[which]
+                key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
+                n = sum(part["chains"].get(key, 0) for part in r["launches"].values())
+                if which == "fwd" and "render_chains" in r:
+                    n += r["render_chains"]["fwd"].get("-".join(map(str, c["dims"])), 0)
+                rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
+                             "out_act": c["out_act"], "launches": n,
+                             **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
+                                                  "bound_ms", "bound_ms_fp32", "bound_by")}})
+        return rows
 
     def cli_chain_rows(which: str) -> list:
         """p4's chains alone, at a captured step's inputs."""
@@ -2716,7 +3122,11 @@ def main() -> int:
             "route": "cuda",
             "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
             "replaces": replaces,
-            "launches": nf_launches[name] + cli_launches(name),
+            "launches": nf_launches[name] + cli_launches(name) + grid_launches(name),
+            "launches_grid": {m: r["total_launches"][name] for m, r in grid.items()},
+            "launches_neus_facto_angelo_F2": facto_hash(name, 2),
+            # the grid background's F = 2 call (L16, 2^19 rows, no jacobian) of a neusW step
+            "background_captured": grid["neusW"]["hash_background"].get(which),
             "launches_render": nf["render_launches"][name],
             "launches_train": nf_train["launches"][name],
             "launches_resume": nf["resume"]["launches"][name],
@@ -2724,7 +3134,8 @@ def main() -> int:
             # neus-facto-tpu's F = 4 SDF grid on a CLI train step's captured call
             "F4_step_captured": cli["neus-facto-tpu"]["hash_f4"].get(which),
             "max_abs_err": max([c[which]["max_abs_err"] for c in calls]
-                               + [cli["neus-facto-tpu"]["hash_f4"][which]["max_abs_err"]]),
+                               + [cli["neus-facto-tpu"]["hash_f4"][which]["max_abs_err"],
+                                  grid["neusW"]["hash_background"][which]["max_abs_err"]]),
             # one train step's three calls on their captured inputs
             "ms": hash_sum(which, "ms"),
             "plain_ms": hash_sum(which, "plain_ms"),
@@ -2779,8 +3190,9 @@ def main() -> int:
         part = "det" if det else which
         calls = [c for c in angelo["hash_calls"] if c["inputs"] == "captured" and part in c]
         key = (lambda k: f"{which}_{k}") if det else (lambda k: k)
+        facto_f8 = facto_hash(name, 8)
         launches = (angelo["det_launches"][name] if det
-                    else angelo["train_launches"][name] + angelo["render_launches"][name])
+                    else angelo["train_launches"][name] + angelo["render_launches"][name] + facto_f8)
         return {
             "name": f"{name}[F=8]",
             "route": "cuda",
@@ -2790,6 +3202,7 @@ def main() -> int:
             "launches_train": angelo["train_launches"][name],
             "launches_render": angelo["render_launches"][name],
             "launches_deterministic": angelo["det_launches"][name],
+            "launches_neus_facto_angelo": facto_f8,
             "max_abs_err": max(c[part][key("max_abs_err")] for c in angelo["hash_calls"] if part in c),
             "ms": sum(c[part][key("ms")] for c in calls),
             "plain_ms": sum(c[part][key("plain_ms")] for c in calls),
@@ -2815,7 +3228,12 @@ def main() -> int:
         "launches": (launches["fused_mlp_fwd"] + train["launches"]["fused_mlp_fwd"]
                      + final["launches"]["fused_mlp_fwd"] + resume["launches"]["fused_mlp_fwd"]
                      + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")
-                     + cli_launches("fused_mlp_fwd") + cue_launches("fused_mlp_fwd")),
+                     + cli_launches("fused_mlp_fwd") + cue_launches("fused_mlp_fwd")
+                     + grid_launches("fused_mlp_fwd")),
+        "launches_grid": {m: r["total_launches"]["fused_mlp_fwd"] for m, r in grid.items()},
+        "launches_neus_facto_angelo": (facto_angelo["train_launches"]["fused_mlp_fwd"]
+                                       + facto_angelo["render_launches"]["fused_mlp_fwd"]),
+        "grid_chains": grid_chain_rows("fwd"),
         "launches_cli": {m: r["total_launches"]["fused_mlp_fwd"] for m, r in cli.items()},
         "launches_cue": {m: r["train_launches"]["fused_mlp_fwd"] for m, r in cue.items()},
         "cli_chains": cli_chain_rows("fwd"),
@@ -2829,7 +3247,8 @@ def main() -> int:
         "launches_final_eval": final["launches"]["fused_mlp_fwd"],
         "launches_resume": resume["launches"]["fused_mlp_fwd"],
         "max_abs_err": max([r["max_abs_err"] for r in per_call]
-                           + [c["max_abs_err"] for c in surface_chains("fwd") + cli_chain_rows("fwd")]),
+                           + [c["max_abs_err"] for c in surface_chains("fwd") + cli_chain_rows("fwd")
+                              + grid_chain_rows("fwd")]),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
@@ -2850,7 +3269,11 @@ def main() -> int:
         "replaces": "sdfstudio_tpu/ops/pallas_mlp.py:151",
         "launches": (train["launches"]["fused_mlp_bwd"] + resume["launches"]["fused_mlp_bwd"]
                      + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")
-                     + cli_launches("fused_mlp_bwd") + cue_launches("fused_mlp_bwd")),
+                     + cli_launches("fused_mlp_bwd") + cue_launches("fused_mlp_bwd")
+                     + grid_launches("fused_mlp_bwd")),
+        "launches_grid": {m: r["total_launches"]["fused_mlp_bwd"] for m, r in grid.items()},
+        "launches_neus_facto_angelo": facto_angelo["train_launches"]["fused_mlp_bwd"],
+        "grid_chains": grid_chain_rows("bwd"),
         "launches_cli": {m: r["total_launches"]["fused_mlp_bwd"] for m, r in cli.items()},
         "launches_cue": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in cue.items()},
         "cli_chains": cli_chain_rows("bwd"),
@@ -2860,7 +3283,8 @@ def main() -> int:
         "launches_train": train["launches"]["fused_mlp_bwd"],
         "launches_resume": resume["launches"]["fused_mlp_bwd"],
         "max_abs_err": max([r["max_abs_err"] for r in bwd]
-                           + [c["max_abs_err"] for c in surface_chains("bwd") + cli_chain_rows("bwd")]),
+                           + [c["max_abs_err"] for c in surface_chains("bwd") + cli_chain_rows("bwd")
+                              + grid_chain_rows("bwd")]),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
@@ -2914,6 +3338,15 @@ def main() -> int:
                               "train_step_idle_share", "step_loss_err", "step_grad_err",
                               "peak_memory_gib")}
         for m, r in cue.items()}}))
+    grid_summary = {m: {k: r[k] for k in ("rays", "step_ms", "rays_per_s", "final_eval", "refresh_ms",
+                                           "shell_share", "grid_resolution", "train_step_idle_share",
+                                           "traced_step_ms", "device_busy_ms", "step_loss_err",
+                                           "step_grad_err", "peak_memory_gib")}
+                    for m, r in grid.items()}
+    grid_summary["neus-facto-angelo"] = {k: facto_angelo[k] for k in (
+        "rays", "step_ms", "rays_per_s", "image_ms", "train_step_idle_share", "render_idle_share",
+        "traced_step_ms", "device_busy_ms", "step_loss_err", "step_grad_err", "peak_memory_gib")}
+    log("grid", json.dumps(grid_summary))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)

@@ -7,11 +7,14 @@ Registers ``neus`` (methods.py:113-123), ``volsdf`` (:125-135), ``unisurf``
 the geo entries with the flexible data manager (:876-882) -- the
 ``neus-facto`` family -- ``neus-facto`` (:216-240),
 ``neus-facto-tpu`` (:270-312), ``neus-facto-tpu-p4`` (:314-359),
-``neus-facto-tpu-p8`` (:361-393) and ``neus-facto-bigmlp`` (:396-412) --
-and ``neuralangelo`` (:461-501), each a ``Config`` (``configs/base.py``)
-with JAX's model, optimizer groups, trainer (``_SURFACE_TRAINER`` and the
-entry's own values) and data-manager settings, and the SDFStudio parser;
-nothing is read from YAML. ``descriptions`` is JAX's help text (:33-59,
+``neus-facto-tpu-p8`` (:361-393), ``neus-facto-bigmlp`` (:396-412) and
+``neus-facto-angelo`` (:413-458) -- ``neuralangelo`` (:461-501), and the
+occupancy-grid family -- ``neus-acc`` (:642-652), ``neusW`` (:788-805, with
+the heritage parser) and ``dto`` (:808-823) -- each a ``Config``
+(``configs/base.py``) with JAX's model, optimizer groups, trainer
+(``_SURFACE_TRAINER`` and the entry's own values) and data-manager
+settings, and the SDFStudio parser unless named; nothing is read from
+YAML. ``descriptions`` is JAX's help text (:33-59,
 :867-874) for the registered methods.
 """
 from __future__ import annotations
@@ -24,14 +27,18 @@ import torch
 from sdfstudio_tpu_torch.configs.base import Config
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
 from sdfstudio_tpu_torch.data.datamanager import DataManagerConfig
+from sdfstudio_tpu_torch.data.dataparsers.colmap_family import HeritageDataParserConfig
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig
 from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGroupConfig
 from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
 from sdfstudio_tpu_torch.engine.trainer import TrainerConfig
 from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig
 from sdfstudio_tpu_torch.models.base_surface_model import SurfaceModelConfig
+from sdfstudio_tpu_torch.models.dto import DtoOModel, DtoOModelConfig
 from sdfstudio_tpu_torch.models.neuralangelo import NeuralangeloModel, NeuralangeloModelConfig
+from sdfstudio_tpu_torch.models.neuralreconW import NeuralReconWModel, NeuralReconWModelConfig
 from sdfstudio_tpu_torch.models.neus import NeuSModel, NeuSModelConfig
+from sdfstudio_tpu_torch.models.neus_acc import NeuSAccModel, NeuSAccModelConfig
 from sdfstudio_tpu_torch.models.neus_facto import NeuSFactoModel, NeuSFactoModelConfig
 from sdfstudio_tpu_torch.models.unisurf import UniSurfModel, UniSurfModelConfig
 from sdfstudio_tpu_torch.models.volsdf import VolSDFModel, VolSDFModelConfig
@@ -52,7 +59,11 @@ descriptions = {
     "neus-facto-tpu-p4": "neus-facto-tpu with a permutohedral L4xF4 encoding.",
     "neus-facto-tpu-p8": "neus-facto-tpu with a permutohedral L8xF4 encoding.",
     "neus-facto-bigmlp": "NeuS-facto with a big MLP (heritage-scale).",
+    "neus-facto-angelo": "Neuralangelo hash field with neus-facto sampling.",
     "neuralangelo": "Implementation of Neuralangelo.",
+    "neus-acc": "NeuS with empty-space skipping.",
+    "neusW": "Neural reconstruction in the wild (heritage).",
+    "dto": "Occupancy-grid-guided NeuS with density-field background.",
 }
 
 
@@ -60,7 +71,7 @@ def MethodConfig(method_name: str, model_class: type, model: SurfaceModelConfig,
                  optimizers: Optional[Dict[str, OptimizerGroupConfig]] = None,
                  trainer: Optional[TrainerConfig] = None,
                  datamanager: Optional[DataManagerConfig] = None,
-                 dataparser: Optional[SDFStudioDataParserConfig] = None) -> Config:
+                 dataparser=None) -> Config:
     """A registry entry: a ``Config`` with the SDFStudio parser (at its
     defaults unless given)."""
     return Config(method_name=method_name, model_class=model_class, model=model,
@@ -101,8 +112,7 @@ _SURFACE_TRAINER = dict(
 
 def _surface_cfg(name: str, model_class: type, model: SurfaceModelConfig,
                  optimizers: Dict[str, OptimizerGroupConfig], trainer_kwargs: Dict,
-                 rays_per_batch: int = 1024, dataparser: Optional[SDFStudioDataParserConfig] = None,
-                 kind: str = "vanilla") -> Config:
+                 rays_per_batch: int = 1024, dataparser=None, kind: str = "vanilla") -> Config:
     """``_surface_cfg`` (methods.py:93-110)."""
     return MethodConfig(name, model_class, model, optimizers,
                         TrainerConfig(**{**_SURFACE_TRAINER, **trainer_kwargs}),
@@ -259,6 +269,76 @@ method_configs: Dict[str, Config] = {
         dict(max_num_iterations=500001, steps_per_eval_image=5000),
         rays_per_batch=512,
     ),
+    # methods.py:413-458: Neuralangelo's field (F = 8 over 2^22 rows a level, numerical
+    # gradients, the appearance embedding) with the neus-facto sampler and schedules, and the
+    # "grid" background under AdamW
+    "neus-facto-angelo": _surface_cfg(
+        "neus-facto-angelo",
+        NeuSFactoModel,
+        NeuSFactoModelConfig(
+            near_plane=0.01,
+            far_plane=1000.0,
+            overwrite_near_far_plane=True,
+            sdf_field=SDFFieldConfig(
+                use_grid_feature=True,
+                num_layers=1,
+                num_layers_color=4,
+                hidden_dim=256,
+                hidden_dim_color=256,
+                bias=0.5,
+                beta_init=0.3,
+                inside_outside=False,
+                use_appearance_embedding=True,
+                use_numerical_gradients=True,
+                base_res=64,
+                max_res=4096,
+                log2_hashmap_size=22,
+                hash_features_per_level=8,
+                hash_smoothstep=False,
+                use_position_encoding=False,
+            ),
+            background_model="grid",
+            eval_num_rays_per_chunk=1024,
+            level_init=8,
+            eikonal_loss_mult=0.01,
+            use_anneal_beta=True,
+            enable_progressive_hash_encoding=True,
+            enable_numerical_gradients_schedule=True,
+            enable_curvature_loss_schedule=True,
+            curvature_loss_multi=5e-4,
+        ),
+        {
+            "proposal_networks": OptimizerGroupConfig(_adam(1e-2), _multistep(1000000)),
+            "field": OptimizerGroupConfig(_adam(1e-3), _multistep_warmup(5000, [600000, 800000])),
+            "field_background": OptimizerGroupConfig(_adam(1e-3, kind="adamw"),
+                                                     _multistep_warmup(5000, [300000, 400000])),
+        },
+        dict(max_num_iterations=1000001, steps_per_eval_image=5000),
+        rays_per_batch=2048,
+    ),
+    # methods.py:642-652: the 128^3 alpha-pruned grid, 128 masked samples, the NeRF background
+    "neus-acc": _surface_cfg(
+        "neus-acc", NeuSAccModel, NeuSAccModelConfig(eval_num_rays_per_chunk=1024),
+        {g: OptimizerGroupConfig(_adam(5e-4), _neus_sched(500, 0.05, 20000))
+         for g in ("field", "field_background")},
+        dict(max_num_iterations=20000, steps_per_eval_image=5000), rays_per_batch=2048),
+    # methods.py:788-805: the coarse and fine grids, the surface-guided sampler and the "grid"
+    # background at 4 samples, on the heritage parser
+    "neusW": _surface_cfg(
+        "neusW", NeuralReconWModel,
+        NeuralReconWModelConfig(background_model="grid", num_samples_outside=4,
+                                eikonal_loss_mult=1e-4, eval_num_rays_per_chunk=1024),
+        {"field": OptimizerGroupConfig(_adam(1e-3), _neus_sched(500, 0.05, 300000)),
+         "field_background": OptimizerGroupConfig(_adam(1e-2), _multistep(300000))},
+        dict(max_num_iterations=100000, steps_per_eval_image=5000, steps_per_save=5000),
+        rays_per_batch=2048, dataparser=HeritageDataParserConfig()),
+    # methods.py:808-823: neusW's grids and sampler with the "grid" background at 4 samples
+    "dto": _surface_cfg(
+        "dto", DtoOModel, DtoOModelConfig(eval_num_rays_per_chunk=1 << 10),
+        {"field": OptimizerGroupConfig(_adam(5e-4), _neus_sched(500, 0.05, 300000)),
+         "field_background": OptimizerGroupConfig(_adam(1e-2), _multistep(300000))},
+        dict(max_num_iterations=100000, steps_per_eval_image=2000, steps_per_save=5000),
+        rays_per_batch=2048),
 }
 
 

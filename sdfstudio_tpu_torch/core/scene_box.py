@@ -14,6 +14,9 @@ class SceneBox:
     aabb: np.ndarray = field(
         default_factory=lambda: np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
     )
+    coarse_binary_grid: Optional[np.ndarray] = None
+    """Coarse occupancy from the sparse SfM points, [c, c, c] bool (the
+    heritage parser's; ``neusW`` and ``dto`` read it)."""
     near: Optional[float] = 0.1
     far: Optional[float] = 6.0
     radius: Optional[float] = 1.0

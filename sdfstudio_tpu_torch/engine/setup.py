@@ -18,12 +18,15 @@ from typing import Optional, Tuple
 from sdfstudio_tpu_torch.configs.base import Config
 from sdfstudio_tpu_torch.configs.methods import build_model
 from sdfstudio_tpu_torch.data.datamanager import FlexibleDataManager, VanillaDataManager
+from sdfstudio_tpu_torch.data.dataparsers.colmap_family import HeritageDataParserConfig, parse_heritage
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig, parse_config
 from sdfstudio_tpu_torch.engine.trainer import Trainer
 from sdfstudio_tpu_torch.utils.device import resolve_device
 from sdfstudio_tpu_torch.utils.writer import Writer
 
 MODEL_SEED = 0
+# each ported parser's config type and its parse function (split -> DataparserOutputs)
+PARSERS = {SDFStudioDataParserConfig: parse_config, HeritageDataParserConfig: parse_heritage}
 
 
 def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str] = None,
@@ -36,14 +39,15 @@ def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str]
     if config.model_class is None:
         raise ValueError("the config names no model class")
     parser = config.dataparser if config.dataparser is not None else SDFStudioDataParserConfig()
-    if not isinstance(parser, SDFStudioDataParserConfig):
+    if type(parser) not in PARSERS:
         raise NotImplementedError(f"dataparser {type(parser).__name__} is not ported (ROADMAP "
                                   "queue 1 item 14)")
     if config.data is not None:
         parser = dataclasses.replace(parser, data=Path(config.data))
     config.dataparser = parser  # as JAX's setup does, so that config.yml names the scene
-    train_outputs = parse_config(parser, "train")
-    eval_outputs = parse_config(parser, "val")
+    parse = PARSERS[type(parser)]
+    train_outputs = parse(parser, "train")
+    eval_outputs = parse(parser, "val")
     # setup.py:42-52: the Geo-NeuS methods' data manager draws from one reference image
     kinds = {"vanilla": VanillaDataManager, "flexible": FlexibleDataManager}
     if config.datamanager.kind not in kinds:
@@ -58,7 +62,8 @@ def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str]
                     experiment_name=f"{config.experiment_name}/{config.method_name}",
                     banner=f"[sdfstudio-tpu-torch] method={config.method_name} out={run_dir}")
     return Trainer(config.trainer, model, datamanager, dict(config.optimizers), run_dir,
-                   method_name=config.method_name, writer=writer, seed=config.seed)
+                   method_name=config.method_name, writer=writer, seed=config.seed,
+                   scene_dir=Path(parser.data))
 
 
 def eval_setup(config_path: Path, test_mode: bool = True,

@@ -3,8 +3,10 @@ step of ``_train_step_impl`` (trainer.py:309-436), the loop around it
 (``train``, ``_train_windows``, trainer.py:574-742), the in-loop eval image
 (``eval_image_metrics``, :550-571), checkpoints and the final evaluation.
 
-One step: the schedules at the step before it increments, a uniform pixel
-batch from the device-resident image stack, rays, the model forward with
+One step: the schedules at the step before it increments, the model
+state's refresh when the step is a multiple of the model's
+``model_state_update_every`` (step 0 included; trainer.py:314-327), a
+uniform pixel batch from the device-resident image stack, rays, the model forward with
 jitter from the trainer's ``torch.Generator``, the loss dict and its sum,
 the gradient of every parameter group, and each group's Adam. On a frozen
 proposal step (``train_proposal`` False) the proposal nets get zero
@@ -38,13 +40,20 @@ not read, as in JAX's loop; ``steps_per_call`` (a K-step ``lax.scan`` on
 the TPU) is taken and has no effect here: its counterpart is CUDA-graph
 capture (ROADMAP queue 1 item 17).
 
+A model with ``has_model_state`` (the occupancy grids of ``neusW``,
+``dto`` and ``neus-acc``) gets its ``init_model_state()`` at set-up; the
+state goes to every train forward and every render chunk
+(trainer.py:108, 158-175, 345, 477-521).
+
 Checkpoints (trainer.py:736-805) lie as JAX lays them out,
 ``<base_dir>/sdfstudio_models/step-{step:09d}/`` with ``step.txt`` written
 last; the port's own format is one ``torch.save`` file holding the model's
-``state_dict``, every group's Adam state, the step and the generator's
-state, so a resumed run takes the same steps as a straight one. The loader
+``state_dict``, every group's Adam state, the model state (``model_state``,
+None without one), the step and the generator's state, so a resumed run
+takes the same steps as a straight one. The loader
 also reads a JAX packed checkpoint (``packed.npz``) through
-``utils/convert.py::load_jax_checkpoint``; JAX's PRNG key has no
+``utils/convert.py::load_jax_checkpoint``, its ``model_state``
+leaf too; JAX's PRNG key has no
 counterpart, so the generator then keeps its seed.
 """
 from __future__ import annotations
@@ -80,8 +89,7 @@ class TrainerConfig:
     ROADMAP queue 1 item 12) and ``mixed_precision`` (every registered
     surface method trains in f32) raise when set; ``target_num_samples`` and
     ``dynamic_update_every`` belong to the first. The final evaluation's
-    judges are ``"dtu-like"`` and ``"sphere"`` (``"heritage-like"`` comes
-    with ``neusW``)."""
+    judges are ``"dtu-like"``, ``"heritage-like"`` and ``"sphere"``."""
 
     steps_per_save: int = 1000
     steps_per_eval_batch: int = 500
@@ -118,15 +126,18 @@ def eval_image_index(step: int, num_eval_images: int) -> int:
 
 def loss_and_metrics(
     model, ray_bundle, batch: Dict[str, torch.Tensor], sched: Dict, rng: Rng = None,
-    additional: Optional[Dict] = None,
+    additional: Optional[Dict] = None, model_state=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """``loss_fn`` of trainer.py:352-364: (total loss, loss dict, metrics);
     with a flexible batch's ``additional`` inputs through
-    ``get_outputs_flexible``."""
+    ``get_outputs_flexible``; a model with a model state takes it (JAX's
+    ``model_kwargs``, trainer.py:345)."""
     if additional is not None:
-        outputs = model.get_outputs_flexible(ray_bundle, additional, sched=sched, train=True, rng=rng)
+        outputs = model.get_outputs_flexible(ray_bundle, additional, sched=sched, train=True, rng=rng,
+                                             model_state=model_state)
     else:
-        outputs = model.get_outputs(ray_bundle, sched=sched, train=True, rng=rng)
+        outputs = model.get_outputs(ray_bundle, sched=sched, train=True, rng=rng,
+                                    model_state=model_state)
     loss_dict = model.get_loss_dict(outputs, batch, sched, rng)
     total = sum(loss_dict.values())
     return total, loss_dict, model.get_metrics_dict(outputs, batch)
@@ -180,6 +191,7 @@ class Trainer:
         method_name: str = "",
         writer: Optional[writer_lib.Writer] = None,
         seed: int = SEED,
+        scene_dir: Optional[Path] = None,
     ):
         if config.dynamic_batch:
             raise NotImplementedError("dynamic_batch=True is not ported (ROADMAP queue 1 item 12, "
@@ -195,9 +207,11 @@ class Trainer:
         self.method_name = method_name
         self.writer = writer or writer_lib.Writer(self.base_dir)
         self.seed = seed
+        self.scene_dir = scene_dir  # the scene's directory, which the heritage judge reads
         self.optimizers: Dict[str, GroupAdam] = {}
         self.step = 0
         self.generator: Optional[torch.Generator] = None
+        self.model_state = None  # the model's (trainer.py:108), for a model with has_model_state
         self.metric_keys: Sequence[str] = ()
         self.eval_history: List[Dict] = []  # the loop's eval images: step, image, metrics, seconds
         self.interrupted_step: Optional[int] = None
@@ -207,6 +221,8 @@ class Trainer:
         self.optimizers = build_optimizers(self.optimizer_groups, self.model)
         self.generator = torch.Generator(device=self.datamanager.device).manual_seed(self.seed)
         self.step = 0
+        self.model_state = (self.model.init_model_state()
+                            if getattr(self.model, "has_model_state", False) else None)
         if self.config.load_dir is not None:
             self.load_checkpoint(self.config.load_dir, self.config.load_step)
 
@@ -214,6 +230,9 @@ class Trainer:
         """One step; returns its metrics as one device vector (``metric_keys``)."""
         model, dm, gen = self.model, self.datamanager, self.generator
         sched = model.schedules(self.step)
+        if self.model_state is not None and self.step % model.model_state_update_every == 0:
+            # before the step's forward, step 0 included (trainer.py:314-327)
+            self.model_state = model.update_model_state(self.model_state, self.step, gen)
         accum = self.rays_multiple()
         R = dm.config.train_num_rays_per_batch
         additional = None
@@ -225,7 +244,8 @@ class Trainer:
         if accum == 1:
             with record_function("sst/train_forward"):
                 total, loss_dict, metrics = loss_and_metrics(
-                    model, dm.generate_rays(ray_indices), batch, sched, gen, additional)
+                    model, dm.generate_rays(ray_indices), batch, sched, gen, additional,
+                    self.model_state)
             with record_function("sst/train_backward"):
                 grads = group_grads(total, self.optimizers)
         else:
@@ -237,7 +257,7 @@ class Trainer:
                 with record_function("sst/train_forward"):
                     sub, loss_dict, metrics = loss_and_metrics(
                         model, dm.generate_rays(ray_indices[sl]), {k: v[sl] for k, v in batch.items()},
-                        sched, gen)
+                        sched, gen, model_state=self.model_state)
                 with record_function("sst/train_backward"):
                     g = group_grads(sub, self.optimizers)
                 grads = g if grads is None else {n: [_add(x, y) for x, y in zip(grads[n], g[n])]
@@ -266,7 +286,8 @@ class Trainer:
         (trainer.py:550-571)."""
         dm = self.datamanager
         cams = dm.eval_cameras if dm.eval_cameras is not None else dm.train_cameras
-        rgb = render_image(self.model, cams, camera_index, step=float(self.step))["rgb"]
+        rgb = render_image(self.model, cams, camera_index, step=float(self.step),
+                           model_state=self.model_state)["rgb"]
         gt = dm.eval_image_data(camera_index)["image"][..., :3]
         m = {"psnr": float(psnr(rgb, gt)), "ssim": float(ssim(rgb, gt))}
         lp = lpips(rgb, gt)
@@ -351,6 +372,7 @@ class Trainer:
             "step": step,
             "model": self.model.state_dict(),
             "optimizers": {name: opt.state() for name, opt in self.optimizers.items()},
+            "model_state": None if self.model_state is None else self.model_state.state(),
             "generator": self.generator.get_state(),
         }, path / CHECKPOINT_FILE)
         (path / "step.txt").write_text(str(step))
@@ -377,7 +399,9 @@ class Trainer:
         if not (path / "step.txt").exists():
             raise FileNotFoundError(f"no complete checkpoint at {path}")
         if (path / "packed.npz").exists():
-            step = load_jax_checkpoint(self.model, self.optimizers, path)
+            step, model_state = load_jax_checkpoint(self.model, self.optimizers, path)
+            if self.model_state is not None and model_state is not None:
+                self.model_state = type(self.model_state).from_state(model_state, self.model_state.aabb.device)
         else:
             ckpt = torch.load(path / CHECKPOINT_FILE, map_location="cpu", weights_only=True)
             if set(ckpt["optimizers"]) != set(self.optimizers):
@@ -387,6 +411,9 @@ class Trainer:
             for name, opt in self.optimizers.items():
                 opt.load_state(**ckpt["optimizers"][name])
             self.generator.set_state(ckpt["generator"])
+            if self.model_state is not None:
+                self.model_state = type(self.model_state).from_state(ckpt["model_state"],
+                                                                     self.model_state.aabb.device)
             step = ckpt["step"]
         if step != load_step:
             raise ValueError(f"{path} holds step {step}")

@@ -1,0 +1,152 @@
+"""Nerfacto-style grid field (counterpart of
+``sdfstudio_tpu/fields/nerfacto_field.py``): the surface methods' ``"grid"``
+background.
+
+A hash grid (L16 x F2, 2^19 rows a level, resolutions 16 to 1024) over the
+contracted positions mapped to [0, 1]^3, ``mlp_base`` [32 -> 64 -> 16]
+(relu hidden, no output activation; one fused kernel), ``trunc_exp`` of its
+first output as the density, the SH encoding of the direction (levels 4,
+16 components), a 32-wide appearance embedding, and ``mlp_head`` [63 -> 64
+-> 64 -> 3] with a sigmoid output, which stays on the plain product as in
+JAX (its fused kernel takes no sigmoid, ``ops/mlp.py``). The encode runs
+without a jacobian: the positions take no gradient. The transient,
+semantic and predicted-normal heads, which only the density methods
+(``nerfacto``, ``phototourism``, ``semantic-nerfw``) set, raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from sdfstudio_tpu_torch.core.rays import RaySamples
+from sdfstudio_tpu_torch.core.scene_box import SceneBox
+from sdfstudio_tpu_torch.ops.contraction import contract
+from sdfstudio_tpu_torch.ops.density import trunc_exp
+from sdfstudio_tpu_torch.ops.encodings import HashEncoding, SHEncoding
+from sdfstudio_tpu_torch.ops.mlp import MLP
+
+# NerfactoFieldNet's widths (nerfacto_field.py:30-42), which every surface caller keeps
+NUM_LAYERS = 2
+HIDDEN_DIM = 64
+GEO_FEAT_DIM = 15
+BASE_RES = 16
+FEATURES_PER_LEVEL = 2
+NUM_LAYERS_COLOR = 3
+HIDDEN_DIM_COLOR = 64
+APPEARANCE_EMBEDDING_DIM = 32
+
+
+class NerfactoField(nn.Module):
+    """``NerfactoFieldNet`` (nerfacto_field.py:27-147) with the
+    ``NerfactoField`` wrapper's normalisation and ray-sample evaluation
+    (:150-221). Parameters carry JAX's names: ``encoding.hash_table``,
+    ``mlp_base.layers.i``, ``embedding_appearance.embedding`` and
+    ``mlp_head.layers.i``.
+
+    The appearance rows follow JAX (:109-121): in training each sample
+    takes its camera's row (and the table its gradient); at eval zeros, or
+    with ``use_average_appearance_embedding`` the mean row; zeros in both
+    modes without ``use_appearance_embedding``."""
+
+    def __init__(
+        self,
+        aabb: Optional[np.ndarray] = None,
+        spatial_distortion: Optional[str] = "inf",  # None | "inf" | "l2"
+        num_images: int = 1,
+        use_average_appearance_embedding: bool = False,
+        num_levels: int = 16,
+        max_res: int = 1024,
+        log2_hashmap_size: int = 19,
+        use_appearance_embedding: bool = True,
+        use_transient_embedding: bool = False,
+        use_semantics: bool = False,
+        use_pred_normals: bool = False,
+    ):
+        super().__init__()
+        for flag, name, methods in ((use_transient_embedding, "use_transient_embedding",
+                                     "phototourism"),
+                                    (use_semantics, "use_semantics", "semantic-nerfw"),
+                                    (use_pred_normals, "use_pred_normals", "nerfacto")):
+            if flag:
+                raise NotImplementedError(f"NerfactoField {name}=True is not ported yet: it comes "
+                                          f"with {methods} (ROADMAP queue 1 item 12)")
+        self.spatial_distortion = spatial_distortion
+        self.use_average_appearance_embedding = use_average_appearance_embedding
+        self.use_appearance_embedding = use_appearance_embedding
+        self.register_buffer(
+            "aabb", torch.as_tensor(aabb if aabb is not None else SceneBox().aabb,
+                                    dtype=torch.float32), persistent=False)
+        self.encoding = HashEncoding(num_levels=num_levels, min_res=BASE_RES, max_res=max_res,
+                                     log2_hashmap_size=log2_hashmap_size,
+                                     features_per_level=FEATURES_PER_LEVEL)
+        self.mlp_base = MLP(self.encoding.out_dim, NUM_LAYERS, HIDDEN_DIM, out_dim=1 + GEO_FEAT_DIM)
+        self.direction_encoding = SHEncoding(levels=4)
+        self.embedding_appearance = nn.Module()
+        self.embedding_appearance.embedding = nn.Parameter(
+            torch.zeros(num_images, APPEARANCE_EMBEDDING_DIM))
+        self.mlp_head = MLP(self.direction_encoding.out_dim + GEO_FEAT_DIM + APPEARANCE_EMBEDDING_DIM,
+                            NUM_LAYERS_COLOR, HIDDEN_DIM_COLOR, out_dim=3, out_activation="sigmoid")
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's initialisers: the table uniform in +-1e-4, lecun normal
+        kernels with zero biases, and ``nn.Embed``'s truncated normal of
+        variance 1 / rows (fan in along the rows)."""
+        self.encoding.reset_parameters(generator)
+        self.mlp_base.reset_parameters(generator)
+        self.mlp_head.reset_parameters(generator)
+        emb = self.embedding_appearance.embedding
+        std = math.sqrt(1.0 / emb.shape[0]) / 0.87962566103423978
+        nn.init.trunc_normal_(emb, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+    def normalize(self, positions: torch.Tensor) -> torch.Tensor:
+        """Contract, then map to [0, 1] (nerfacto_field.py:186-192)."""
+        if self.spatial_distortion == "inf":
+            return (contract(positions, order=math.inf) + 2.0) / 4.0
+        if self.spatial_distortion == "l2":
+            return (contract(positions, order=None) + 2.0) / 4.0
+        return SceneBox.get_normalized_positions(positions, self.aabb)
+
+    def density_raw(self, positions01: torch.Tensor):
+        """(raw density, geometry features [.., 15]) at normalised positions (:94-97)."""
+        with record_function("sst/hash_encode"):
+            feature = self.encoding(positions01.detach())
+        h = self.mlp_base(feature)
+        return h[..., 0], h[..., 1:]
+
+    def appearance(self, camera_indices: torch.Tensor, train: bool) -> torch.Tensor:
+        """The embedding rows of the samples (nerfacto_field.py:109-121), [N, 32]."""
+        table = self.embedding_appearance.embedding
+        n = camera_indices.shape[0]
+        if self.use_appearance_embedding and train:
+            return table[camera_indices]
+        if self.use_appearance_embedding and self.use_average_appearance_embedding:
+            return table.mean(0).expand(n, -1)
+        return table.new_zeros((n, table.shape[1]))
+
+    def forward(self, positions01: torch.Tensor, directions: torch.Tensor,
+                camera_indices: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
+        """Density and rgb at normalised positions (nerfacto_field.py:99-147)."""
+        raw, geo_feat = self.density_raw(positions01)
+        d = self.direction_encoding(directions)
+        emb = self.appearance(camera_indices, train)
+        rgb = self.mlp_head(torch.cat([d, geo_feat, emb], dim=-1))
+        return {"density": trunc_exp(raw), "rgb": rgb}
+
+    def get_outputs(self, ray_samples: RaySamples, train: bool = False) -> Dict[str, torch.Tensor]:
+        """Density [R, S] and rgb [R, S, 3] at the frustum centres (:204-221);
+        camera 0 where the samples carry no camera indices."""
+        R, S = ray_samples.num_rays, ray_samples.num_samples
+        p01 = self.normalize(ray_samples.get_positions().reshape(-1, 3))
+        dirs = ray_samples.directions[:, None, :].expand(R, S, 3).reshape(-1, 3)
+        if ray_samples.camera_indices is not None:
+            cam = ray_samples.camera_indices.reshape(R, 1).expand(R, S).reshape(-1)
+        else:
+            cam = torch.zeros(R * S, dtype=torch.long, device=p01.device)
+        out = self(p01, dirs, cam, train)
+        return {k: v.reshape(R, S, *v.shape[1:]) for k, v in out.items()}

@@ -5,7 +5,8 @@ Ported: the hash-grid or permutohedral grid feature with its analytic
 jacobian (or, with ``use_grid_feature=False``, JAX's zeros in its place), the
 weight-normed geometry MLP with the ``"vjp"`` gradient
 (``geonetwork_with_gradient``, sdf_field.py:323-368), the color net through
-the fused kernel (``colors``, sdf_field.py:387-473), ``get_outputs``
+the fused kernel with the appearance embedding's rows (``colors``,
+sdf_field.py:387-473), ``get_outputs``
 (sdf_field.py:642-765) with NeuS alpha and UniSurf occupancy, and
 ``gradient`` (sdf_field.py:578-648), analytic or numerical (Neuralangelo's
 six taps, with their SDF values for the curvature loss), for the
@@ -49,9 +50,9 @@ class SDFFieldConfig:
     hash-grid (``encoding_type="hash"``, f32 tables) or permutohedral
     (``"permuto"``) grid feature, on or off (``use_grid_feature``),
     positional encoding (or zeros in its place), geometric init, weight
-    norm, no appearance embedding, and the analytic ``"vjp"`` gradient or
-    the numerical one; other encodings, ``"bfloat16"`` tables and
-    ``use_appearance_embedding=True`` raise."""
+    norm, the appearance embedding on or off, and the analytic ``"vjp"``
+    gradient or the numerical one; other encodings and ``"bfloat16"``
+    tables raise."""
 
     num_layers: int = 8
     hidden_dim: int = 256
@@ -59,7 +60,7 @@ class SDFFieldConfig:
     num_layers_color: int = 4
     hidden_dim_color: int = 256
     appearance_embedding_dim: int = 32
-    use_appearance_embedding: bool = False  # sdf_field.py:73; True is not ported yet
+    use_appearance_embedding: bool = False  # sdf_field.py:73
     bias: float = 0.8
     inside_outside: bool = True
     use_grid_feature: bool = False
@@ -100,14 +101,14 @@ class SDFField(nn.Module):
         config: SDFFieldConfig,
         num_images: int = 1,
         spatial_distortion: Optional[str] = None,
+        use_average_appearance_embedding: bool = False,
     ):
         super().__init__()
         cfg = self.config = config
         self.spatial_distortion = spatial_distortion
+        self.use_average_appearance_embedding = use_average_appearance_embedding
         if cfg.hash_table_dtype != "float32":
             raise NotImplementedError(f"hash_table_dtype={cfg.hash_table_dtype!r} is not ported")
-        if cfg.use_appearance_embedding:
-            raise NotImplementedError("use_appearance_embedding=True is not ported yet")
         if cfg.encoding_type not in ("hash", "permuto"):
             raise NotImplementedError(f"encoding_type={cfg.encoding_type!r} is not ported")
         grid = dict(num_levels=cfg.num_levels, min_res=cfg.base_res, max_res=cfg.max_res,
@@ -313,24 +314,38 @@ class SDFField(nn.Module):
             grad = dx + torch.einsum("...f,...fa->...a", dfeat, fjac)
         return h.detach(), grad
 
+    def appearance(self, camera_indices: Optional[torch.Tensor], n: int, train: bool,
+                   like: torch.Tensor) -> torch.Tensor:
+        """The appearance rows of ``n`` samples (sdf_field.py:409-422): in
+        training each sample's camera row when ``use_appearance_embedding``
+        is set (zeros otherwise); at eval the mean row with
+        ``use_average_appearance_embedding``, zeros without it (JAX reads
+        only the wrapper's flag there)."""
+        table = self.embedding_appearance.embedding
+        if train and self.config.use_appearance_embedding:
+            if camera_indices is None:
+                camera_indices = torch.zeros(n, dtype=torch.long, device=like.device)
+            return table[camera_indices]
+        if not train and self.use_average_appearance_embedding:
+            return table.mean(0).to(like.dtype).expand(n, -1)
+        return like.new_zeros((n, table.shape[1]))
+
     def colors(
         self,
         points: torch.Tensor,
         directions: torch.Tensor,
         gradients: torch.Tensor,
         geo_features: torch.Tensor,
+        camera_indices: Optional[torch.Tensor] = None,
+        train: bool = False,
     ) -> torch.Tensor:
         """View-dependent colour (sdf_field.py:387-473), the whole chain in
-        the fused kernel. Neither ported method has an appearance embedding
-        in training either (``use_appearance_embedding=False`` zeroes it), so
-        the embedding input is zero in both modes. In training the kernel's
-        input gradient reaches ``gradients`` and the geometry features."""
+        the fused kernel, with the samples' appearance rows (``appearance``)
+        as its last input. In training the kernel's input gradient reaches
+        ``gradients``, the geometry features and the embedding's rows."""
         cfg = self.config
         d = self.direction_encoding(directions)
-        emb = torch.zeros(
-            (*directions.shape[:-1], cfg.appearance_embedding_dim),
-            dtype=directions.dtype, device=directions.device,
-        )
+        emb = self.appearance(camera_indices, directions.shape[0], train, directions)
         h = torch.cat([points, d, gradients, geo_features, emb], dim=-1)
         kbs = [self.clayer(l).effective() for l in range(self.n_clayers)]
         with record_function("sst/color_mlp"):
@@ -371,14 +386,21 @@ class SDFField(nn.Module):
         train: bool = False,
         hash_mask: Optional[torch.Tensor] = None,
         numerical_delta: Optional[float] = None,
+        inv_s_override: Optional[float] = None,
     ) -> Dict[str, torch.Tensor]:
         """Field forward over ray samples (sdf_field.py:642-765), with the
         step's ``hash_mask`` and, in the numerical mode, its
         ``numerical_delta`` (default 1e-4, :675-677) and the taps' SDF as
-        ``sampled_sdf`` [R, S, 6]."""
+        ``sampled_sdf`` [R, S, 6]; ``inv_s_override`` (the annealed beta's
+        1 / beta) takes the learned deviation's place in the NeuS alpha
+        (:747-750). Each sample carries its ray's camera index (camera 0
+        without one) to the appearance embedding."""
         R, S = ray_samples.num_rays, ray_samples.num_samples
         inputs = ray_samples.get_start_positions().reshape(-1, 3)
         directions = ray_samples.directions[..., None, :].expand(R, S, 3).reshape(-1, 3)
+        camera_indices = None
+        if ray_samples.camera_indices is not None:
+            camera_indices = ray_samples.camera_indices.reshape(R, 1).expand(R, S).reshape(-1)
         inputs = self.contract_positions(inputs)
         points_norm = torch.linalg.vector_norm(inputs, dim=-1)
 
@@ -390,7 +412,7 @@ class SDFField(nn.Module):
         else:
             h, gradients = self.geonetwork_with_gradient(inputs, train=train, hash_mask=hash_mask)
         sdf, geo_feat = h[..., :1], h[..., 1:]
-        rgb = self.colors(inputs, directions, gradients, geo_feat)
+        rgb = self.colors(inputs, directions, gradients, geo_feat, camera_indices, train)
         beta = self.get_beta()
         outputs = {
             "rgb": rgb.reshape(R, S, 3),
@@ -405,7 +427,8 @@ class SDFField(nn.Module):
         if return_alphas:
             outputs["alpha"] = density_ops.neus_alpha(
                 outputs["sdf"], outputs["gradient"], ray_samples.directions,
-                ray_samples.deltas, self.get_inv_s(), cos_anneal_ratio,
+                ray_samples.deltas,
+                self.get_inv_s() if inv_s_override is None else inv_s_override, cos_anneal_ratio,
             )
         if return_occupancy:
             outputs["occupancy"] = density_ops.unisurf_occupancy(outputs["sdf"])

@@ -80,9 +80,10 @@ class NeRFField(nn.Module):
         rgb = torch.sigmoid(torch.matmul(head, self.rgb_head.kernel) + self.rgb_head.bias)
         return {"density": density, "rgb": rgb}
 
-    def get_outputs(self, ray_samples: RaySamples) -> Dict[str, torch.Tensor]:
+    def get_outputs(self, ray_samples: RaySamples, train: bool = False) -> Dict[str, torch.Tensor]:
         """Density [R, S] and rgb [R, S, 3] at the frustum centres
-        (vanilla_nerf_field.py:117-135, without the integrated encoding)."""
+        (vanilla_nerf_field.py:117-135, without the integrated encoding);
+        ``train`` changes nothing here (no embedding)."""
         R, S = ray_samples.num_rays, ray_samples.num_samples
         dirs = ray_samples.directions[:, None, :].expand(R, S, 3).reshape(-1, 3)
         pts = self.contract_positions(ray_samples.get_positions()).reshape(-1, 3)

@@ -3,9 +3,11 @@ the forward, the training losses and the metrics.
 
 Models are ``nn.Module``s; the schedule-driven state arrives as a ``sched``
 dict computed from ``step`` (base_surface_model.py:1-9), as in JAX.
-The ``"mlp"`` background is the NeRF field, evaluated on each ray beyond its
-far bound and blended by the foreground's last transmittance; the
-``"grid"`` background (``NerfactoField``) is not ported yet.
+The background, the NeRF field (``"mlp"``) or the nerfacto grid field
+(``"grid"``), is evaluated on each ray beyond its far bound and blended by
+the foreground's last transmittance. A model with a ``model_state`` (the
+occupancy grids of ``neusW``, ``dto`` and ``neus-acc``; ``has_model_state``)
+takes it in ``get_outputs`` and hands it to its sampler.
 ``get_outputs_flexible`` adds Geo-NeuS's warped patches from the source
 views (under the profiler range ``sst/patch_warping``), and
 ``get_loss_dict`` takes every term of JAX's but the periodic encoding's TV
@@ -28,6 +30,7 @@ from sdfstudio_tpu_torch.components.colliders import apply_collider
 from sdfstudio_tpu_torch.components.patch_warping import patch_warping
 from sdfstudio_tpu_torch.core.rays import RayBundle, RaySamples
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
+from sdfstudio_tpu_torch.fields.nerfacto_field import NerfactoField
 from sdfstudio_tpu_torch.fields.sdf_field import SDFField, SDFFieldConfig
 from sdfstudio_tpu_torch.fields.vanilla_nerf_field import NeRFField
 from sdfstudio_tpu_torch.ops import render as R
@@ -45,6 +48,7 @@ class SurfaceModelConfig:
     far_plane: float = 4.0
     far_plane_bg: float = 1000.0
     background_color: str = "black"
+    use_average_appearance_embedding: bool = False
     eikonal_loss_mult: float = 0.1
     fg_mask_loss_mult: float = 0.01
     mono_normal_loss_mult: float = 0.0
@@ -65,7 +69,7 @@ class SurfaceModelConfig:
     s3im_repeat_time: int = 10
     s3im_patch_height: int = 32
     sdf_field: SDFFieldConfig = SDFFieldConfig()
-    background_model: str = "mlp"  # mlp | none ("grid" is not ported yet)
+    background_model: str = "mlp"  # grid | mlp | none
     num_samples_outside: int = 32
     periodic_tvl_mult: float = 0.0
     overwrite_near_far_plane: bool = False
@@ -76,12 +80,12 @@ class SurfaceModelConfig:
 class SurfaceModel(nn.Module):
     """Shared machinery of the surface methods (base_surface_model.py:72-260)."""
 
+    has_model_state = False  # a model with one adds init_model_state / update_model_state
+
     def __init__(self, config: SurfaceModelConfig, scene_box: SceneBox, num_train_data: int):
         super().__init__()
-        if config.background_model not in ("mlp", "none"):
-            raise NotImplementedError(
-                f"background_model={config.background_model!r} is not ported yet (ROADMAP queue 1 "
-                "item 5); 'mlp' and 'none' are")
+        if config.background_model not in ("grid", "mlp", "none"):
+            raise ValueError(f"background_model={config.background_model!r}: one of grid, mlp, none")
         if config.periodic_tvl_mult > 0.0:
             raise NotImplementedError("periodic_tvl_mult > 0 needs the periodic encoding, which is "
                                       "not ported yet (ROADMAP queue 1 item 3)")
@@ -91,11 +95,17 @@ class SurfaceModel(nn.Module):
         self.field = SDFField(
             config.sdf_field, num_images=num_train_data,
             spatial_distortion=config.scene_contraction_norm,
+            use_average_appearance_embedding=config.use_average_appearance_embedding,
         )
-        # base_surface_model.py:91-96; without one JAX keeps a placeholder
+        # base_surface_model.py:85-96; without one JAX keeps a placeholder
         # group ``field_background.dummy`` that no loss reaches
-        self.field_background = (NeRFField(spatial_distortion=config.scene_contraction_norm)
-                                 if config.background_model == "mlp" else None)
+        self.field_background = None
+        if config.background_model == "grid":
+            self.field_background = NerfactoField(
+                spatial_distortion=config.scene_contraction_norm, num_images=num_train_data,
+                use_average_appearance_embedding=config.use_average_appearance_embedding)
+        elif config.background_model == "mlp":
+            self.field_background = NeRFField(spatial_distortion=config.scene_contraction_norm)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.field.reset_parameters(generator)
@@ -132,11 +142,12 @@ class SurfaceModel(nn.Module):
         return (torch.linalg.vector_norm(ray_samples.get_start_positions(), dim=-1) < 1.0).to(
             ray_samples.starts.dtype)
 
-    def forward_background_field_and_merge(self, ray_samples: RaySamples, field_outputs: Dict) -> Dict:
+    def forward_background_field_and_merge(self, ray_samples: RaySamples, field_outputs: Dict,
+                                           train: bool = False) -> Dict:
         """The foreground's alpha and rgb inside the unit sphere, the
         background field's outside it (base_surface_model.py:140-156)."""
         inside = self.get_foreground_mask(ray_samples)
-        bg = self.field_background.get_outputs(ray_samples)
+        bg = self.field_background.get_outputs(ray_samples, train=train)
         bg_alpha = R.alphas_from_densities(ray_samples.deltas, bg["density"])
         field_outputs = dict(field_outputs)
         field_outputs["alpha"] = field_outputs["alpha"] * inside + (1.0 - inside) * bg_alpha
@@ -144,15 +155,16 @@ class SurfaceModel(nn.Module):
                                 + (1.0 - inside[..., None]) * bg["rgb"])
         return field_outputs
 
-    def render_background(self, ray_bundle: RayBundle, rng: Rng = None) -> torch.Tensor:
-        """The background's colour of each ray, [R, 3]: the NeRF field at
-        ``num_samples_outside`` samples linear in disparity from the ray's
-        far bound to ``far_plane_bg`` (base_surface_model.py:200-218)."""
+    def render_background(self, ray_bundle: RayBundle, rng: Rng = None,
+                          train: bool = False) -> torch.Tensor:
+        """The background's colour of each ray, [R, 3]: the background field
+        at ``num_samples_outside`` samples linear in disparity from the
+        ray's far bound to ``far_plane_bg`` (base_surface_model.py:200-218)."""
         bg_bundle = ray_bundle.replace(nears=ray_bundle.fars,
                                        fars=torch.full_like(ray_bundle.fars, self.config.far_plane_bg))
         bg_samples = linear_disparity_sampler(bg_bundle, self.config.num_samples_outside, rng=rng)
         with record_function("sst/background_field"):
-            bg_out = self.field_background.get_outputs(bg_samples)
+            bg_out = self.field_background.get_outputs(bg_samples, train=train)
         bg_weights = R.weights_from_densities(bg_samples.deltas, bg_out["density"])
         return R.render_rgb(bg_out["rgb"], bg_weights, background_color=self.config.background_color)
 
@@ -167,20 +179,25 @@ class SurfaceModel(nn.Module):
         sched: Optional[Dict] = None,
         train: bool = False,
         rng: Rng = None,
+        model_state=None,
     ) -> Dict[str, torch.Tensor]:
         """The forward (base_surface_model.py:164-260). At eval
         (``train=False``) it runs under ``no_grad``; in training it keeps
         the graph and adds the per-sample gradients, the sample sets and the
-        weights the losses read (base_surface_model.py:229-232)."""
+        weights the losses read (base_surface_model.py:229-232). A model
+        with ``has_model_state`` hands ``model_state`` to its sampler (its
+        ``init_model_state()`` when None, as JAX's models do)."""
         if not train:
             with torch.no_grad():
-                return self._outputs(ray_bundle, sched, False, None)
-        return self._outputs(ray_bundle, sched, True, rng)
+                return self._outputs(ray_bundle, sched, False, None, model_state)
+        return self._outputs(ray_bundle, sched, True, rng, model_state)
 
-    def _outputs(self, ray_bundle: RayBundle, sched: Optional[Dict], train: bool, rng: Rng) -> Dict:
+    def _outputs(self, ray_bundle: RayBundle, sched: Optional[Dict], train: bool, rng: Rng,
+                 model_state=None) -> Dict:
         sched = sched or self.schedules(1_000_000)
         ray_bundle = self.apply_collider(ray_bundle, train=train)
-        s = self.sample_and_forward_field(ray_bundle, sched, rng=rng, train=train)
+        kw = {"model_state": model_state} if self.has_model_state else {}
+        s = self.sample_and_forward_field(ray_bundle, sched, rng=rng, train=train, **kw)
         field_outputs, ray_samples, weights = s["field_outputs"], s["ray_samples"], s["weights"]
 
         rgb = R.render_rgb(field_outputs["rgb"], weights, background_color=self.config.background_color)
@@ -189,7 +206,7 @@ class SurfaceModel(nn.Module):
             depth = depth / ray_bundle.directions_norm
         normal = R.render_semantics(field_outputs["normal"], weights)
         if self.field_background is not None and "bg_transmittance" in s:
-            rgb = rgb + s["bg_transmittance"] * self.render_background(ray_bundle, rng)
+            rgb = rgb + s["bg_transmittance"] * self.render_background(ray_bundle, rng, train)
         outputs = {
             "rgb": rgb,
             "accumulation": R.render_accumulation(weights),
@@ -204,6 +221,8 @@ class SurfaceModel(nn.Module):
             outputs["eik_grad"] = field_outputs["gradient"]
             outputs["points_norm"] = field_outputs["points_norm"]
             outputs.update(s)
+        elif "num_samples_per_ray" in s:  # grid models report their occupancy at eval too
+            outputs["num_samples_per_ray"] = s["num_samples_per_ray"]
         for i in range(len(s.get("weights_list", [])) - 1):
             rs = s["ray_samples_list"][i]
             outputs[f"prop_depth_{i}"] = R.render_depth_expected(
@@ -218,13 +237,15 @@ class SurfaceModel(nn.Module):
         sched: Optional[Dict] = None,
         train: bool = False,
         rng: Rng = None,
+        model_state=None,
     ) -> Dict[str, torch.Tensor]:
         """``get_outputs`` and, in training with a patch loss, each ray's
         patch warped from the reference view into its source views
         (base_surface_model.py:247-277): ``additional_inputs`` holds ``uv``
         (the rays' pixels), ``src_imgs`` and ``src_cameras`` (the reference
         first), as ``FlexibleDataManager`` hands them over."""
-        outputs = self.get_outputs(ray_bundle, sched=sched, train=train, rng=rng)
+        outputs = self.get_outputs(ray_bundle, sched=sched, train=train, rng=rng,
+                                   model_state=model_state)
         if self.config.patch_warp_loss_mult > 0 and "field_outputs" in outputs:
             with record_function("sst/patch_warping"):
                 patches, valid = patch_warping(

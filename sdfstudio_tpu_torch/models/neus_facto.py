@@ -1,12 +1,20 @@
 """NeuS-facto (counterpart of ``sdfstudio_tpu/models/neus_facto.py``):
 proposal-network sampling, then the SDF field and NeuS compositing, the
-proposal-update cadence and the interlevel loss."""
+proposal-update cadence and the interlevel loss, and the Neuralangelo
+schedules that ``neus-facto-angelo`` turns on (neus_facto.py:125-167): the
+annealed beta (``inv_s_override``), the numerical-gradient delta, the
+progressive hash mask and the curvature factor, with the curvature loss
+(:245-250). These are JAX's ``neus_facto.py`` formulas, not
+``models/neuralangelo.py``'s: the delta floors at ``1 / (4 max_res)`` and is
+scaled by 4 for the field's ``(x + 2) / 4`` input, the curvature factor's
+floor is ``1 / (10 max_res)``."""
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -39,6 +47,17 @@ class NeuSFactoModelConfig(NeuSModelConfig):
     proposal_weights_anneal_max_num_iters: int = 1000
     interlevel_loss_mult: float = 1.0
     use_single_jitter: bool = True
+    use_anneal_beta: bool = False
+    beta_anneal_max_num_iters: int = 1000_000
+    beta_anneal_init: float = 0.05
+    beta_anneal_end: float = 0.0002
+    enable_progressive_hash_encoding: bool = False
+    enable_numerical_gradients_schedule: bool = False
+    enable_curvature_loss_schedule: bool = False
+    curvature_loss_multi: float = 0.0
+    curvature_loss_warmup_steps: int = 20_000
+    level_init: int = 4
+    steps_per_level: int = 10_000
 
 
 class NeuSFactoModel(NeuSModel):
@@ -84,6 +103,51 @@ class NeuSFactoModel(NeuSModel):
                   float(cfg.proposal_update_every))
         period = math.floor(thr) + 1.0
         sched["train_proposal"] = step < 10.0 or math.fmod(math.floor(step), period) < 0.5
+        with np.errstate(over="ignore"):  # far past the last level growth^k is inf, as in JAX
+            sched.update(self._angelo_schedules(step))
+        return sched
+
+    def _angelo_schedules(self, step: float) -> Dict:
+        """neus_facto.py:125-167 in float32, as JAX evaluates them at a
+        traced step: ``inv_s_override = 1 / beta`` with ``beta = b0 / (1 +
+        (b0 - b1) / b1 t^0.8)``, ``t = min(step / M, 1)``; ``numerical_delta
+        = 4 max(1 / (4 max_res), 1 / (base_res growth^(step / spl)))``; the
+        ``hash_mask`` [L*F] of the first ``max(floor(step / spl) + 1,
+        level_init)`` levels; and the curvature factor, ``step / warmup``
+        during the warmup, then ``max(1 / (10 max_res), 1 / (base_res
+        growth^((step - warmup) / spl))) * base_res`` (1 when off)."""
+        cfg, fcfg = self.config, self.field.config
+        f32 = np.float32
+        s = f32(step)
+        sched = {}
+        if cfg.use_anneal_beta:
+            b0, b1 = cfg.beta_anneal_init, cfg.beta_anneal_end
+            t = min(max(s / f32(cfg.beta_anneal_max_num_iters), f32(0.0)), f32(1.0))
+            # (b0 - b1) / b1 is a Python constant in JAX too: rounded to f32 once
+            beta = f32(b0) / (f32(1.0) + f32((b0 - b1) / b1) * (t ** f32(0.8)))
+            sched["inv_s_override"] = float(f32(1.0) / beta)
+        growth = (math.exp((math.log(fcfg.max_res) - math.log(fcfg.base_res)) / (fcfg.num_levels - 1))
+                  if fcfg.num_levels > 1 else 1.0)
+        g, spl = f32(growth), f32(cfg.steps_per_level)
+        if cfg.enable_numerical_gradients_schedule:
+            delta = f32(1.0) / (f32(fcfg.base_res) * g ** (s / spl))
+            sched["numerical_delta"] = float(max(f32(1.0 / (4.0 * fcfg.max_res)), delta) * f32(4.0))
+        if cfg.enable_progressive_hash_encoding:
+            level = max(int(np.floor(s / spl)) + 1, cfg.level_init)
+            F = fcfg.hash_features_per_level
+            feat_level = torch.arange(fcfg.num_levels * F) // F
+            sched["hash_mask"] = (feat_level < level).to(torch.float32).to(
+                self.field.laplace_beta.device)
+        if cfg.enable_curvature_loss_schedule:
+            w = f32(cfg.curvature_loss_warmup_steps)
+            if s < w:
+                sched["curvature_factor"] = float(s / w)
+            else:
+                decay = f32(1.0) / (f32(fcfg.base_res) * g ** ((s - w) / spl))
+                decay = max(f32(1.0 / (fcfg.max_res * 10.0)), decay)
+                sched["curvature_factor"] = float(decay / f32(1.0 / fcfg.base_res))
+        else:
+            sched["curvature_factor"] = 1.0
         return sched
 
     def sample_and_forward_field(
@@ -107,11 +171,14 @@ class NeuSFactoModel(NeuSModel):
             )
         field_outputs = self.field.get_outputs(
             ray_samples, cos_anneal_ratio=sched["cos_anneal_ratio"], return_alphas=True,
-            train=train,
+            train=train, hash_mask=sched.get("hash_mask"),
+            numerical_delta=sched.get("numerical_delta"),
+            inv_s_override=sched.get("inv_s_override"),
         )
         if cfg.background_model != "none":
             # the background field's alpha and colour outside the unit sphere (neus_facto.py:216-219)
-            field_outputs = self.forward_background_field_and_merge(ray_samples, field_outputs)
+            field_outputs = self.forward_background_field_and_merge(ray_samples, field_outputs,
+                                                                    train)
         weights, transmittance = R.weights_and_transmittance_from_alphas(field_outputs["alpha"])
         return {
             "ray_samples": ray_samples,
@@ -124,10 +191,17 @@ class NeuSFactoModel(NeuSModel):
 
     def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict,
                       rng: Rng = None) -> Dict[str, torch.Tensor]:
-        """neus_facto.py:237-257: the surface losses plus the interlevel loss
-        (neither ported method has a curvature term)."""
+        """neus_facto.py:237-257: the surface losses plus the interlevel loss,
+        and with ``curvature_loss_multi > 0`` and the numerical taps the
+        curvature term times the scheduled factor (:245-250)."""
         loss_dict = super().get_loss_dict(outputs, batch, sched, rng)
-        loss_dict["interlevel_loss"] = self.config.interlevel_loss_mult * L.interlevel_loss_zip(
+        cfg = self.config
+        loss_dict["interlevel_loss"] = cfg.interlevel_loss_mult * L.interlevel_loss_zip(
             outputs["weights_list"], outputs["ray_samples_list"]
         )
+        fo = outputs["field_outputs"]
+        if cfg.curvature_loss_multi > 0.0 and "sampled_sdf" in fo:
+            delta = sched.get("numerical_delta", 1e-4)
+            loss_dict["curvature_loss"] = (L.curvature_loss(fo["sampled_sdf"], fo["sdf"], delta)
+                                           * cfg.curvature_loss_multi * sched["curvature_factor"])
         return loss_dict

@@ -2,7 +2,8 @@
 
 The sinusoidal ``NeRFEncoding`` (encodings.py:61-131), the level-resolution
 and hash-prime constants that ``PermutoEncoding`` shares with the hash grid
-(encodings.py:191-202), and the multi-resolution ``HashEncoding``
+(encodings.py:191-202), the spherical-harmonics ``SHEncoding``
+(encodings.py:172-184), and the multi-resolution ``HashEncoding``
 (encodings.py:247-434), whose encode is ``ops/hash_grid.py``.
 """
 from __future__ import annotations
@@ -12,6 +13,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from sdfstudio_tpu_torch.core.math import components_from_spherical_harmonics
 
 HASH_PRIMES = (1, 2654435761, 805459861)  # encodings.py:191 (uint32)
 
@@ -72,6 +75,22 @@ class NeRFEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nerf_encoding(x, self.freqs, self.include_input)
+
+
+class SHEncoding(nn.Module):
+    """Spherical harmonics of a direction (encodings.py:172-184): ``levels**2``
+    components, without a gradient (JAX's ``stop_gradient``)."""
+
+    def __init__(self, levels: int = 4):
+        super().__init__()
+        self.levels = levels
+
+    @property
+    def out_dim(self) -> int:
+        return self.levels**2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return components_from_spherical_harmonics(self.levels, x.detach())
 
 
 class HashEncoding(nn.Module):

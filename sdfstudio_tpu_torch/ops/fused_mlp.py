@@ -56,7 +56,8 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
-from sdfstudio_tpu_torch.ops.launches import CHAIN_LAUNCHES, LAUNCHES, reset_launch_counts  # noqa: F401
+from sdfstudio_tpu_torch.ops.launches import (  # noqa: F401
+    CHAIN_LAUNCHES, LAUNCHES, WIDTH_LAUNCHES, reset_launch_counts)
 
 ACTIVATIONS = {"none": 0, "relu": 1, "softplus100": 2}
 

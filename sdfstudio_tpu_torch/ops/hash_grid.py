@@ -59,7 +59,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
-from sdfstudio_tpu_torch.ops.launches import LAUNCHES
+from sdfstudio_tpu_torch.ops.launches import LAUNCHES, WIDTH_LAUNCHES
 from sdfstudio_tpu_torch.ops.permuto import _MASK32, _mul_u32
 from sdfstudio_tpu_torch.ops.encodings import HASH_PRIMES
 
@@ -265,6 +265,7 @@ def hash_encode_fwd(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
         if err != 0:
             raise RuntimeError(f"hash_encode_fwd kernel launch failed: cudaError {err}")
         LAUNCHES["hash_encode_fwd"] += 1
+        WIDTH_LAUNCHES["hash_encode_fwd", F] += 1
     return (out, jac) if want_jac else out
 
 
@@ -296,6 +297,7 @@ def hash_encode_bwd(x: torch.Tensor, g_out: Optional[torch.Tensor], g_jac: Optio
         if err != 0:
             raise RuntimeError(f"hash_encode_bwd kernel launch failed: cudaError {err}")
         LAUNCHES["hash_encode_bwd"] += 1
+        WIDTH_LAUNCHES["hash_encode_bwd", F] += 1
     return grad
 
 
@@ -329,6 +331,7 @@ def hash_corner_rows(x: torch.Tensor, g_out: Optional[torch.Tensor],
         if err != 0:
             raise RuntimeError(f"hash_corner_rows kernel launch failed: cudaError {err}")
         LAUNCHES["hash_encode_bwd_det"] += 1
+        WIDTH_LAUNCHES["hash_encode_bwd_det", F] += 1
     return keys, upd
 
 
@@ -357,6 +360,7 @@ def hash_segment_sum(sorted_keys: torch.Tensor, perm: torch.Tensor, upd: torch.T
         if err != 0:
             raise RuntimeError(f"hash_segment_sum kernel launch failed: cudaError {err}")
         LAUNCHES["hash_segment_sum"] += 1
+        WIDTH_LAUNCHES["hash_segment_sum", F] += 1
     return grad
 
 

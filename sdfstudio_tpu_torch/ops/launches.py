@@ -23,8 +23,13 @@ LAUNCHES: Dict[str, int] = {
 # added to at the same place as LAUNCHES
 CHAIN_LAUNCHES: Dict[Tuple[str, Tuple[int, ...]], int] = collections.Counter()
 
+# the hash-grid kernels' launches by feature width: (kernel, F) -> count,
+# added to at the same place as LAUNCHES
+WIDTH_LAUNCHES: Dict[Tuple[str, int], int] = collections.Counter()
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     CHAIN_LAUNCHES.clear()
+    WIDTH_LAUNCHES.clear()

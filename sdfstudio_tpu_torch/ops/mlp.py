@@ -108,10 +108,11 @@ class DenseLayer(nn.Module):
 class MLP(nn.Module):
     """Generic MLP with skip connections (mlp.py:187-245), parameters
     ``layers.i`` (JAX's ``layer_i``). A skip-free MLP whose activations are
-    relu, softplus100 or none runs as one fused kernel; an MLP with skips
-    takes the plain product layer by layer (``torch.matmul``, cuBLAS on the
-    card), as JAX never fuses skips (mlp.py:224-245): layer ``i`` in
-    ``skip_connections`` (``i > 0``) takes ``[inputs, h]``."""
+    relu, softplus100 or none runs as one fused kernel; an MLP with skips,
+    or with a ``"sigmoid"`` output (which JAX's fused kernel does not take
+    either, mlp.py:156-167), takes the plain product layer by layer
+    (``torch.matmul``, cuBLAS on the card), as JAX does (mlp.py:224-245):
+    layer ``i`` in ``skip_connections`` (``i > 0``) takes ``[inputs, h]``."""
 
     def __init__(
         self,
@@ -124,10 +125,11 @@ class MLP(nn.Module):
         out_activation: str = "none",
     ):
         super().__init__()
-        for a in (activation, out_activation):
-            if a not in ACTIVATIONS:
-                raise ValueError(f"unsupported activation {a!r}; one of {sorted(ACTIVATIONS)}")
+        if activation not in ACTIVATIONS or out_activation not in (*ACTIVATIONS, "sigmoid"):
+            raise ValueError(f"unsupported activation {activation!r} / {out_activation!r}; one of "
+                             f"{sorted(ACTIVATIONS)} (and 'sigmoid' for the output)")
         self.skips = frozenset(s for s in skip_connections if s > 0)
+        self.fused = not self.skips and out_activation in ACTIVATIONS
         dims = []
         d = in_dim
         for i in range(num_layers):
@@ -147,7 +149,7 @@ class MLP(nn.Module):
             layer.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.skips:
+        if self.fused:
             return fused_mlp(
                 x.contiguous(),
                 [layer.kernel for layer in self.layers],
@@ -160,6 +162,9 @@ class MLP(nn.Module):
         for i, layer in enumerate(self.layers):
             if i in self.skips:
                 h = torch.cat([inputs, h], dim=-1)
-            h = _act(torch.matmul(h, layer.kernel) + layer.bias,
-                     self.activation if i < n - 1 else self.out_activation)
+            h = torch.matmul(h, layer.kernel) + layer.bias
+            if i < n - 1:
+                h = _act(h, self.activation)
+            else:
+                h = torch.sigmoid(h) if self.out_activation == "sigmoid" else _act(h, self.out_activation)
         return h

@@ -2,8 +2,8 @@
 ``sdfstudio_tpu/scripts/benchmarking/parity.py``; ``docs/parity-protocol.md``):
 
     python -m sdfstudio_tpu_torch.scripts.benchmarking.parity \\
-        [--method neus-facto-tpu-p8|neus-facto|neus-facto-tpu] [--segment 5000] \\
-        [--budget-seconds S] [--device cuda|cpu]
+        [--method neus-facto-tpu-p8|neus-facto|neus-facto-tpu|neusW] [--segment 5000] \\
+        [--budget-seconds S] [--device cuda|cpu] [--seed N]
 
 Trains the method (default ``neus-facto-tpu-p8``, the preset) for 20,000
 steps of 2048 rays on the committed scene ``.parity/dtu_like`` (never
@@ -21,8 +21,21 @@ most 0.3 dB below it, Chamfer-L1 at most 10% above. The preset's arm fills
 ...); ``neus-facto``, the control method itself trained by the port, goes
 under ``control_cuda``, and ``neus-facto-tpu`` under ``neus_facto_tpu_cuda``
 beside JAX's TPU score of the same method
-(``.parity/runs/parity/neus-facto-tpu/parity/parity_metrics.json``). Each
-arm leaves the other arms' keys as they are.
+(``.parity/runs/parity/neus-facto-tpu/parity/parity_metrics.json``).
+
+``neusW`` trains on the second protocol scene, the committed
+``.parity/heritage_like`` (``docs/parity-protocol.md``, "Second scene"),
+through ``heritage-data`` with JAX's run config
+(``.parity/runs/heritage/neusW/parity/config.yml``: the same flags, seed 42,
+checkpoints every 5,000 steps), and ends in the heritage judge over the
+parser's 10 eval views. Its arm goes under ``heritage_neusW_cuda``, judged
+against JAX's one TPU run
+(``.parity/runs/heritage/neusW/parity/heritage_metrics.json``) by the
+first-scene rule: PSNR at least JAX's less 0.3 dB, Chamfer-L1 at most
+JAX's plus 10%. ``--seed`` (the batch and jitter generator's, default 42 as
+JAX's run) other than 42 runs the arm again beside it, under
+``heritage_neusW_cuda_seed<N>``, to show the spread. Each arm leaves the
+other arms' keys as they are.
 
 Each segment of ``--segment`` steps is one call of the train command in
 this process, ending in a checkpoint under
@@ -47,7 +60,10 @@ DATA_DIR = PARITY_DIR / "dtu_like"
 RUNS_DIR = PARITY_DIR / "cuda_runs"
 CONTROL = REPO / "PARITY.json"
 ATTESTATION = REPO / "PARITY_CUDA.json"
-METHODS = ("neus-facto-tpu-p8", "neus-facto", "neus-facto-tpu")
+METHODS = ("neus-facto-tpu-p8", "neus-facto", "neus-facto-tpu", "neusW")
+# each arm's scene, parser subcommand and judge (neusW: the second protocol scene)
+SCENES = {"neusW": (PARITY_DIR / "heritage_like", "heritage-data", "heritage-like")}
+HERITAGE_JAX = PARITY_DIR / "runs" / "heritage" / "neusW" / "parity" / "heritage_metrics.json"
 # JAX's 20k TPU scores of the arms the port trains beside them
 JAX_RUNS = PARITY_DIR / "runs" / "parity"
 ITERS = 20000
@@ -55,11 +71,26 @@ NUM_RAYS = 2048
 PSNR_TOL_DB = 0.3  # parity.py:57-58
 CHAMFER_TOL = 0.10
 GEO_RES = 256
+SEED = 42  # Config.seed's default, the seed of JAX's runs
+
+
+def timestamp(seed: int = SEED) -> str:
+    """The run's timestamp: ``parity``, and ``parity_seed<N>`` for another seed."""
+    return "parity" if seed == SEED else f"parity_seed{seed}"
+
+
+# the run's timestamp directory; main sets it from --seed
+TIMESTAMP = timestamp()
 
 
 def arm_base_dir(method: str) -> Path:
     """The JAX layout: output/experiment/method/timestamp (parity.py:72-74)."""
-    return RUNS_DIR / "parity" / method / "parity"
+    return RUNS_DIR / "parity" / method / TIMESTAMP
+
+
+def scene(method: str):
+    """(scene directory, parser subcommand, judge) of ``method``'s arm."""
+    return SCENES.get(method, (DATA_DIR, "sdfstudio-data", "dtu-like"))
 
 
 def latest_step(method: str) -> int:
@@ -69,18 +100,19 @@ def latest_step(method: str) -> int:
 
 
 def train_argv(method: str, end: int, resume: bool, final_eval: bool,
-               device: Optional[str] = None) -> List[str]:
+               device: Optional[str] = None, seed: int = SEED) -> List[str]:
     """The argv of JAX's ``train_segment`` (parity.py:135-176), with the
-    port's ``--device``."""
+    port's ``--device``, and ``--seed`` when it is not the default."""
     args = [method, "--experiment-name", "parity", "--output-dir", str(RUNS_DIR),
-            "--timestamp", "parity", "--vis", "none",
+            "--timestamp", TIMESTAMP, "--vis", "none",
             "--trainer.max-num-iterations", str(end),
             "--trainer.defer-heavy-ops", "True",
             "--trainer.steps-per-eval-image", "0",
             "--datamanager.train-num-rays-per-batch", str(NUM_RAYS)]
+    data_dir, parser, judge = scene(method)
     if final_eval:
         base = arm_base_dir(method)
-        args += ["--trainer.final-eval-gt", "dtu-like",
+        args += ["--trainer.final-eval-gt", judge,
                  "--trainer.final-eval-output", str(base / "parity_metrics.json"),
                  "--trainer.final-eval-mesh", str(base / "mesh.ply"),
                  "--trainer.final-eval-resolution", str(GEO_RES)]
@@ -89,10 +121,12 @@ def train_argv(method: str, end: int, resume: bool, final_eval: bool,
                  "--trainer.load-step", str(latest_step(method))]
     if device:
         args += ["--device", device]
-    return args + ["sdfstudio-data", "--data", str(DATA_DIR)]
+    if seed != SEED:
+        args += ["--seed", str(seed)]
+    return args + [parser, "--data", str(data_dir)]
 
 
-def write_attestation(arm: dict, control: dict) -> dict:
+def write_attestation(arm: dict, control: dict, seed: int = SEED) -> dict:
     """``PARITY.json``'s schema and pass rule (parity.py:247-267) for the
     preset's arm; ``control_cuda`` for ``neus-facto``'s, and
     ``neus_facto_tpu_cuda`` for ``neus-facto-tpu``'s with JAX's TPU score
@@ -102,7 +136,19 @@ def write_attestation(arm: dict, control: dict) -> dict:
               and arm["chamfer_l1"] <= control["chamfer_l1"] * (1 + CHAMFER_TOL))
     scores = {"psnr": arm["psnr"], "chamfer_l1": arm["chamfer_l1"], "iters": arm["iters"]}
     rec = json.loads(ATTESTATION.read_text()) if ATTESTATION.exists() else {}
-    if arm["method"] == "neus-facto":
+    if arm["method"] == "neusW":
+        jax = json.loads(HERITAGE_JAX.read_text())
+        bar = {"psnr_min": jax["psnr"] - PSNR_TOL_DB,
+               "chamfer_l1_max": jax["chamfer_l1"] * (1 + CHAMFER_TOL)}
+        ok = bool(arm["psnr"] >= bar["psnr_min"] and arm["chamfer_l1"] is not None
+                  and arm["chamfer_l1"] <= bar["chamfer_l1_max"])
+        key = "heritage_neusW_cuda" + ("" if seed == SEED else f"_seed{seed}")
+        rec[key] = {
+            **scores, "ssim": arm["ssim"], "num_images": arm["num_images"], "pass": ok,
+            "bar": bar, "scene": "heritage_like", "seed": seed,
+            "jax_tpu": {k: jax[k] for k in ("psnr", "ssim", "chamfer_l1", "iters", "eval_backend")},
+        }
+    elif arm["method"] == "neus-facto":
         rec["control_cuda"] = {**scores, "pass": ok}
     elif arm["method"] == "neus-facto-tpu":
         jax_file = JAX_RUNS / arm["method"] / "parity" / "parity_metrics.json"
@@ -134,12 +180,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--budget-seconds", type=float, default=None,
                     help="start no segment after this much wall time (re-run to resume)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="the batch and jitter generator's seed (neusW's arm only)")
     args = ap.parse_args(argv)
     t_start = time.time()
-    if not (DATA_DIR / "meta_data.json").is_file():
-        raise FileNotFoundError(f"the committed parity scene is missing: {DATA_DIR}")
+    data_dir = scene(args.method)[0]
+    if not data_dir.is_dir():
+        raise FileNotFoundError(f"the committed parity scene is missing: {data_dir}")
     control = json.loads(CONTROL.read_text())["control"]
     method = args.method
+    global TIMESTAMP
+    TIMESTAMP = timestamp(args.seed)
     metrics = arm_base_dir(method) / "parity_metrics.json"
     start = latest_step(method)
     if not (metrics.exists() and start >= ITERS
@@ -152,12 +203,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             end = min(start + args.segment, ITERS)
             t0 = time.time()
             # at ITERS the trainer also runs the final evaluation
-            train_script.main(train_argv(method, end, start > 0, end >= ITERS, args.device))
+            train_script.main(train_argv(method, end, start > 0, end >= ITERS, args.device,
+                                         args.seed))
             print(f"[parity] {method}: segment -> {end} done in {time.time() - t0:.0f}s", flush=True)
             start = latest_step(method)
     rec = json.loads(metrics.read_text())
     print(f"[parity] {method}: {json.dumps(rec)}", flush=True)
-    write_attestation(rec, control)
+    write_attestation(rec, control, args.seed)
     return 0
 
 

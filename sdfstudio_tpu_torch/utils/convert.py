@@ -12,7 +12,11 @@ and copies each leaf into the port model's parameter of the same path:
   ``HashEncoding_0/hash_table`` becomes ``encoding.hash_table``;
 * the NeRF background's ``mlp_base/layer_j`` and ``mlp_head/layer_j``
   become ``mlp_base.layers.j`` and ``mlp_head.layers.j``; its
-  ``density_head`` and ``rgb_head`` keep their names.
+  ``density_head`` and ``rgb_head`` keep their names;
+* the ``"grid"`` background's (``NerfactoField``) ``encoding/hash_table``,
+  ``mlp_base/layer_j``, ``mlp_head/layer_j`` and
+  ``embedding_appearance/embedding``, and the SDF field's
+  ``embedding_appearance/embedding``, keep their paths (``layers.j``).
 
 It raises on any missing, extra or mis-shaped leaf. The JAX tree's
 ``field_background/dummy`` (the placeholder group of a model without a
@@ -30,16 +34,21 @@ the same state (``add_decayed_weights`` keeps none); the chain's kind must
 be the group's. The optax objects are
 read by their attributes, so this module imports nothing of JAX.
 
-``load_jax_checkpoint(model, optimizers, path)`` does both from a JAX
-packed checkpoint directory (``step-XXXXXXXXX/``, written by the JAX
+``model_state_from_jax(tree)`` takes JAX's ``model_state`` (an
+``OccupancyGrid``: ``occs``, ``binary``, ``aabb``) as the port's
+``OccupancyGrid.from_state`` reads it, or None.
+
+``load_jax_checkpoint(model, optimizers, path)`` does the first two from a
+JAX packed checkpoint directory (``step-XXXXXXXXX/``, written by the JAX
 trainer's ``save_checkpoint``, trainer.py:744-767), read by
-``utils/jax_checkpoint.py`` with numpy alone, and returns its step.
+``utils/jax_checkpoint.py`` with numpy alone, and returns its step and
+its converted model state.
 """
 from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,13 +140,34 @@ def opt_state_from_jax(optimizers: Mapping, opt_state) -> None:
         opt.load_state(count, tensors(mu), tensors(nu))
 
 
-def load_jax_checkpoint(model: torch.nn.Module, optimizers: Mapping, path) -> int:
+def model_state_from_jax(tree) -> Optional[Dict]:
+    """JAX's ``model_state`` (an ``OccupancyGrid``, grid.py:24-30, read as a
+    mapping or by attribute) -> ``{occs, binary, aabb, resolution}`` of
+    tensors for ``OccupancyGrid.from_state``; None stays None."""
+    if tree is None:
+        return None
+    get = tree.__getitem__ if isinstance(tree, Mapping) else lambda k: getattr(tree, k)
+    binary = np.asarray(get("binary")).astype(bool)
+    if binary.ndim != 3 or len(set(binary.shape)) != 1:
+        raise ValueError(f"model_state_from_jax: binary of shape {binary.shape}, expected [r, r, r]")
+    occs = np.asarray(get("occs"), np.float32)
+    if occs.shape != (binary.size,):
+        raise ValueError(f"model_state_from_jax: occs of shape {occs.shape}, binary {binary.shape}")
+    return {"occs": torch.from_numpy(occs.copy()), "binary": torch.from_numpy(binary.copy()),
+            "aabb": torch.from_numpy(np.asarray(get("aabb"), np.float32).copy()),
+            "resolution": binary.shape[0]}
+
+
+def load_jax_checkpoint(model: torch.nn.Module, optimizers: Mapping,
+                        path) -> Tuple[int, Optional[Dict]]:
     """Load a JAX packed checkpoint directory into ``model`` and
     ``optimizers`` ({group: GroupAdam}) in place; returns its step
-    (``step.txt``). Its ``rng`` key is dropped (utils/jax_checkpoint.py)."""
+    (``step.txt``) and its converted ``model_state`` (None without one). Its
+    ``rng`` key is dropped (utils/jax_checkpoint.py)."""
     path = Path(path)
     step = int((path / "step.txt").read_text())
     tree, _ = read_packed(path)
     params_from_jax(model, tree["params"])
     opt_state_from_jax(optimizers, tree["opt_state"])
-    return step
+    return step, model_state_from_jax(tree.get("model_state"))
+

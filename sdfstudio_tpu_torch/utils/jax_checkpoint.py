@@ -16,6 +16,7 @@ The leaf paths are only in the ``treedef`` string, whose grammar is small:
     node := '*' | 'None' | '{' [key ':' node {',' key ':' node}] '}'
           | '(' [node {',' node} [',']] ')' | '[' [node {',' node}] ']'
           | 'CustomNode(namedtuple[' Name '], [' [node {',' node}] '])'
+          | 'CustomNode(OccupancyGrid[(' Int ',)], [' node ',' node ',' node '])'
 
 ``read_packed`` parses it by recursive descent, walks the tree in flatten
 order (dict children in the order printed, which is JAX's sorted-key
@@ -24,9 +25,12 @@ writes it), shape and dtype from ``leaves``. The optax states come back as
 small named tuples with optax's field names (``PartitionState``,
 ``MaskedState``, ``ScaleByAdamState``, ``ScaleByScheduleState``,
 ``MaskedNode``, ``EmptyState``), so ``utils/convert.py::opt_state_from_jax`` reads them as
-it reads optax's own. A node name it does not know, a leaf count or a
-packed size that disagrees, or a leaf dtype other than f32 / int32 /
-uint32 raises: nothing is guessed.
+it reads optax's own. The ``model_state`` of an occupancy-grid model (a flax
+struct ``OccupancyGrid``, its resolution in the node's data) comes back as a
+named tuple ``(occs, binary, aabb)``, its ``binary`` (a bool leaf stored as
+int32) as bool. A node name it does not know, a leaf count or a packed size
+that disagrees, or a leaf dtype other than f32 / int32 / uint32 / bool
+raises: nothing is guessed.
 
 The ``rng`` leaf (a uint32 key stored as int32) is read and dropped by
 ``load_jax_checkpoint``: JAX's PRNG and torch's generators never produce
@@ -51,9 +55,10 @@ NAMEDTUPLES = {
         ("ScaleByScheduleState", ("count",)),
         ("MaskedNode", ()),
         ("EmptyState", ()),  # adamw's add_decayed_weights
+        ("OccupancyGrid", ("occs", "binary", "aabb")),  # samplers/grid.py:24-30
     )
 }
-DTYPES = ("float32", "int32", "uint32")
+DTYPES = ("float32", "int32", "uint32", "bool")
 
 
 class _Leaf:
@@ -138,8 +143,16 @@ class _Parser:
             return self.items("]", self.node)
         if self.peek("CustomNode("):
             self.eat("CustomNode(")
-            self.eat("namedtuple[")
-            name = self.name()
+            if self.peek("OccupancyGrid["):  # a flax struct: its static resolution as data
+                name = self.name()
+                self.eat("[")
+                self.eat("(")
+                self.name()
+                self.eat(",")
+                self.eat(")")
+            else:
+                self.eat("namedtuple[")
+                name = self.name()
             self.eat("]")
             self.eat(",")
             self.eat("[")
@@ -228,8 +241,9 @@ def read_packed(path) -> Tuple[Dict[str, Any], List[Tuple[str, np.ndarray]]]:
                 raise ValueError(f"{path}: {which} holds {flat.size} values, leaf {slots[i][0]} "
                                  f"ends at {off + size}")
             chunk = flat[off:off + size].reshape(shape)
-            # a uint32 leaf was stored as int32: the same bits
-            arrays[i] = chunk.view(np.uint32) if dtype == "uint32" else chunk.copy()
+            # a uint32 leaf was stored as int32: the same bits; a bool leaf as 0 / 1
+            arrays[i] = (chunk.view(np.uint32) if dtype == "uint32"
+                         else chunk.astype(bool) if dtype == "bool" else chunk.copy())
             off += size
         if off != flat.size:
             raise ValueError(f"{path}: {which} holds {flat.size} values, the leaves take {off}")

@@ -664,3 +664,47 @@ def test_hash_encode_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="contiguous float32 CUDA"):
         hg.hash_encode_bwd(x, torch.zeros(10, 6, device=card).double(), None, enc.spec,
                            enc.total_rows)
+
+
+# --- the "grid" background (NerfactoField) -----------------------------------------
+
+
+@pytest.mark.parametrize("n", [8192, 65536, 1, 127])
+def test_grid_background_base_chain_matches_plain(card, n):
+    """The grid background's ``mlp_base`` [32 -> 64 -> 16] (relu hidden, no
+    output activation) at the rows a step gives it (4 or 32 outside samples
+    x 2048 rays) and at ragged edges: the forward to ``KERNEL_TOL`` of its
+    scale, the backward against ``fused_mlp_bwd_plain`` in float64 to 1e-4
+    of each output's scale (``x`` is the hash feature: no input gradient)."""
+    dims = [32, 64, 16]
+    x, ws, bs = _case(dims, n, card, margin=True)
+    y = fm.fused_mlp(x, ws, bs, "relu", "none")
+    ref = fm.fused_mlp_plain(x, ws, bs, "relu", "none")
+    assert float((y - ref).abs().max()) / (float(ref.abs().max()) + 1.0) <= KERNEL_TOL
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal((n, 16)).astype(np.float32)).to(card)
+    _, dws, dbs = fm.fused_mlp_bwd(x, ws, bs, g, "relu", "none", False)
+    _, rdws, rdbs = fm.fused_mlp_bwd_plain(x.double(), [w.double() for w in ws],
+                                           [b.double() for b in bs], g.double(), "relu", "none", False)
+    torch.cuda.synchronize()
+    for got, want in list(zip(dws, rdws)) + list(zip(dbs, rdbs)):
+        assert float((got.double() - want).abs().max()) / (float(want.abs().max()) + 1e-6) <= BWD_TOL
+
+
+def test_grid_background_hash_matches_plain_on_contracted_points(card):
+    """The grid background's encode (L16 x F2, 2^19 rows a level, 16-1024,
+    no smoothstep) without its jacobian on the normalised contraction of
+    points far beyond the unit cube, as the background's samples lie: the
+    forward to ``HASH_FWD_TOL``, the table gradient to ``HASH_BWD_TOL``."""
+    import math
+
+    from sdfstudio_tpu_torch.fields.nerfacto_field import NerfactoField
+
+    field = NerfactoField().to(card)
+    rng = np.random.default_rng(3)
+    d = rng.standard_normal((65536, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = torch.from_numpy((d * rng.uniform(0.5, 1000.0, (65536, 1))).astype(np.float32)).to(card)
+    x = field.normalize(pts)
+    assert float(x.min()) >= 0.0 and float(x.max()) <= 1.0 and math.isclose(
+        float((x - 0.5).abs().max()), 0.5, abs_tol=1e-3)
+    _check_hash(field.encoding, x.contiguous(), False, card)

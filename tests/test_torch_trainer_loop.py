@@ -204,9 +204,9 @@ def test_accumulated_step_matches_jax_scan(tmp_path, monkeypatch):
     states = []
     t_outputs = tmodel.get_outputs
 
-    def outputs(rb, sched=None, train=False, rng=None):
+    def outputs(rb, sched=None, train=False, rng=None, **kw):
         states.append(rng.get_state().clone())
-        return t_outputs(rb, sched=sched, train=train, rng=None)
+        return t_outputs(rb, sched=sched, train=train, rng=None, **kw)
 
     monkeypatch.setattr(tmodel, "get_outputs", outputs)
     monkeypatch.setattr(tmodel, "get_loss_dict",
@@ -268,7 +268,7 @@ def test_final_eval_max_images_takes_jax_views(monkeypatch):
         return dm
 
     monkeypatch.setattr(tfinal, "render_image",
-                        lambda model, cams, i, chunk=None, step=None: {"rgb": torch.zeros(12, 12, 3)})
+                        lambda model, cams, i, chunk=None, step=None, **kw: {"rgb": torch.zeros(12, 12, 3)})
     for n, k in [(49, 3), (49, 0), (7, 10), (10, 4), (5, 1), (49, 49)]:
         ref, got = [], []
         jt = types.SimpleNamespace(
