@@ -19,9 +19,9 @@ Phases, each printing its own line with wall-clock seconds:
    1024-ray chunks. Geometric init makes the SDF close to a sphere; the
    image is checked against that sphere (accumulation inside / outside,
    depth), and 256 of its rays are rendered again on the CPU through the
-   plain PyTorch versions and compared. One more render runs under
-   ``torch.profiler``: its wall time, the device's busy time and idle share,
-   and the time of each ``sst/*`` range of the model;
+   plain PyTorch versions and compared. The view's first 12 chunks run
+   again under ``torch.profiler``: their wall time, the device's busy time
+   and idle share, and the time of each ``sst/*`` range of the model;
 4. kernel against plain: the inputs of the three ``fused_mlp`` calls of one
    chunk are captured, the kernel and ``fused_mlp_plain`` run on them on the
    card, and the two are compared and timed;
@@ -100,9 +100,9 @@ Phases, each printing its own line with wall-clock seconds:
    -> 128 -> 128] with a relu output) captured from that step and held and
    timed alone (kernel, plain version, cuBLAS layer by layer, 3xTF32 and
    FP32 bounds), one traced step, and the scene's 384x384 view rendered with
-   the kernels (its ms an image, warm after the training steps) and with
-   the plain versions (the 0.999 quantile of rays held to 1e-3), and its
-   first 12 chunks traced. Counted by chain, each must take a forward and
+   the kernels (its ms an image, warm after the training steps), its 96
+   middle rows again with the plain versions (the 0.999 quantile of those
+   rays held to 1e-3), and its first 12 chunks traced. Counted by chain, each must take a forward and
    a backward launch a step and a forward a chunk; each captured
    cotangent, each group's gradient and, on ``unisurf``, the count of rays
    with a surface point must not be zero. ``unisurf`` starts from the
@@ -130,9 +130,9 @@ Phases, each printing its own line with wall-clock seconds:
    from the outward-facing init, ``CLI_EXTRA``) through the train command
    with JAX's grammar: ``scripts/train.py::main`` with ``--experiment-name``,
    ``--output-dir``, ``--timestamp``, ``--vis none``, 40 steps, an eval
-   image every 20 steps, the final evaluation (3 of the 4 eval views, the
+   image every 20 steps, the final evaluation (the 2 eval views, the
    128^3 mesh) and ``sdfstudio-data --data .parity/dtu_like
-   --skip-every-for-val-split 16``; the run's layout (``config.yml``, the
+   --skip-every-for-val-split 25``; the run's layout (``config.yml``, the
    step directory with ``step.txt``, the metrics, the mesh), the step-20
    eval image by JAX's index rule, the ms a step over steps 12-39 (the eval
    image taken out); launches counted exactly by kernel and by chain in the
@@ -140,7 +140,11 @@ Phases, each printing its own line with wall-clock seconds:
    update steps only for the proposal nets), in each eval image, the final
    evaluation, ``scripts/eval.py`` and ``scripts/extract_mesh.py
    --resolution 128`` run on the written ``config.yml``; one kernel step
-   against one plain step (losses and every group's gradient); p4's
+   against one plain step (losses and every group's gradient), and against
+   the plain step on the kernel step's PDF resamplings
+   (``shared_samples``), with where the two paths' resamplings part
+   (``samples_parted``; for ``neus-facto-bigmlp`` on ``DIVERGENCE_SEEDS``
+   more batches); p4's
    hidden-64 chains [39 / 51 -> 64 -> 64 -> 1] alone (a forward and a
    backward an update step); ``neus-facto-tpu``'s F = 4 hash kernels on the
    step's captured SDF call (``hash_case``);
@@ -173,15 +177,31 @@ Phases, each printing its own line with wall-clock seconds:
    shell) and ``surface[neus-acc]`` on the DTU-like scene (its grid
    refreshed every 16 steps) run 40 steps of 2048 rays through the train
    command (``grid_phase``): exact launches in the steps and in the final
-   eval (3 views, the 128^3 mesh through the heritage or DTU-like judge),
+   eval (2 views, the 128^3 mesh through the heritage or DTU-like judge),
    the kernel step against the plain step (1e-4), both chains alone, the
    background's F = 2 hash call (``hash_case``), the refresh timed and one
    traced step;
-15. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
-   F = 8; the fused-MLP entries carry the surface chains', p4's and phase
-   14's rows, the hash entries the cli and grid phases' launches, the F = 4
-   captured call and the background's F = 2 call; the cue phases'
-   launches), the ``nvidia-smi`` line, and the result line.
+15. baked (``baked[<method>]``, ``baked_phase``): ``bakedsdf``,
+   ``bakedsdf-mlp`` and ``bakedangelo`` at their registered values and
+   full width through ``<method> mipnerf360-data --data
+   .parity/heritage_like``: 20 steps at the registered rays (ms a step over
+   steps 8-19; ``bakedsdf-mlp`` at the largest power of two up to 4096 that
+   fits, the cut printed), ``eval.py`` on the 3 eval views and
+   ``extract_mesh.py`` at 128^3 (the mesh empty exactly when the SDF keeps
+   one sign on the grid), the kernel step against the plain step on the
+   kernel step's resamplings (1e-4; ``bakedangelo`` by ``angelo_tols``) and
+   against the plain step's own resamplings where that is well posed,
+   launches by kernel and by chain exact (every step trains the proposal
+   nets, as in JAX), every chain of the step alone, ``bakedangelo``'s F = 8
+   hash kernels on the step's 2,752,512 captured points, one traced step,
+   the peak memory, and the view rendered with and without the kernels
+   (``bakedsdf``, ``bakedangelo``);
+16. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+   F = 8; the fused-MLP entries carry the surface chains', p4's and phases
+   14 and 15's rows, the hash entries the cli, grid and baked phases'
+   launches, the F = 4 captured call, the background's F = 2 call and
+   ``bakedangelo``'s F = 8 call; the cue phases' launches), the
+   ``nvidia-smi`` line, and the result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
 call (unless the caller set it), so that cuBLAS accepts the deterministic
@@ -243,6 +263,8 @@ EVAL_CHUNK = 8192  # final_eval.py:80
 # 3.8e-3 in accumulation and 1.7e-2 in normal on 4-18 of 8192 rays (NVIDIA
 # H100 80GB HBM3, 700 W); the fused forward itself is held per call.
 RENDER_QUANTILE = 0.999
+PLAIN_RAYS = 96 * IMAGE  # a method's view rendered again by the plain versions: its 96 middle rows
+TRACED_CHUNKS = 12  # the first chunks of a view rendered under the profiler
 RESUME_STEPS = 4  # steps before the save, and after the load
 TRAIN_RAYS = 2048  # the parity protocol's rays per batch (parity.py NUM_RAYS)
 TRAIN_STEPS = 40  # steps 10-39 update the proposal nets on even steps only
@@ -290,6 +312,15 @@ SURFACE_CHAINS = {"321-256-256-256-256-3": "color", "283-128-128": "background_h
 GRID_CHAINS = {"321-256-256-256-256-3": "color", "32-64-16": "background_base"}
 GRID_METHODS = ("neusW", "dto", "neus-acc")  # the occupancy-grid family, at its registered 2048 rays
 GRID_REFRESH = TRAIN_STEPS // 2  # the heritage phases' fine_grid_update_every and fine_grid_warmup
+# the BakedSDF family through mipnerf360-data on the heritage-like scene (phase 15)
+BAKED_METHODS = ("bakedsdf", "bakedsdf-mlp", "bakedangelo")
+BAKED_STEPS = 20
+BAKED_TIMED = 8  # steps 8-19 timed
+# the view rendered with and without kernels; bakedsdf-mlp's takes ~9 s a render, and the
+# smoke's time is short: its eval.py renders the 3 eval views with the kernels
+BAKED_RENDER = ("bakedsdf", "bakedangelo")
+BAKED_CHAINS = {"316-256-256-3": "color", "321-256-256-256-256-3": "color", "10-16-1": "proposal",
+                "32-64-16": "background_base"}
 HERITAGE_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".parity", "heritage_like")
 # phase 11: Neuralangelo at its registered 512 rays a step. A step's encodes:
 # one a round of the NeuS sampler (4 rounds, 64 + 3 x 16 points a ray,
@@ -315,9 +346,9 @@ ANGELO_DELTA0 = 1.0 / 32
 # phase 12: the remaining neus-facto presets through JAX's command line
 CLI_PRESETS = ("neus-facto-tpu", "neus-facto-tpu-p4", "neus-facto-bigmlp")
 CLI_EVAL_STEP = 20  # --trainer.steps-per-eval-image
-CLI_EVAL_SPLIT = 16  # --skip-every-for-val-split: 4 eval views (views 0, 16, 32, 48)
+CLI_EVAL_SPLIT = 25  # --skip-every-for-val-split: 2 eval views (views 0, 25)
 CLI_MESH_RES = 128  # --trainer.final-eval-resolution, extract_mesh.py --resolution
-CLI_FINAL_IMAGES = 3  # --trainer.final-eval-max-images
+CLI_FINAL_IMAGES = 2  # --trainer.final-eval-max-images
 # neus-facto-bigmlp is JAX's default field, whose init faces inwards (a camera
 # inside the scene). On the object-centred parity scene a 40-step run from that
 # init keeps or loses the surface depending on the seed, in JAX and in the port
@@ -327,6 +358,7 @@ CLI_FINAL_IMAGES = 3  # --trainer.final-eval-max-images
 # it (min / max -1.61 / -0.049), and the final eval then finds no surface; so
 # the phase runs from the outward-facing init, set through JAX's grammar
 CLI_EXTRA = {"neus-facto-bigmlp": ["--pipeline.model.sdf-field.inside-outside", "False"]}
+DIVERGENCE_SEEDS = tuple(range(1000, 1003))  # neus-facto-bigmlp's extra kernel-vs-plain batches
 # phase 13: the MonoSDF and Geo-NeuS entries at their registered 1024 rays on the DTU-like scene
 # with its monocular cues, made at run time (JAX's generator at its defaults: 49 views, 384 x 384)
 CUE_METHODS = ("monosdf", "mono-neus", "mono-unisurf", "geo-neus", "geo-volsdf", "geo-unisurf")
@@ -1135,14 +1167,7 @@ def neus_facto_phase(fm, smi: str, cams, scene_box, designs) -> dict:
     render_image(model, cams, 0, chunk=1024)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        render_image(model, cams, 0, chunk=1024)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    profile = {"warm_ms": warm_ms, "traced_wall_ms": traced_ms,
-               **render_breakdown(prof.events(), traced_ms)}
+    profile = {"warm_ms": warm_ms, **traced_chunks(model, cams, model.schedules(UNTRAINED_STEP))}
     log("neus_facto_profile", json.dumps(profile))
 
     # one 1024-ray chunk across the centre of the view: the kernel path
@@ -1206,8 +1231,99 @@ def width_counts(fm) -> dict:
     return {f"{k}[F={f}]": n for (k, f), n in fm.WIDTH_LAUNCHES.items() if n}
 
 
+@contextlib.contextmanager
+def pdf_samples(record: list, replay: bool = False):
+    """The proposal sampler's PDF resamplings
+    (``samplers/proposal.py::pdf_sampler``): each one's samples and the
+    weights it resampled from appended to ``record``, or, with ``replay``,
+    ``record``'s samples handed back in order in place of resampling."""
+    from sdfstudio_tpu_torch.samplers import proposal as prop
+
+    real, given = prop.pdf_sampler, iter(list(record))
+
+    def sampler(ray_bundle, samples, weights, *a, **kw):
+        if replay:
+            return next(given)[0]
+        out = real(ray_bundle, samples, weights, *a, **kw)
+        record.append((out, weights.detach()))
+        return out
+
+    prop.pdf_sampler = sampler
+    try:
+        yield
+    finally:
+        prop.pdf_sampler = real
+
+
+def _finest(encoding) -> float:
+    """The finest resolution of a hash grid or permutohedral lattice, or the
+    highest frequency of a positional encoding, in its input's units."""
+    if hasattr(encoding, "spec"):
+        return float(encoding.spec.resolutions[-1])
+    if hasattr(encoding, "freqs"):
+        return float(encoding.freqs.max())
+    return float(encoding.max_res)
+
+
+def finest_cells(model, level: int, positions: torch.Tensor) -> torch.Tensor:
+    """``positions`` [..., 3] of resampling ``level`` (1 to the proposal
+    iterations) in units of the finest feature of the network that takes
+    them: a proposal net's or the SDF field's finest grid cell in its [0, 1]
+    input, or, for a positional encoding, the period over 2 pi of its
+    highest frequency (on a PE+MLP proposal's [-1, 1] input, or on the
+    field's contracted positions when it has no grid). Where two samples are
+    a fraction f of such a unit apart, the gradient of that network's
+    parameters at them differs by up to ~f of itself (a hash table's
+    trilinear weights change by 1 / cell per unit of position)."""
+    nets = list(model.proposal_networks)
+    if level < len(nets):
+        net = nets[level]
+        scale = 1.0 if net.field_type == "hash" else 2.0
+        return net.normalize(positions) * (scale * _finest(net.encoding))
+    field = model.field
+    x = field.contract_positions(positions)
+    if field.encoding is not None:
+        return (x + 2.0) / 4.0 * _finest(field.encoding)
+    return x * _finest(field.position_encoding)
+
+
+def samples_parted(k_rec: list, p_rec: list, merge_radius: Optional[float], model=None) -> dict:
+    """Where the kernel step's and the plain step's PDF resamplings part,
+    level by level: the largest difference of the weights each resampled
+    from (the proposal densities' transmittance products) and of the
+    resampled bins (in the sampler's [0, 1] spacing), the bin's position
+    and its weight; with ``model`` the samples' largest displacement in
+    units of the finest feature that takes them (``finest_cells``); and,
+    where a background takes the samples beyond ``merge_radius`` (the unit
+    sphere), the final samples that changed side of it, a discrete choice
+    of the merge (``forward_background_field_and_merge``)."""
+    check(len(k_rec) == len(p_rec), f"{len(k_rec)} and {len(p_rec)} PDF resamplings")
+    out = {"weights_max_abs_diff": [], "bins_max_abs_diff": [], "cells_max_abs_diff": [], "at": [],
+           "final_samples": int(k_rec[-1][0].starts.numel()) if k_rec else 0, "side_flips": 0}
+    for level, ((ks, kw), (ps, pw)) in enumerate(zip(k_rec, p_rec), start=1):
+        if model is not None:
+            with torch.no_grad():
+                cells = [finest_cells(model, level, r.get_positions()) for r in (ks, ps)]
+            out["cells_max_abs_diff"].append(float((cells[0] - cells[1]).abs().max()))
+        d = (ks.spacing_starts - ps.spacing_starts).abs()
+        i = int(d.reshape(-1).argmax())
+        ray, b = divmod(i, d.shape[-1])
+        out["weights_max_abs_diff"].append(float((kw - pw).abs().max()))
+        out["bins_max_abs_diff"].append(float(d.reshape(-1)[i]))
+        out["at"].append({"ray": ray, "bin": b, "spacing": float(ks.spacing_starts[ray, b]),
+                          "t": float(ks.starts[ray, b]),
+                          "ray_weight_max": float(kw[ray].max()), "ray_weight_sum": float(kw[ray].sum())})
+    if k_rec and merge_radius is not None:
+        inside = [torch.linalg.vector_norm(r[0].get_start_positions(), dim=-1) < merge_radius
+                  for r in (k_rec[-1], p_rec[-1])]
+        out["side_flips"] = int((inside[0] != inside[1]).sum())
+    return out
+
+
 def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=STEP_LOSS_TOL,
-                  grad_tol: float = STEP_GRAD_TOL) -> dict:
+                  grad_tol: float = STEP_GRAD_TOL, shared_samples: bool = False,
+                  merge_radius: Optional[float] = None, only_well_posed: bool = False,
+                  model=None) -> dict:
     """One step twice from the same state and batch, its launches not
     counted: with the kernels (their fused-MLP and hash-grid calls
     captured), then with their plain versions (the fused MLP's and, with
@@ -1215,31 +1331,78 @@ def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=ST
     each group's gradient, and anything else (the kernel step's is kept as
     ``extra``). Each loss is held to ``loss_tol`` (a number, or a function
     of the loss's name), each gradient to ``grad_tol`` relative, and no
-    group's gradient may be zero."""
+    group's gradient may be zero.
+
+    With ``shared_samples`` (a model on the proposal sampler) the plain
+    versions take a third step on the kernel step's PDF resamplings
+    (``pdf_samples``): the proposal densities, the field and the losses at
+    the same samples, held as above on every call, and where the two paths'
+    resamplings part is reported (``samples_parted``). The step on the
+    plain path's own resamplings is held too; with ``only_well_posed`` only
+    where that comparison is well posed: where no resampled sample moved by
+    more than ``grad_tol`` of the finest feature of the ``model``'s network
+    that takes it (``finest_cells``) and no final sample changed side of
+    ``merge_radius``. Elsewhere the two steps differentiate the networks at
+    samples that differ, to the gradient, by more than the tolerance (or
+    the background merge's discrete choice differs), and that comparison is
+    reported, not held."""
     from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
 
-    calls, hash_calls = [], []
+    calls, hash_calls, k_rec, p_rec = [], [], [], []
+    record = pdf_samples if shared_samples else (lambda rec: contextlib.nullcontext())
+
+    def plain():
+        return _both_plain(fm) if plain_hash else swap_fused_mlp(fm.fused_mlp_plain)
+
     with uncounted(fm):
-        with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls):
+        with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls), record(k_rec):
             k_loss, k_grads, *extra = one_step()
-        with swap_fused_mlp(fm.fused_mlp_plain), \
-                (swap_hash_plain() if plain_hash else contextlib.nullcontext()):
+        with plain(), record(p_rec):
             p_loss, p_grads, *_ = one_step()
+        shared = None
+        if shared_samples:
+            with plain(), pdf_samples(k_rec, replay=True):
+                shared = one_step()[:2]
         torch.cuda.synchronize()
     tol_of = loss_tol if callable(loss_tol) else (lambda k: loss_tol)
-    loss_err = {k: abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12) for k in p_loss}
-    grad_err = {g: rel_fro(k_grads[g], p_grads[g]) for g in p_grads}
     grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
+
+    def errors(ref_loss, ref_grads):
+        return ({k: abs(k_loss[k] - ref_loss[k]) / max(abs(ref_loss[k]), 1e-12) for k in ref_loss},
+                {g: rel_fro(k_grads[g], ref_grads[g]) for g in ref_grads})
+
+    def held(what, loss_err, grad_err):
+        for k, e in loss_err.items():
+            check(e <= tol_of(k), f"{phase} {k}: kernel step and {what} differ by {e}")
+        for g, e in grad_err.items():
+            check(e <= grad_tol and grad_norm[g] > 0,
+                  f"{phase} {g} gradient: kernel step and {what} differ by {e} (norm {grad_norm[g]})")
+
+    loss_err, grad_err = errors(p_loss, p_grads)
+    out = {"loss": k_loss, "loss_err": loss_err, "grad_err": grad_err, "grad_norm": grad_norm,
+           "calls": calls, "hash_calls": hash_calls, "extra": extra}
+    free_held = True
+    if shared is not None:
+        parted = samples_parted(k_rec, p_rec, merge_radius, model)
+        well_posed = (parted["side_flips"] == 0 and model is not None
+                      and max(parted["cells_max_abs_diff"]) <= grad_tol)
+        free_held = well_posed or not only_well_posed
+        s_loss_err, s_grad_err = errors(*shared)
+        out.update({"shared_loss_err": s_loss_err, "shared_grad_err": s_grad_err, "parted": parted,
+                    "well_posed": well_posed, "free_held": free_held})
     log(phase, f"the step's losses {k_loss}; kernel step vs plain step: loss rel err {loss_err} "
         f"(tol {tol_of('rgb_loss')}); gradient rel err {grad_err} (tol {grad_tol}); gradient norms "
-        f"{grad_norm}")
-    for k, e in loss_err.items():
-        check(e <= tol_of(k), f"{phase} {k}: kernel step and plain step differ by {e}")
-    for g, e in grad_err.items():
-        check(e <= grad_tol and grad_norm[g] > 0,
-              f"{phase} {g} gradient: kernel step and plain step differ by {e} (norm {grad_norm[g]})")
-    return {"loss": k_loss, "loss_err": loss_err, "grad_err": grad_err, "grad_norm": grad_norm,
-            "calls": calls, "hash_calls": hash_calls, "extra": extra}
+        f"{grad_norm}" + ("" if shared is None else
+                          f"; the resamplings parted {json.dumps(out['parted'])}: "
+                          f"{'well posed' if well_posed else 'ill-posed'}, "
+                          f"{'held' if free_held else 'NOT held'}; "
+                          f"on the kernel step's resamplings: loss rel err {out['shared_loss_err']}, "
+                          f"gradient rel err {out['shared_grad_err']}"))
+    if shared is not None:
+        held("plain step on its resamplings", out["shared_loss_err"], out["shared_grad_err"])
+    if free_held:
+        held("plain step", loss_err, grad_err)
+    return out
 
 
 def traced_step(trainer, windows=()) -> dict:
@@ -1373,20 +1536,36 @@ def outward_sdf_init():
         train_script.get_method_config = registered
 
 
+def traced_chunks(model, cams, sched, n: int = TRACED_CHUNKS) -> dict:
+    """The first ``n`` 1024-ray chunks of view 0 rendered under the
+    profiler: the wall time, the device's busy time and idle share, and the
+    ``sst/*`` ranges (``render_breakdown``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rb = cams.generate_image_rays(0)
+    n = min(n, math.ceil(rb.origins.shape[0] / 1024))
+    with torch.profiler.profile(activities=acts) as prof, torch.no_grad():
+        t = time.perf_counter()
+        for i in range(n):
+            model.get_outputs(rb.map(lambda x: x[i * 1024:(i + 1) * 1024]), sched=sched)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    return {"chunks": n, "traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms)}
+
+
 def render_view(fm, model, cams, step: int, phase: str, plain_swap, chunk_chains: dict) -> dict:
     """The scene's 384x384 view 0 rendered with the kernels (warm: the
     training steps ran the same kernels and products), its launches counted
     by kernel and by chain (``chunk_chains``: each chain's forward launches
-    a chunk; no backward), rendered again under ``plain_swap()`` (every
-    kernel swapped for its plain version, its launches not counted), the
-    0.999 quantile of rays held to ``SLICE_TOL``, and its first 12 chunks
-    traced. Every pixel must be finite."""
-    from sdfstudio_tpu_torch.engine.final_eval import render_image
+    a chunk; no backward), its ``PLAIN_RAYS`` middle rays rendered again
+    under ``plain_swap()`` (every kernel swapped for its plain version, its
+    launches not counted), the 0.999 quantile of them held to ``SLICE_TOL``,
+    and its first chunks traced (``traced_chunks``). Every pixel must be
+    finite."""
+    from sdfstudio_tpu_torch.engine.final_eval import IMAGE_KEYS, render_image
 
     check(int(cams.height[0]) == IMAGE and int(cams.width[0]) == IMAGE,
           f"the scene's view is not {IMAGE}x{IMAGE}")
     n_chunks = math.ceil(IMAGE * IMAGE / 1024)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fm.reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1397,34 +1576,34 @@ def render_view(fm, model, cams, step: int, phase: str, plain_swap, chunk_chains
     render_chains = {w: chain_counts(fm, w) for w in ("fwd", "bwd")}
     want = {"fwd": {chain: k * n_chunks for chain, k in chunk_chains.items()}, "bwd": {}}
     check(render_chains == want, f"expected {want} launches by chain in the render: {render_chains}")
-    with plain_swap():
-        plain_out = render_image(model, cams, 0, chunk=1024, step=step)
+    # the middle rows of the view (the object) through the plain versions
+    rb = cams.generate_image_rays(0)
+    sched_r = model.schedules(step)
+    mid = slice(IMAGE * IMAGE // 2 - PLAIN_RAYS // 2, IMAGE * IMAGE // 2 + PLAIN_RAYS // 2)
+    sub = rb.map(lambda x: x[mid])
+    plain_out = {k: [] for k in IMAGE_KEYS}
+    with plain_swap(), torch.no_grad():
+        for i in range(0, PLAIN_RAYS, 1024):
+            o = model.get_outputs(sub.map(lambda x: x[i:i + 1024]), sched=sched_r)
+            for k in IMAGE_KEYS:
+                plain_out[k].append(o[k])
     torch.cuda.synchronize()
     fm.LAUNCHES.update(render_launches)
     for k, v in out.items():
         check(bool(torch.isfinite(v).all()), f"{k} has non-finite values")
-    ray_err = {k: (out[k] - plain_out[k]).abs().reshape(IMAGE * IMAGE, -1).amax(-1) for k in out}
+    ray_err = {k: (out[k].reshape(IMAGE * IMAGE, -1)[mid] - torch.cat(plain_out[k])).abs().amax(-1)
+               for k in IMAGE_KEYS}
     render_err = {k: float(e.max()) for k, e in ray_err.items()}
     render_q = {k: float(torch.quantile(e, RENDER_QUANTILE)) for k, e in ray_err.items()}
-    # the first 12 chunks of the view traced: the device's idle share
-    rb = cams.generate_image_rays(0)
-    sched_r = model.schedules(step)
-    traced_chunks = min(12, n_chunks)
-    with torch.profiler.profile(activities=acts) as prof, torch.no_grad():
-        t = time.perf_counter()
-        for i in range(traced_chunks):
-            model.get_outputs(rb.map(lambda x: x[i * 1024:(i + 1) * 1024]), sched=sched_r)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    render_profile = {"chunks": traced_chunks, "traced_wall_ms": traced_ms,
-                      **render_breakdown(prof.events(), traced_ms)}
+    render_profile = traced_chunks(model, cams, sched_r)
     log(phase.replace("surface", "surface_profile"), json.dumps({"render_chunks": render_profile}))
     acc = out["accumulation"]
     log(phase, f"rendered {IMAGE}x{IMAGE} in {n_chunks} chunks: {image_ms:.1f} ms an image; launches "
-        f"{render_launches}, by chain {render_chains}; kernel path vs plain path, max "
-        f"|diff| {render_err}, {RENDER_QUANTILE} quantile of rays {render_q} (tol {SLICE_TOL}); "
+        f"{render_launches}, by chain {render_chains}; kernel path vs plain path on the "
+        f"{PLAIN_RAYS} middle rays, max |diff| {render_err}, {RENDER_QUANTILE} quantile of rays "
+        f"{render_q} (tol {SLICE_TOL}); "
         f"accumulation min {float(acc.min()):.4f} max {float(acc.max()):.4f}")
-    for k in out:
+    for k in IMAGE_KEYS:
         check(render_q[k] < SLICE_TOL, f"{k}: kernel and plain renders differ by {render_q[k]} on "
               f"more than {1 - RENDER_QUANTILE:.1%} of the rays")
     del out, plain_out
@@ -2149,15 +2328,29 @@ def cli_phase(fm, smi: str, method: str) -> dict:
     sched = model.schedules(trainer.step)
     check(sched["train_proposal"], f"step {trainer.step} is not an update step")
 
-    def one_step():
-        gen = torch.Generator(device=dm.device).manual_seed(777)
+    def one_step(seed: int = 777):
+        gen = torch.Generator(device=dm.device).manual_seed(seed)
         idx, batch = dm.sample_train_batch(gen)
         total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
         return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
 
-    step = step_vs_plain(fm, phase, one_step)
+    # bigmlp's NeRF background takes the samples beyond the unit sphere
+    merge = 1.0 if model.field_background is not None else None
+    step = step_vs_plain(fm, phase, one_step, shared_samples=True, merge_radius=merge, model=model)
     calls, hash_calls = step["calls"], step["hash_calls"]
     loss_err, grad_err = step["loss_err"], step["grad_err"]
+    parted = [{"seed": 777, "grad_err": grad_err, "shared_grad_err": step["shared_grad_err"],
+               **step["parted"]}]
+    if merge is not None:
+        # more batches from the same state: where the kernel and plain steps part (ROADMAP queue 3)
+        for seed in DIVERGENCE_SEEDS:
+            r = step_vs_plain(fm, f"{phase} batch {seed}", lambda: one_step(seed), shared_samples=True,
+                              merge_radius=merge, model=model)
+            parted.append({"seed": seed, "grad_err": r["grad_err"],
+                           "shared_grad_err": r["shared_grad_err"], **r["parted"]})
+            del r
+        log(phase, f"kernel vs plain steps by batch, with the final samples that changed side of the "
+            f"unit sphere: {json.dumps(parted)}")
 
     # exact launches: a step's calls (captured) times the steps, each render chunk a step's forwards
     def widths(c):
@@ -2216,7 +2409,7 @@ def cli_phase(fm, smi: str, method: str) -> dict:
            "final_eval": metrics, "eval_py": ev["results"], "mesh_vertices": mesh_vertices,
            "eval_history": history, "launches": launches, "total_launches": total[0],
            "step_loss_err": loss_err, "step_grad_err": grad_err, "n_update": n_update,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "step_parted": parted, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
     if method == "neus-facto-tpu-p4":
         names = [("proposal_0" if i == 0 else "proposal_1" if i == 1 else "color") for i in range(len(calls))]
         out["chains"] = chain_checks(fm, calls, names, phase, method)
@@ -2725,7 +2918,7 @@ def facto_angelo_phase(fm, smi: str) -> dict:
     log(phase, f"the kernel step vs the plain step at step {trainer.step}: delta {delta:.6g}, "
         f"tol {tol1:.3g} / {tol2:.3g} (the curvature loss and the gradients)")
     step = step_vs_plain(fm, phase, one_step, loss_tol=lambda k: tol2 if k == "curvature_loss" else tol1,
-                         grad_tol=tol2)
+                         grad_tol=tol2, shared_samples=True, merge_radius=1.0, model=model)
     calls, hash_calls = step["calls"], step["hash_calls"]
     loss_err, grad_err = step["loss_err"], step["grad_err"]
     del step
@@ -2791,6 +2984,226 @@ def facto_angelo_phase(fm, smi: str) -> dict:
             "train_step_idle_share": profile["device_idle_share"], "traced_step_ms": traced_ms,
             "device_busy_ms": profile["device_busy_ms"], "ranges": profile["ranges"],
             "render_idle_share": render["profile"]["device_idle_share"], "peak_memory_gib": peak_gib}
+
+
+def baked_phase(fm, smi: str, method: str) -> dict:
+    """A BakedSDF entry (``baked[<method>]``) at its registered values and
+    full width through JAX's command line, ``<method> mipnerf360-data --data
+    .parity/heritage_like``, from seed 0: ``BAKED_STEPS`` steps at the
+    registered rays (ms a step over steps ``BAKED_TIMED``-19, host clock
+    ended by one synchronise; ``bakedsdf-mlp`` at the largest power of two
+    up to its 4096 that fits the card, the cut printed); one kernel step
+    against one plain step, and the plain step on the kernel step's
+    resamplings (``step_vs_plain``; ``bakedangelo``'s tolerances scaled by
+    delta, ``angelo_tols``); launches by kernel and by chain exact in the
+    steps (every step trains the proposal nets, as in JAX), ``eval.py``'s 3
+    views and ``extract_mesh.py``'s 128^3 grid; every chain of the step
+    alone (``chain_checks``); one traced step; the peak device memory; the
+    train view rendered with and without the kernels; finite PSNR and SSIM
+    and a non-empty mesh (no Chamfer: the heritage judge works in the
+    heritage parser's frame, not this parser's). Returns what the
+    ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.scripts import eval as eval_script
+    from sdfstudio_tpu_torch.scripts import extract_mesh as mesh_script
+    from sdfstudio_tpu_torch.scripts import train as train_script
+    from sdfstudio_tpu_torch.utils.marching_cubes import evaluate_sdf_grid
+
+    phase = f"baked[{method}]"
+    registered = train_script.get_method_config(method).datamanager.train_num_rays_per_batch
+    setup = train_script.setup_lib.setup_trainer
+    made, marks = [], {}
+
+    def keep(*args, **kw):
+        """The trainer ``main`` builds, its steps ``BAKED_TIMED`` and ``BAKED_STEPS`` marked."""
+        t = setup(*args, **kw)
+        step = t.train_step
+
+        def marked_step():
+            if t.step == BAKED_TIMED:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            out = step()
+            if t.step == BAKED_STEPS:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return out
+
+        t.train_step = marked_step
+        made.append(t)
+        return t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rays, cut = registered, None
+        while True:
+            argv = [method, "--experiment-name", "smoke", "--output-dir", tmp, "--timestamp", "t",
+                    "--vis", "none", "--trainer.max-num-iterations", str(BAKED_STEPS),
+                    "--trainer.steps-per-eval-image", "0",
+                    "--datamanager.train-num-rays-per-batch", str(rays),
+                    "mipnerf360-data", "--data", HERITAGE_SCENE]
+            made.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            fm.reset_launch_counts()
+            train_script.setup_lib.setup_trainer = keep
+            t = time.perf_counter()
+            try:
+                check(train_script.main(argv) == 0, f"{phase}: the train command failed")
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                # the registered batch must not be cut silently: the cut is printed and reported
+                check(method == "bakedsdf-mlp" and rays > 512, f"{phase}: out of memory at {rays} rays")
+                cut = {"registered": registered, "out_of_memory_at": rays, "error": str(e)[:200]}
+                rays //= 2
+                log(phase, f"CUT: {registered} rays a step do not fit the card; trying {rays}")
+            finally:
+                train_script.setup_lib.setup_trainer = setup
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        train_total, train_widths = _counts(fm), width_counts(fm)
+        trainer = made[0]
+        dm, model = trainer.datamanager, trainer.model
+        check(dm.config.train_num_rays_per_batch == rays and trainer.step == BAKED_STEPS,
+              f"{phase}: {dm.config.train_num_rays_per_batch} rays, step {trainer.step}")
+        check(model.scene_box.collider_type == "near_far" and model.scene_box.far == 1000.0
+              and dm.num_eval_images == 3, f"{phase}: not the mipnerf360 parser's scene and split")
+        step_ms = (marks["t1"] - marks["t0"]) * 1e3 / (BAKED_STEPS - BAKED_TIMED)
+        run = Path(tmp) / "smoke" / method / "t"
+        w0, c0, t = width_counts(fm), _counts(fm), time.perf_counter()
+        check(eval_script.main(["--load-config", str(run / "config.yml"),
+                                "--output-path", f"{tmp}/eval.json"]) == 0, f"{phase}: eval.py failed")
+        torch.cuda.synchronize()
+        eval_s, eval_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
+        ev = json.loads((Path(tmp) / "eval.json").read_text())
+        check(ev["num_images"] == 3 and all(math.isfinite(ev["results"][k]) for k in ("psnr", "ssim")),
+              f"{phase}: eval.py wrote {ev}")
+        c0, t = _counts(fm), time.perf_counter()
+        check(mesh_script.main(["--load-config", str(run / "config.yml"), "--output-path",
+                                f"{tmp}/mesh.ply", "--resolution", str(CLI_MESH_RES)]) == 0,
+              f"{phase}: extract_mesh.py failed")
+        torch.cuda.synchronize()
+        mesh_s, mesh_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
+        header = (Path(tmp) / "mesh.ply").read_bytes()[:400].split(b"end_header")[0].decode()
+        mesh_vertices = int(header.split("element vertex ")[1].split()[0])
+        w1 = width_counts(fm)
+        # the trained SDF on extract_mesh.py's grid: the mesh is empty exactly when it keeps one sign
+        with uncounted(fm):
+            grid = evaluate_sdf_grid(lambda p: model.field.sdf(model.field.contract_positions(p)),
+                                     CLI_MESH_RES, np.full(3, -1.0), np.full(3, 1.0), dm.device)
+        sdf_range = (float(grid.min()), float(grid.max()))
+        del grid
+        check((mesh_vertices > 0) == (sdf_range[0] < 0.0 < sdf_range[1]),
+              f"{phase}: extract_mesh.py wrote {mesh_vertices} vertices of an SDF in {sdf_range}")
+        eval_mesh_widths = {k: n - w0.get(k, 0) for k, n in w1.items() if n - w0.get(k, 0)}
+    log(phase, f"main: {main_s:.1f} s; {BAKED_STEPS} steps of {rays} rays (registered {registered}"
+        f"{'' if cut is None else ', CUT: ' + json.dumps(cut)}), steps {BAKED_TIMED}-{BAKED_STEPS - 1}: "
+        f"{step_ms:.2f} ms a step, {rays / step_ms * 1e3:.0f} rays/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; eval.py {eval_s:.1f} s "
+        f"{json.dumps(ev['results'])}; extract_mesh.py {mesh_s:.1f} s, {mesh_vertices} vertices of "
+        f"the SDF in {sdf_range} on its {CLI_MESH_RES}^3 grid")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # one step twice from the same state and batch, and once more on the kernel step's resamplings
+    sched = model.schedules(trainer.step)
+    tols = {}
+    if "numerical_delta" in sched:
+        tol1, tol2 = angelo_tols(sched["numerical_delta"])
+        tols = {"loss_tol": lambda k: tol2 if k == "curvature_loss" else tol1, "grad_tol": tol2}
+
+    def one_step():
+        g = torch.Generator(device=dm.device).manual_seed(777)
+        i, b = dm.sample_train_batch(g)
+        total_, ld, _ = loss_and_metrics(model, dm.generate_rays(i), b, sched, g)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
+
+    merge = 1.0 if model.field_background is not None else None
+    step = step_vs_plain(fm, phase, one_step, shared_samples=True, merge_radius=merge,
+                         only_well_posed=True, model=model, **tols)
+    calls, hash_calls = step["calls"], step["hash_calls"]
+    errs = {k: step[k] for k in ("loss_err", "grad_err", "shared_loss_err", "shared_grad_err",
+                                 "parted", "well_posed", "free_held")}
+    del step
+    widths = [_chain_key(c) for c in calls]
+    check(all(w in BAKED_CHAINS for w in widths) and all("g" in c for c in calls)
+          and widths.count("10-16-1") == 2,
+          f"{phase}: captured chains {widths}, each with a backward")
+    by_F = {}
+    for r in hash_calls:
+        by_F.setdefault(r["F"], []).append(r)
+    want_F = {"bakedsdf": {2: 3}, "bakedsdf-mlp": {2: 2}, "bakedangelo": {8: 1, 2: 4}}[method]
+    check({F: len(v) for F, v in by_F.items()} == want_F,
+          f"{phase}: captured hash calls {[(r['F'], r['x'].shape[0]) for r in hash_calls]}")
+
+    # exact launches: every step trains the proposal nets (JAX's BakedSDF has no cadence)
+    image_chunks = math.ceil(IMAGE * IMAGE / 1024)
+    sdf_hash = model.field.encoding is not None
+    mesh_chunks = math.ceil(CLI_MESH_RES ** 3 / 131072) if sdf_hash else 0
+    eval_want = expected_launches(calls, hash_calls, 0, 0, 3 * image_chunks)
+    mesh_want = ({"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "hash_encode_fwd": mesh_chunks,
+                  "hash_encode_bwd": 0}, {})
+    launches = {
+        "train": launches_held(phase, "train", train_total,
+                               expected_launches(calls, hash_calls, BAKED_STEPS, BAKED_STEPS, 0)),
+        "eval_py": launches_held(phase, "eval.py", eval_launches, eval_want),
+        "extract_mesh": launches_held(phase, "extract_mesh.py", mesh_launches, mesh_want),
+    }
+    if method == "bakedangelo":
+        f8 = {"hash_encode_fwd[F=8]": BAKED_STEPS, "hash_encode_bwd[F=8]": BAKED_STEPS}
+        f2 = {f"hash_encode_{w}[F=2]": launches["train"]["kernels"][f"hash_encode_{w}"] - BAKED_STEPS
+              for w in ("fwd", "bwd")}
+        check(train_widths == {**f8, **f2}, f"{phase}: hash launches by width {train_widths}")
+    log(phase, f"launches, exact: {json.dumps(launches)}; hash launches by width "
+        f"{json.dumps(train_widths)}")
+    names = [BAKED_CHAINS[w] for w in widths]
+    for i in [i for i, n in enumerate(names) if n == "proposal"][:2]:
+        names[i] = f"proposal_{sum(1 for n in names[:i] if n.startswith('proposal'))}"
+    if names.count("background_base") == 2:
+        names[names.index("background_base")] = "background_base_merge"
+    chains = chain_checks(fm, calls, names, phase, method)
+    chunk_chains = {}
+    for w in widths:
+        chunk_chains[w] = chunk_chains.get(w, 0) + 1
+    f8_call = by_F[8][0] if method == "bakedangelo" else None
+    del calls, hash_calls, by_F
+    torch.cuda.empty_cache()
+
+    with uncounted(fm):
+        profile = traced_step(trainer)
+    log(phase.replace("[", "_profile["), json.dumps({"train_step": profile}))
+    render = None
+    if method in BAKED_RENDER:
+        render = render_view(fm, model, dm.train_cameras, trainer.step, phase,
+                             lambda: _both_plain(fm), chunk_chains)
+    del trainer, model, made, dm
+    torch.cuda.empty_cache()
+    sdf_hash_rec = None
+    if f8_call is not None:
+        # the F = 8 kernels at 2.75M points, as a step takes them, once the trainer's ~10 GB
+        # are free: the plain backward and the deterministic pair need ~50 GB here
+        r = f8_call
+        with uncounted(fm):
+            sdf_hash_rec = hash_case(phase, "sdf", "captured", r["x"], r["spec"], r["rows"], 8,
+                                     r["want_jac"], r.get("g_out"), r.get("g_jac"))
+        del r, f8_call
+    return {"method": method, "rays": rays, "registered_rays": registered, "cut": cut,
+            "step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3, "main_s": main_s,
+            "eval_py_s": eval_s, "eval_py": ev["results"], "extract_mesh_s": mesh_s,
+            "mesh_vertices": mesh_vertices, "sdf_range": sdf_range, "launches": launches,
+            "train_launches": train_total[0],
+            "eval_launches": eval_launches[0], "mesh_launches": mesh_launches[0],
+            "hash_launches_by_width": {"train": train_widths, "eval_and_mesh": eval_mesh_widths,
+                                       "render": {} if render is None else render["widths"]},
+            "chains": chains, "sdf_hash": sdf_hash_rec,
+            **{f"step_{k}": v for k, v in errs.items()},
+            "train_step_idle_share": profile["device_idle_share"],
+            "traced_step_ms": profile["traced_wall_ms"], "device_busy_ms": profile["device_busy_ms"],
+            "ranges": profile["ranges"], "peak_memory_gib": peak_gib,
+            "image_ms": None if render is None else render["image_ms"],
+            "render_launches": None if render is None else render["launches"],
+            "render_chains_fwd": {} if render is None else render["chains"]["fwd"],
+            "render_quantile_err": None if render is None else render["quantile_err"],
+            "render_idle_share": None if render is None else render["profile"]["device_idle_share"]}
 
 
 def _counts_sum(parts: list) -> tuple:
@@ -2922,15 +3335,9 @@ def main() -> int:
     warm_ms = (time.perf_counter() - t) * 1e3
     log("slice", f"warm render: {warm_ms:.1f} ms per {IMAGE}x{IMAGE} image")
 
-    # where the time goes: wall, busy and idle share all from one traced
-    # render (the profiler's host cost stretches that wall beyond warm_ms)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        render_image(model, cams, 0, chunk=1024)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    profile = {"traced_wall_ms": traced_ms, **render_breakdown(prof.events(), traced_ms)}
+    # where the time goes: wall, busy and idle share all from the view's first
+    # chunks traced (the profiler's host cost stretches that wall)
+    profile = traced_chunks(model, cams, model.schedules(UNTRAINED_STEP))
     log("profile", json.dumps(profile))
 
     # the card path against the CPU path (plain versions) on 256 rays of the view
@@ -3013,6 +3420,9 @@ def main() -> int:
     facto_angelo = facto_angelo_phase(fm, smi)
     grid = {m: grid_phase(fm, smi, m) for m in GRID_METHODS}
 
+    # 15. the BakedSDF family through mipnerf360-data on the heritage-like scene
+    baked = {m: baked_phase(fm, smi, m) for m in BAKED_METHODS}
+
     # 15. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
@@ -3060,6 +3470,36 @@ def main() -> int:
         a = facto_angelo
         n = sum(r["total_launches"][name] for r in grid.values())
         return n + a["train_launches"][name] + a["render_launches"][name] - facto_hash(name, 8)
+
+    def baked_launches(name: str) -> int:
+        """Phase 15's launches of kernel ``name``, the F = 8 ones apart (they are the F = 8 entries')."""
+        n = 0
+        for r in baked.values():
+            n += r["train_launches"][name] + r["eval_launches"][name] + r["mesh_launches"][name]
+            n += (r["render_launches"] or {}).get(name, 0) - baked_hash(r, name, 8)
+        return n
+
+    def baked_hash(r: dict, name: str, F: int) -> int:
+        """A phase 15 method's launches of hash kernel ``name`` at width ``F``, as counted."""
+        return sum(part.get(f"{name}[F={F}]", 0) for part in r["hash_launches_by_width"].values())
+
+    def baked_chain_rows(which: str) -> list:
+        """Phase 15's chains alone at a step's captured inputs, with each
+        chain's launches on that method's path (train steps, eval.py, the
+        render)."""
+        rows = []
+        for m, r in baked.items():
+            for c in r["chains"]:
+                d = c[which]
+                key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
+                n = sum(part["chains"].get(key, 0) for part in r["launches"].values())
+                if which == "fwd" and r["render_launches"] is not None:
+                    n += r["render_chains_fwd"].get("-".join(map(str, c["dims"])), 0)
+                rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
+                             "out_act": c["out_act"], "launches": n,
+                             **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
+                                                  "bound_ms", "bound_ms_fp32", "bound_by")}})
+        return rows
 
     def grid_chain_rows(which: str) -> list:
         """Phase 14's chains alone (the colour net with a live embedding, the
@@ -3122,8 +3562,10 @@ def main() -> int:
             "route": "cuda",
             "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
             "replaces": replaces,
-            "launches": nf_launches[name] + cli_launches(name) + grid_launches(name),
+            "launches": nf_launches[name] + cli_launches(name) + grid_launches(name)
+            + baked_launches(name),
             "launches_grid": {m: r["total_launches"][name] for m, r in grid.items()},
+            "launches_baked_F2": {m: baked_hash(r, name, 2) for m, r in baked.items()},
             "launches_neus_facto_angelo_F2": facto_hash(name, 2),
             # the grid background's F = 2 call (L16, 2^19 rows, no jacobian) of a neusW step
             "background_captured": grid["neusW"]["hash_background"].get(which),
@@ -3191,8 +3633,10 @@ def main() -> int:
         calls = [c for c in angelo["hash_calls"] if c["inputs"] == "captured" and part in c]
         key = (lambda k: f"{which}_{k}") if det else (lambda k: k)
         facto_f8 = facto_hash(name, 8)
+        baked_f8 = baked_hash(baked["bakedangelo"], name, 8)
         launches = (angelo["det_launches"][name] if det
-                    else angelo["train_launches"][name] + angelo["render_launches"][name] + facto_f8)
+                    else angelo["train_launches"][name] + angelo["render_launches"][name] + facto_f8
+                    + baked_f8)
         return {
             "name": f"{name}[F=8]",
             "route": "cuda",
@@ -3203,6 +3647,10 @@ def main() -> int:
             "launches_render": angelo["render_launches"][name],
             "launches_deterministic": angelo["det_launches"][name],
             "launches_neus_facto_angelo": facto_f8,
+            "launches_bakedangelo": baked_f8,
+            # bakedangelo's SDF call: 8192 rays x 48 samples x 7 points
+            "bakedangelo_step_captured": (baked["bakedangelo"]["sdf_hash"] or {}).get(
+                {"corner_rows": "det", "segment_sum": "det"}.get(which, which)),
             "max_abs_err": max(c[part][key("max_abs_err")] for c in angelo["hash_calls"] if part in c),
             "ms": sum(c[part][key("ms")] for c in calls),
             "plain_ms": sum(c[part][key("plain_ms")] for c in calls),
@@ -3229,7 +3677,11 @@ def main() -> int:
                      + final["launches"]["fused_mlp_fwd"] + resume["launches"]["fused_mlp_fwd"]
                      + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")
                      + cli_launches("fused_mlp_fwd") + cue_launches("fused_mlp_fwd")
-                     + grid_launches("fused_mlp_fwd")),
+                     + grid_launches("fused_mlp_fwd") + baked_launches("fused_mlp_fwd")),
+        "launches_baked": {m: r["train_launches"]["fused_mlp_fwd"] + r["eval_launches"]["fused_mlp_fwd"]
+                           + (r["render_launches"] or {}).get("fused_mlp_fwd", 0)
+                           for m, r in baked.items()},
+        "baked_chains": baked_chain_rows("fwd"),
         "launches_grid": {m: r["total_launches"]["fused_mlp_fwd"] for m, r in grid.items()},
         "launches_neus_facto_angelo": (facto_angelo["train_launches"]["fused_mlp_fwd"]
                                        + facto_angelo["render_launches"]["fused_mlp_fwd"]),
@@ -3248,7 +3700,7 @@ def main() -> int:
         "launches_resume": resume["launches"]["fused_mlp_fwd"],
         "max_abs_err": max([r["max_abs_err"] for r in per_call]
                            + [c["max_abs_err"] for c in surface_chains("fwd") + cli_chain_rows("fwd")
-                              + grid_chain_rows("fwd")]),
+                              + grid_chain_rows("fwd") + baked_chain_rows("fwd")]),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
@@ -3270,7 +3722,9 @@ def main() -> int:
         "launches": (train["launches"]["fused_mlp_bwd"] + resume["launches"]["fused_mlp_bwd"]
                      + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")
                      + cli_launches("fused_mlp_bwd") + cue_launches("fused_mlp_bwd")
-                     + grid_launches("fused_mlp_bwd")),
+                     + grid_launches("fused_mlp_bwd") + baked_launches("fused_mlp_bwd")),
+        "launches_baked": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in baked.items()},
+        "baked_chains": baked_chain_rows("bwd"),
         "launches_grid": {m: r["total_launches"]["fused_mlp_bwd"] for m, r in grid.items()},
         "launches_neus_facto_angelo": facto_angelo["train_launches"]["fused_mlp_bwd"],
         "grid_chains": grid_chain_rows("bwd"),
@@ -3284,7 +3738,7 @@ def main() -> int:
         "launches_resume": resume["launches"]["fused_mlp_bwd"],
         "max_abs_err": max([r["max_abs_err"] for r in bwd]
                            + [c["max_abs_err"] for c in surface_chains("bwd") + cli_chain_rows("bwd")
-                              + grid_chain_rows("bwd")]),
+                              + grid_chain_rows("bwd") + baked_chain_rows("bwd")]),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
@@ -3347,6 +3801,12 @@ def main() -> int:
         "rays", "step_ms", "rays_per_s", "image_ms", "train_step_idle_share", "render_idle_share",
         "traced_step_ms", "device_busy_ms", "step_loss_err", "step_grad_err", "peak_memory_gib")}
     log("grid", json.dumps(grid_summary))
+    log("baked", json.dumps({m: {k: r[k] for k in (
+        "rays", "registered_rays", "cut", "step_ms", "rays_per_s", "main_s", "eval_py", "eval_py_s",
+        "extract_mesh_s", "mesh_vertices", "sdf_range", "image_ms", "train_step_idle_share",
+        "traced_step_ms",
+        "device_busy_ms", "render_idle_share", "step_loss_err", "step_grad_err",
+        "step_shared_grad_err", "step_parted", "peak_memory_gib")} for m, r in baked.items()}))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)

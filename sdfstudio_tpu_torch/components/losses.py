@@ -1,6 +1,7 @@
 """Training losses of the ported methods (counterpart of
-``sdfstudio_tpu/components/losses.py``): rgb L1, eikonal, the zip-NeRF
-interlevel loss with its step-function blur, the foreground-mask BCE,
+``sdfstudio_tpu/components/losses.py``): rgb L1, eikonal, the mip-NeRF
+360 interlevel loss (BakedSDF's) and the zip-NeRF one with its
+step-function blur, the foreground-mask BCE,
 Neuralangelo's curvature loss, MonoSDF's monocular normal and
 scale-and-shift-invariant depth losses, Geo-NeuS's top-k NCC over warped
 patches, the sensor-depth losses and S3IM.
@@ -29,6 +30,30 @@ def eikonal_loss(gradients: torch.Tensor) -> torch.Tensor:
 def ray_samples_to_sdist(ray_samples) -> torch.Tensor:
     """[R, S+1] bin edges in normalised s-space (losses.py:42-46)."""
     return torch.cat([ray_samples.spacing_starts, ray_samples.spacing_ends[..., -1:]], -1)
+
+
+def outer(t0_starts, t0_ends, t1_starts, t1_ends, y1) -> torch.Tensor:
+    """The mass of the histogram ``y1`` on bins ``t1`` inside each bin of
+    ``t0`` (losses.py:49-61)."""
+    cy1 = torch.cat([torch.zeros_like(y1[..., :1]), torch.cumsum(y1, dim=-1)], -1)
+    idx_lo = torch.clamp(searchsorted_right(t1_starts, t0_starts) - 1, 0, y1.shape[-1] - 1)
+    idx_hi = torch.clamp(searchsorted_right(t1_ends, t0_ends), 0, y1.shape[-1] - 1)
+    return torch.gather(cy1[..., 1:], -1, idx_hi) - torch.gather(cy1[..., :-1], -1, idx_lo)
+
+
+def interlevel_loss(weights_list: Sequence[torch.Tensor], ray_samples_list) -> torch.Tensor:
+    """mip-NeRF 360's proposal loss (losses.py:64-78): the final weights
+    ``w`` on their bins ``c`` (no gradient) against each proposal level's
+    mass inside them, ``mean(max(w - outer, 0)^2 / (w + 1e-7))``; only the
+    proposal weights carry a gradient."""
+    c = ray_samples_to_sdist(ray_samples_list[-1]).detach()
+    w = weights_list[-1].detach()
+    loss = 0.0
+    for ray_samples, weights in zip(ray_samples_list[:-1], weights_list[:-1]):
+        cp = ray_samples_to_sdist(ray_samples)
+        w_outer = outer(c[..., :-1], c[..., 1:], cp[..., :-1], cp[..., 1:], weights)
+        loss = loss + torch.mean(torch.clamp(w - w_outer, min=0.0) ** 2 / (w + 1e-7))
+    return loss
 
 
 def blur_stepfun(x: torch.Tensor, y: torch.Tensor, r: float) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,7 +8,10 @@ the geo entries with the flexible data manager (:876-882) -- the
 ``neus-facto`` family -- ``neus-facto`` (:216-240),
 ``neus-facto-tpu`` (:270-312), ``neus-facto-tpu-p4`` (:314-359),
 ``neus-facto-tpu-p8`` (:361-393), ``neus-facto-bigmlp`` (:396-412) and
-``neus-facto-angelo`` (:413-458) -- ``neuralangelo`` (:461-501), and the
+``neus-facto-angelo`` (:413-458) -- ``neuralangelo`` (:461-501), the
+BakedSDF family -- ``bakedsdf`` (:503-542), ``bakedsdf-mlp`` (:544-584) and
+``bakedangelo`` (:586-636), all three on the SDFStudio parser as JAX
+registers them (``mipnerf360-data`` on the command line) -- and the
 occupancy-grid family -- ``neus-acc`` (:642-652), ``neusW`` (:788-805, with
 the heritage parser) and ``dto`` (:808-823) -- each a ``Config``
 (``configs/base.py``) with JAX's model, optimizer groups, trainer
@@ -33,6 +36,8 @@ from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGrou
 from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
 from sdfstudio_tpu_torch.engine.trainer import TrainerConfig
 from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig
+from sdfstudio_tpu_torch.models.bakedangelo import BakedAngeloModel, BakedAngeloModelConfig
+from sdfstudio_tpu_torch.models.bakedsdf import BakedSDFFactoModel, BakedSDFModelConfig
 from sdfstudio_tpu_torch.models.base_surface_model import SurfaceModelConfig
 from sdfstudio_tpu_torch.models.dto import DtoOModel, DtoOModelConfig
 from sdfstudio_tpu_torch.models.neuralangelo import NeuralangeloModel, NeuralangeloModelConfig
@@ -61,6 +66,9 @@ descriptions = {
     "neus-facto-bigmlp": "NeuS-facto with a big MLP (heritage-scale).",
     "neus-facto-angelo": "Neuralangelo hash field with neus-facto sampling.",
     "neuralangelo": "Implementation of Neuralangelo.",
+    "bakedsdf": "BakedSDF with multi-res hash grids.",
+    "bakedsdf-mlp": "BakedSDF with large MLPs.",
+    "bakedangelo": "Neuralangelo with BakedSDF.",
     "neus-acc": "NeuS with empty-space skipping.",
     "neusW": "Neural reconstruction in the wild (heritage).",
     "dto": "Occupancy-grid-guided NeuS with density-field background.",
@@ -164,6 +172,32 @@ _MONO_PARSER = SDFStudioDataParserConfig(include_mono_prior=True)
 _GEO_PARSER = SDFStudioDataParserConfig(load_pairs=True)
 # steps_per_call=25 is the TPU's K-step scan (methods.py:309-311): taken, no effect here
 _PRESET_TRAINER = dict(max_num_iterations=20001, steps_per_eval_image=5000, steps_per_call=25)
+
+
+def _baked_field(**kw) -> SDFFieldConfig:
+    """``bakedsdf``'s and ``bakedsdf-mlp``'s SDF field (methods.py:510-527,
+    :551-568): the ref-NeRF colour head on a 2-layer 256-wide colour net,
+    PE of degree 8 off-axis."""
+    return SDFFieldConfig(num_layers_color=2, hidden_dim_color=256, bias=0.05, beta_init=0.1,
+                          inside_outside=False, use_appearance_embedding=False,
+                          position_encoding_max_degree=8, use_diffuse_color=True,
+                          use_specular_tint=True, use_reflections=True, use_n_dot_v=True,
+                          off_axis=True, **kw)
+
+
+def _baked_optimizers(field_lr: float) -> Dict[str, OptimizerGroupConfig]:
+    """methods.py:534-538, :576-580: JAX's ``field_background`` group holds
+    only a placeholder there (no background) and has no counterpart."""
+    return {
+        "proposal_networks": OptimizerGroupConfig(_adam(1e-2), _multistep(250000)),
+        "field": OptimizerGroupConfig(_adam(field_lr), _neus_sched(500, 0.05, 250000)),
+    }
+
+
+_BAKED_MODEL = dict(near_plane=0.2, far_plane=1000.0, overwrite_near_far_plane=True,
+                    eikonal_loss_mult=0.01, background_model="none", use_anneal_beta=True,
+                    eval_num_rays_per_chunk=1024)
+_BAKED_TRAINER = dict(max_num_iterations=250001, steps_per_eval_image=5000)
 
 method_configs: Dict[str, Config] = {
     "neus": _surface_cfg("neus", NeuSModel, NeuSModelConfig(eval_num_rays_per_chunk=1024),
@@ -315,6 +349,69 @@ method_configs: Dict[str, Config] = {
         },
         dict(max_num_iterations=1000001, steps_per_eval_image=5000),
         rays_per_batch=2048,
+    ),
+    # methods.py:503-542: a 2-layer geometry MLP on the hash grid (L16 x F2 at 2^19), off-axis PE
+    "bakedsdf": _surface_cfg(
+        "bakedsdf", BakedSDFFactoModel,
+        BakedSDFModelConfig(sdf_field=_baked_field(use_grid_feature=True, num_layers=2,
+                                                   hidden_dim=256),
+                            proposal_weights_anneal_max_num_iters=1000, **_BAKED_MODEL),
+        _baked_optimizers(1e-2), _BAKED_TRAINER, rays_per_batch=8192),
+    # methods.py:544-584: no grid feature, an 8 x 1024 geometry MLP, the spatially varying eikonal
+    "bakedsdf-mlp": _surface_cfg(
+        "bakedsdf-mlp", BakedSDFFactoModel,
+        BakedSDFModelConfig(sdf_field=_baked_field(use_grid_feature=False, num_layers=8,
+                                                   hidden_dim=1024),
+                            proposal_weights_anneal_max_num_iters=20000,
+                            use_spatial_varying_eikonal_loss=True, **_BAKED_MODEL),
+        _baked_optimizers(2e-3), _BAKED_TRAINER, rays_per_batch=4096),
+    # methods.py:586-636: neus-facto-angelo's field (F = 8 over 2^22 rows a level, numerical
+    # gradients, the appearance embedding) with an inward init at bias 1.5, BakedSDF's sampler
+    # and annealed beta, Neuralangelo's schedules, the "grid" background, AdamW
+    "bakedangelo": _surface_cfg(
+        "bakedangelo", BakedAngeloModel,
+        BakedAngeloModelConfig(
+            near_plane=0.01,
+            far_plane=1000.0,
+            overwrite_near_far_plane=True,
+            sdf_field=SDFFieldConfig(
+                use_grid_feature=True,
+                num_layers=1,
+                num_layers_color=4,
+                hidden_dim=256,
+                hidden_dim_color=256,
+                bias=1.5,
+                beta_init=0.1,
+                inside_outside=True,
+                use_appearance_embedding=True,
+                use_numerical_gradients=True,
+                base_res=64,
+                max_res=4096,
+                log2_hashmap_size=22,
+                hash_features_per_level=8,
+                hash_smoothstep=False,
+                use_position_encoding=False,
+            ),
+            eikonal_loss_mult=0.01,
+            background_model="grid",
+            proposal_weights_anneal_max_num_iters=10000,
+            use_anneal_beta=True,
+            eval_num_rays_per_chunk=1024,
+            use_spatial_varying_eikonal_loss=False,
+            steps_per_level=10000,
+            curvature_loss_warmup_steps=20000,
+            beta_anneal_end=0.0002,
+            beta_anneal_max_num_iters=1000000,
+        ),
+        {
+            "proposal_networks": OptimizerGroupConfig(_adam(1e-2), _multistep(1000000)),
+            "field": OptimizerGroupConfig(_adam(1e-3, kind="adamw", weight_decay=1e-2),
+                                          _multistep_warmup(5000, [600000, 800000])),
+            "field_background": OptimizerGroupConfig(_adam(1e-3, kind="adamw"),
+                                                     _multistep_warmup(5000, [300000, 400000])),
+        },
+        dict(max_num_iterations=1000001, steps_per_eval_image=5000),
+        rays_per_batch=8192,
     ),
     # methods.py:642-652: the 128^3 alpha-pruned grid, 128 masked samples, the NeRF background
     "neus-acc": _surface_cfg(

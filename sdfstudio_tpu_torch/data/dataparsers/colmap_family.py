@@ -1,7 +1,16 @@
 """COLMAP-based dataparsers (counterpart of
 ``sdfstudio_tpu/data/dataparsers/colmap_family.py``): the cameras of a
-COLMAP sparse model (``load_colmap_cameras``, :28-89) and the ``heritage``
+COLMAP sparse model (``load_colmap_cameras``, :28-89), the ``mipnerf360``
+parser of the BakedSDF family (``Mipnerf360``, :92-142) and the ``heritage``
 parser of ``neusW`` (``Heritage``, :157-237).
+
+The mipnerf360 parser orients the poses "up" and centres them
+(``cameras/camera_utils.py::auto_orient_and_center_poses``), scales them by
+the largest absolute camera translation, and splits train and eval by
+``linspace``: ``ceil(0.9 n)`` train images evenly spread, the rest eval
+(every image when none is left). Its scene box is ``[-1, 1]^3 *
+scene_scale`` with near 0.05 and far 1000 under the ``near_far`` collider;
+its ``metadata`` holds the transform and the scale.
 
 The heritage parser keeps the sparse points seen by at least
 ``min_track_length`` images, normalises the scene by their 2nd / 98th
@@ -10,8 +19,9 @@ voxel_margin``), marks the points' cells of a ``coarse_grid_resolution``^3
 grid over ``[-1, 1]^3`` and dilates it by one cell along each axis (with
 ``np.roll``'s wrap, as JAX), and reads ``masks/<stem>.png`` where every
 image has one. Train is every image; eval is the first 10. The
-``mipnerf360`` and ``phototourism`` parsers come with the density methods
-(ROADMAP queue 1 item 12).
+``phototourism`` parser comes with the density methods (ROADMAP queue 1
+item 12). Both ported parsers raise on distorted cameras and on images of
+different sizes.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
+from sdfstudio_tpu_torch.cameras.camera_utils import auto_orient_and_center_poses
 from sdfstudio_tpu_torch.cameras.cameras import Cameras
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import DataparserOutputs
@@ -75,6 +86,52 @@ def load_colmap_cameras(data: Path, images_path: str = "images"):
 
 
 @dataclasses.dataclass(frozen=True)
+class Mipnerf360DataParserConfig:
+    """JAX's ``Mipnerf360DataParserConfig`` (colmap_family.py:92-101).
+    ``downscale_factor`` is read by no code, in JAX either."""
+
+    data: Path = Path("data/mipnerf360/garden")
+    downscale_factor: int = 1
+    scene_scale: float = 1.0
+    orientation_method: str = "up"
+    center_poses: bool = True
+    auto_scale_poses: bool = True
+    train_split_percentage: float = 0.9
+    images_path: str = "images"
+
+
+def _same_size_undistorted(distorts: np.ndarray, w: np.ndarray, h: np.ndarray) -> None:
+    if np.any(distorts != 0.0):
+        raise NotImplementedError("camera distortion is not ported (ROADMAP queue 1 item 12)")
+    if len(set(w.tolist())) != 1 or len(set(h.tolist())) != 1:
+        raise NotImplementedError("images of different sizes are not ported (ROADMAP queue 1 item 12)")
+
+
+def parse_mipnerf360(config: Mipnerf360DataParserConfig, split: str = "train") -> DataparserOutputs:
+    """The split's images of a mip-NeRF 360 capture (colmap_family.py:107-142)."""
+    cfg = config
+    files, poses, fx, fy, cx, cy, w, h, distorts, _ = load_colmap_cameras(Path(cfg.data),
+                                                                           cfg.images_path)
+    _same_size_undistorted(distorts, w, h)
+    oriented, transform = auto_orient_and_center_poses(poses, method=cfg.orientation_method,
+                                                       center_poses=cfg.center_poses)
+    scale = 1.0
+    if cfg.auto_scale_poses:
+        scale /= float(np.max(np.abs(oriented[:, :3, 3])))
+    oriented[:, :3, 3] *= scale
+    n = len(files)
+    i_train = np.linspace(0, n - 1, int(np.ceil(n * cfg.train_split_percentage)), dtype=int)
+    i_eval = np.setdiff1d(np.arange(n), i_train)
+    sel = i_train if split == "train" else (i_eval if len(i_eval) else np.arange(n))
+    cameras = Cameras.create(camera_to_worlds=oriented[sel, :3, :4], fx=fx[sel], fy=fy[sel],
+                             cx=cx[sel], cy=cy[sel], width=int(w[0]), height=int(h[0]), device="cpu")
+    scene_box = SceneBox(aabb=np.asarray([[-1, -1, -1], [1, 1, 1]], np.float32) * cfg.scene_scale,
+                         near=0.05, far=1000.0, collider_type="near_far")
+    return DataparserOutputs([files[i] for i in sel], cameras, scene_box,
+                             metadata={"transform": transform, "scale": scale})
+
+
+@dataclasses.dataclass(frozen=True)
 class HeritageDataParserConfig:
     """JAX's ``HeritageDataParserConfig`` (colmap_family.py:147-154)."""
 
@@ -116,10 +173,7 @@ def parse_heritage(config: HeritageDataParserConfig, split: str = "train") -> Da
     files, poses, fx, fy, cx, cy, w, h, distorts, pts = load_colmap_cameras(data, cfg.images_path)
     if pts is None:
         raise ValueError(f"the heritage parser needs points3D in the sparse model under {data}")
-    if np.any(distorts != 0.0):
-        raise NotImplementedError("camera distortion is not ported (ROADMAP queue 1 item 12)")
-    if len(set(w.tolist())) != 1 or len(set(h.tolist())) != 1:
-        raise NotImplementedError("images of different sizes are not ported (ROADMAP queue 1 item 12)")
+    _same_size_undistorted(distorts, w, h)
     xyz = np.stack([p.xyz for p in pts.values()])
     track_len = np.asarray([len(p.image_ids) for p in pts.values()])
     xyz, center, radius = heritage_normalization(xyz, track_len, cfg.min_track_length,

@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -53,6 +53,7 @@ class DataparserOutputs:
     fg_masks: Optional[List[np.ndarray]] = None  # [H, W, 1] in [0, 1]
     sparse_sfm_points: Optional[List[np.ndarray]] = None  # [P_i, 3] a frame
     pairs_srcs: Optional[np.ndarray] = None  # [N, 1 + sources]: the patch warp's views
+    metadata: Optional[Dict] = None  # the mipnerf360 parser's {transform, scale}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,7 +18,8 @@ from typing import Optional, Tuple
 from sdfstudio_tpu_torch.configs.base import Config
 from sdfstudio_tpu_torch.configs.methods import build_model
 from sdfstudio_tpu_torch.data.datamanager import FlexibleDataManager, VanillaDataManager
-from sdfstudio_tpu_torch.data.dataparsers.colmap_family import HeritageDataParserConfig, parse_heritage
+from sdfstudio_tpu_torch.data.dataparsers.colmap_family import (
+    HeritageDataParserConfig, Mipnerf360DataParserConfig, parse_heritage, parse_mipnerf360)
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig, parse_config
 from sdfstudio_tpu_torch.engine.trainer import Trainer
 from sdfstudio_tpu_torch.utils.device import resolve_device
@@ -26,7 +27,8 @@ from sdfstudio_tpu_torch.utils.writer import Writer
 
 MODEL_SEED = 0
 # each ported parser's config type and its parse function (split -> DataparserOutputs)
-PARSERS = {SDFStudioDataParserConfig: parse_config, HeritageDataParserConfig: parse_heritage}
+PARSERS = {SDFStudioDataParserConfig: parse_config, HeritageDataParserConfig: parse_heritage,
+           Mipnerf360DataParserConfig: parse_mipnerf360}
 
 
 def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str] = None,

@@ -5,9 +5,11 @@ Ported: the hash-grid or permutohedral grid feature with its analytic
 jacobian (or, with ``use_grid_feature=False``, JAX's zeros in its place), the
 weight-normed geometry MLP with the ``"vjp"`` gradient
 (``geonetwork_with_gradient``, sdf_field.py:323-368), the color net through
-the fused kernel with the appearance embedding's rows (``colors``,
-sdf_field.py:387-473), ``get_outputs``
-(sdf_field.py:642-765) with NeuS alpha and UniSurf occupancy, and
+the fused kernel with the appearance embedding's rows and ref-NeRF's
+options -- the reflected view direction, n.d, the diffuse colour and the
+specular tint heads (``colors``, sdf_field.py:387-473) --, ``get_outputs``
+(sdf_field.py:642-765) with NeuS alpha, UniSurf occupancy and a scheduled
+Laplace beta, and
 ``gradient`` (sdf_field.py:578-648), analytic or numerical (Neuralangelo's
 six taps, with their SDF values for the curvature loss), for the
 configuration options the registered methods use, from ``neus-facto``'s
@@ -33,9 +35,11 @@ from sdfstudio_tpu_torch.ops.contraction import contract
 from sdfstudio_tpu_torch.ops.encodings import HashEncoding, NeRFEncoding
 from sdfstudio_tpu_torch.ops.fused_mlp import fused_mlp
 from sdfstudio_tpu_torch.ops.mlp import (
+    DenseLayer,
     WNLinear,
     geometric_init,
     kaiming_uniform,
+    lecun_normal_,
     softplus_beta100,
 )
 from sdfstudio_tpu_torch.ops.permuto import PermutoEncoding
@@ -50,9 +54,10 @@ class SDFFieldConfig:
     hash-grid (``encoding_type="hash"``, f32 tables) or permutohedral
     (``"permuto"``) grid feature, on or off (``use_grid_feature``),
     positional encoding (or zeros in its place), geometric init, weight
-    norm, the appearance embedding on or off, and the analytic ``"vjp"``
-    gradient or the numerical one; other encodings and ``"bfloat16"``
-    tables raise."""
+    norm, the appearance embedding on or off, the ref-NeRF colour options
+    (off-axis positional encoding, reflections, n.d, diffuse colour,
+    specular tint), and the analytic ``"vjp"`` gradient or the numerical
+    one; other encodings and ``"bfloat16"`` tables raise."""
 
     num_layers: int = 8
     hidden_dim: int = 256
@@ -69,7 +74,15 @@ class SDFFieldConfig:
     field has no grid table (Flax never creates the unused encoding's)."""
     beta_init: float = 0.1
     position_encoding_max_degree: int = 6
+    use_diffuse_color: bool = False
+    """sdf_field.py:87: the colour net takes [dir_enc, geo_feat, emb] and its
+    sigmoid is the specular part, added to ``sigmoid(diffuse_color_pred(geo_feat)
+    - ln 3)`` (:209-226, :462-471)."""
+    use_specular_tint: bool = False  # :88, the specular part times sigmoid(specular_tint_pred)
+    use_reflections: bool = False  # :89, the direction encoding takes 2 (n.(-d)) n + d
+    use_n_dot_v: bool = False  # :90, n.d is the colour net's last input
     rgb_padding: float = 0.001
+    off_axis: bool = False  # :92, the positional encoding's off-axis projection (21 x F x 2)
     num_levels: int = 16
     max_res: int = 2048
     base_res: int = 16
@@ -123,7 +136,8 @@ class SDFField(nn.Module):
         self.encode_range = f"sst/{cfg.encoding_type}_encode"  # the profiler range of the encode
         self.grid_dim = cfg.num_levels * cfg.hash_features_per_level
         self.position_encoding = NeRFEncoding(
-            3, cfg.position_encoding_max_degree, 0.0, cfg.position_encoding_max_degree - 1, False
+            3, cfg.position_encoding_max_degree, 0.0, cfg.position_encoding_max_degree - 1, False,
+            off_axis=cfg.off_axis,
         )
         self.direction_encoding = NeRFEncoding(3, 4, 0.0, 3.0, True)
 
@@ -142,14 +156,19 @@ class SDFField(nn.Module):
 
         # color MLP (sdf_field.py:209-240)
         color_in = (
-            3 + self.direction_encoding.out_dim + 3 + cfg.geo_feat_dim
-            + cfg.appearance_embedding_dim
+            self.direction_encoding.out_dim + cfg.geo_feat_dim + cfg.appearance_embedding_dim
+            + (0 if cfg.use_diffuse_color else 6) + (1 if cfg.use_n_dot_v else 0)
         )
         cdims = [color_in] + [cfg.hidden_dim_color] * cfg.num_layers_color + [3]
         self.cdims = cdims
         for l in range(len(cdims) - 1):
             self.add_module(f"clin{l}", WNLinear(cdims[l], cdims[l + 1]))
         self.n_clayers = len(cdims) - 1
+        # the ref-NeRF heads on the geometry feature, plain dense layers (sdf_field.py:242-245)
+        self.diffuse_color_pred = (DenseLayer(cfg.geo_feat_dim, 3) if cfg.use_diffuse_color
+                                   else None)
+        self.specular_tint_pred = (DenseLayer(cfg.geo_feat_dim, 3) if cfg.use_specular_tint
+                                   else None)
 
         self.embedding_appearance = nn.Module()
         self.embedding_appearance.embedding = nn.Parameter(
@@ -179,6 +198,10 @@ class SDFField(nn.Module):
         for l in range(self.n_clayers):
             shape = (self.cdims[l], self.cdims[l + 1])
             self.clayer(l).set_init(kaiming_uniform(shape, generator), torch.zeros(shape[1]))
+        for head in (self.diffuse_color_pred, self.specular_tint_pred):
+            if head is not None:  # flax Dense: lecun_normal kernel, zero bias
+                lecun_normal_(head.kernel, generator)
+                head.bias.zero_()
         emb = self.embedding_appearance.embedding
         emb.copy_(torch.randn(emb.shape, generator=generator) / math.sqrt(emb.shape[-1]))
         self.laplace_beta.fill_(cfg.beta_init)
@@ -341,17 +364,43 @@ class SDFField(nn.Module):
     ) -> torch.Tensor:
         """View-dependent colour (sdf_field.py:387-473), the whole chain in
         the fused kernel, with the samples' appearance rows (``appearance``)
-        as its last input. In training the kernel's input gradient reaches
-        ``gradients``, the geometry features and the embedding's rows."""
+        after the geometry feature. In training the kernel's input gradient
+        reaches ``gradients``, the geometry features and the embedding's
+        rows. The ref-NeRF options: ``use_reflections`` encodes the view
+        direction reflected about the normal, ``2 (n.(-d)) n + d``;
+        ``use_diffuse_color`` drops the points and gradients from the input
+        and adds ``sigmoid(diffuse - ln 3)`` to the specular part, the
+        chain's sigmoid times ``sigmoid(tint)`` (``use_specular_tint``) or
+        0.5, clipped to [0, 1]; ``use_n_dot_v`` appends n.d. The two heads
+        are plain dense layers on the geometry feature, outside the kernel
+        as in JAX. The padding comes last (:473)."""
         cfg = self.config
-        d = self.direction_encoding(directions)
+        normals = safe_normalize(gradients) if cfg.use_reflections or cfg.use_n_dot_v else None
+        if cfg.use_reflections:
+            d = self.direction_encoding(
+                2.0 * torch.sum(normals * -directions, dim=-1, keepdim=True) * normals + directions)
+        else:
+            d = self.direction_encoding(directions)
         emb = self.appearance(camera_indices, directions.shape[0], train, directions)
-        h = torch.cat([points, d, gradients, geo_features, emb], dim=-1)
+        h = [d, geo_features, emb] if cfg.use_diffuse_color else [points, d, gradients,
+                                                                   geo_features, emb]
+        if cfg.use_n_dot_v:
+            h.append(torch.sum(normals * directions, dim=-1, keepdim=True))
+        h = torch.cat(h, dim=-1)
         kbs = [self.clayer(l).effective() for l in range(self.n_clayers)]
         with record_function("sst/color_mlp"):
             h = fused_mlp(h.contiguous(), [k.contiguous() for k, _ in kbs], [b for _, b in kbs],
                           activation="relu")
         rgb = torch.sigmoid(h)
+        if cfg.use_diffuse_color:
+            head = self.diffuse_color_pred
+            diffuse = torch.sigmoid(geo_features @ head.kernel + head.bias - math.log(3.0))
+            if cfg.use_specular_tint:
+                tint = self.specular_tint_pred
+                rgb = torch.sigmoid(geo_features @ tint.kernel + tint.bias) * rgb
+            else:
+                rgb = 0.5 * rgb
+            rgb = torch.clamp(rgb + diffuse, 0.0, 1.0)
         return rgb * (1 + 2 * cfg.rgb_padding) - cfg.rgb_padding
 
     def get_inv_s(self) -> torch.Tensor:
@@ -387,13 +436,16 @@ class SDFField(nn.Module):
         hash_mask: Optional[torch.Tensor] = None,
         numerical_delta: Optional[float] = None,
         inv_s_override: Optional[float] = None,
+        beta_override: Optional[float] = None,
     ) -> Dict[str, torch.Tensor]:
         """Field forward over ray samples (sdf_field.py:642-765), with the
         step's ``hash_mask`` and, in the numerical mode, its
         ``numerical_delta`` (default 1e-4, :675-677) and the taps' SDF as
         ``sampled_sdf`` [R, S, 6]; ``inv_s_override`` (the annealed beta's
         1 / beta) takes the learned deviation's place in the NeuS alpha
-        (:747-750). Each sample carries its ray's camera index (camera 0
+        (:747-750), and ``beta_override`` (BakedSDF's annealed beta) the
+        learned ``laplace_beta``'s place in the Laplace density (:736-738).
+        Each sample carries its ray's camera index (camera 0
         without one) to the appearance embedding."""
         R, S = ray_samples.num_rays, ray_samples.num_samples
         inputs = ray_samples.get_start_positions().reshape(-1, 3)
@@ -413,7 +465,7 @@ class SDFField(nn.Module):
             h, gradients = self.geonetwork_with_gradient(inputs, train=train, hash_mask=hash_mask)
         sdf, geo_feat = h[..., :1], h[..., 1:]
         rgb = self.colors(inputs, directions, gradients, geo_feat, camera_indices, train)
-        beta = self.get_beta()
+        beta = self.get_beta() if beta_override is None else beta_override
         outputs = {
             "rgb": rgb.reshape(R, S, 3),
             "density": density_ops.laplace_density(sdf[..., 0], beta).reshape(R, S),

@@ -60,23 +60,75 @@ class NeuSFactoModelConfig(NeuSModelConfig):
     steps_per_level: int = 10_000
 
 
+def proposal_networks(config, scene_box) -> nn.ModuleList:
+    """The proposal fields of ``proposal_net_args_list`` with the scene
+    contraction, each by its ``field_type`` (hash unless the args say
+    ``"mlp"``; neus_facto.py:62-75, bakedsdf.py:54-66);
+    ``use_same_proposal_network`` raises."""
+    if config.use_same_proposal_network:
+        raise NotImplementedError("use_same_proposal_network is not ported yet")
+    args = config.proposal_net_args_list
+    return nn.ModuleList(
+        HashMLPDensityField(aabb=scene_box.aabb, spatial_distortion=config.scene_contraction_norm,
+                            **args[min(i, len(args) - 1)])
+        for i in range(config.num_proposal_iterations))
+
+
+def annealed_beta(b0: float, b1: float, max_num_iters: int, s: np.float32) -> np.float32:
+    """BakedSDF's beta schedule (neus_facto.py:185-190, bakedsdf.py:95-102)
+    in float32 at step ``s``: ``b0 / (1 + (b0 - b1) / b1 t^0.8)``, ``t =
+    min(s / M, 1)``."""
+    f32 = np.float32
+    t = min(max(s / f32(max_num_iters), f32(0.0)), f32(1.0))
+    # (b0 - b1) / b1 is a Python constant in JAX too: rounded to f32 once
+    return f32(b0) / (f32(1.0) + f32((b0 - b1) / b1) * (t ** f32(0.8)))
+
+
+def angelo_grid_schedules(cfg, fcfg, s: np.float32, device) -> Dict:
+    """The Neuralangelo schedules of ``neus-facto-angelo`` and
+    ``bakedangelo`` (neus_facto.py:206-276, bakedangelo.py:30-65) in
+    float32 at step ``s``, each where its flag is on: ``numerical_delta =
+    4 max(1 / (4 max_res), 1 / (base_res growth^(s / spl)))``; the
+    ``hash_mask`` [L*F] of the first ``max(floor(s / spl) + 1,
+    level_init)`` levels; and the curvature factor, ``s / warmup`` during
+    the warmup, then ``max(1 / (10 max_res), 1 / (base_res growth^((s -
+    warmup) / spl))) * base_res`` (1 when off). These are not
+    ``models/neuralangelo.py``'s formulas: the delta floors at ``1 / (4
+    max_res)`` and is scaled by 4 for the field's ``(x + 2) / 4`` input,
+    the curvature factor's floor is ``1 / (10 max_res)``."""
+    f32 = np.float32
+    sched = {}
+    growth = (math.exp((math.log(fcfg.max_res) - math.log(fcfg.base_res)) / (fcfg.num_levels - 1))
+              if fcfg.num_levels > 1 else 1.0)
+    g, spl = f32(growth), f32(cfg.steps_per_level)
+    with np.errstate(over="ignore"):  # far past the last level growth^k is inf, as in JAX
+        if cfg.enable_numerical_gradients_schedule:
+            delta = f32(1.0) / (f32(fcfg.base_res) * g ** (s / spl))
+            sched["numerical_delta"] = float(max(f32(1.0 / (4.0 * fcfg.max_res)), delta) * f32(4.0))
+        if cfg.enable_progressive_hash_encoding:
+            level = max(int(np.floor(s / spl)) + 1, cfg.level_init)
+            F = fcfg.hash_features_per_level
+            feat_level = torch.arange(fcfg.num_levels * F) // F
+            sched["hash_mask"] = (feat_level < level).to(torch.float32).to(device)
+        if cfg.enable_curvature_loss_schedule:
+            w = f32(cfg.curvature_loss_warmup_steps)
+            if s < w:
+                sched["curvature_factor"] = float(s / w)
+            else:
+                decay = f32(1.0) / (f32(fcfg.base_res) * g ** ((s - w) / spl))
+                decay = max(f32(1.0 / (fcfg.max_res * 10.0)), decay)
+                sched["curvature_factor"] = float(decay / f32(1.0 / fcfg.base_res))
+        else:
+            sched["curvature_factor"] = 1.0
+    return sched
+
+
 class NeuSFactoModel(NeuSModel):
     """neus_facto.py:58-235."""
 
     def __init__(self, config: NeuSFactoModelConfig, scene_box, num_train_data: int):
         super().__init__(config, scene_box, num_train_data)
-        if config.use_same_proposal_network:
-            raise NotImplementedError("use_same_proposal_network is not ported yet")
-        args = config.proposal_net_args_list
-        # each proposal field by its field_type (hash unless the args say "mlp")
-        self.proposal_networks = nn.ModuleList(
-            HashMLPDensityField(
-                aabb=scene_box.aabb,
-                spatial_distortion=config.scene_contraction_norm,
-                **args[min(i, len(args) - 1)],
-            )
-            for i in range(config.num_proposal_iterations)
-        )
+        self.proposal_networks = proposal_networks(config, scene_box)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         super().reset_parameters(generator)
@@ -103,51 +155,20 @@ class NeuSFactoModel(NeuSModel):
                   float(cfg.proposal_update_every))
         period = math.floor(thr) + 1.0
         sched["train_proposal"] = step < 10.0 or math.fmod(math.floor(step), period) < 0.5
-        with np.errstate(over="ignore"):  # far past the last level growth^k is inf, as in JAX
-            sched.update(self._angelo_schedules(step))
+        sched.update(self._angelo_schedules(step))
         return sched
 
     def _angelo_schedules(self, step: float) -> Dict:
         """neus_facto.py:125-167 in float32, as JAX evaluates them at a
-        traced step: ``inv_s_override = 1 / beta`` with ``beta = b0 / (1 +
-        (b0 - b1) / b1 t^0.8)``, ``t = min(step / M, 1)``; ``numerical_delta
-        = 4 max(1 / (4 max_res), 1 / (base_res growth^(step / spl)))``; the
-        ``hash_mask`` [L*F] of the first ``max(floor(step / spl) + 1,
-        level_init)`` levels; and the curvature factor, ``step / warmup``
-        during the warmup, then ``max(1 / (10 max_res), 1 / (base_res
-        growth^((step - warmup) / spl))) * base_res`` (1 when off)."""
-        cfg, fcfg = self.config, self.field.config
-        f32 = np.float32
-        s = f32(step)
-        sched = {}
+        traced step: ``inv_s_override = 1 / beta`` (``annealed_beta``) and
+        the grid's schedules (``angelo_grid_schedules``)."""
+        cfg = self.config
+        s = np.float32(step)
+        sched = angelo_grid_schedules(cfg, self.field.config, s, self.field.laplace_beta.device)
         if cfg.use_anneal_beta:
-            b0, b1 = cfg.beta_anneal_init, cfg.beta_anneal_end
-            t = min(max(s / f32(cfg.beta_anneal_max_num_iters), f32(0.0)), f32(1.0))
-            # (b0 - b1) / b1 is a Python constant in JAX too: rounded to f32 once
-            beta = f32(b0) / (f32(1.0) + f32((b0 - b1) / b1) * (t ** f32(0.8)))
-            sched["inv_s_override"] = float(f32(1.0) / beta)
-        growth = (math.exp((math.log(fcfg.max_res) - math.log(fcfg.base_res)) / (fcfg.num_levels - 1))
-                  if fcfg.num_levels > 1 else 1.0)
-        g, spl = f32(growth), f32(cfg.steps_per_level)
-        if cfg.enable_numerical_gradients_schedule:
-            delta = f32(1.0) / (f32(fcfg.base_res) * g ** (s / spl))
-            sched["numerical_delta"] = float(max(f32(1.0 / (4.0 * fcfg.max_res)), delta) * f32(4.0))
-        if cfg.enable_progressive_hash_encoding:
-            level = max(int(np.floor(s / spl)) + 1, cfg.level_init)
-            F = fcfg.hash_features_per_level
-            feat_level = torch.arange(fcfg.num_levels * F) // F
-            sched["hash_mask"] = (feat_level < level).to(torch.float32).to(
-                self.field.laplace_beta.device)
-        if cfg.enable_curvature_loss_schedule:
-            w = f32(cfg.curvature_loss_warmup_steps)
-            if s < w:
-                sched["curvature_factor"] = float(s / w)
-            else:
-                decay = f32(1.0) / (f32(fcfg.base_res) * g ** ((s - w) / spl))
-                decay = max(f32(1.0 / (fcfg.max_res * 10.0)), decay)
-                sched["curvature_factor"] = float(decay / f32(1.0 / fcfg.base_res))
-        else:
-            sched["curvature_factor"] = 1.0
+            beta = annealed_beta(cfg.beta_anneal_init, cfg.beta_anneal_end,
+                                 cfg.beta_anneal_max_num_iters, s)
+            sched["inv_s_override"] = float(np.float32(1.0) / beta)
         return sched
 
     def sample_and_forward_field(

@@ -1,6 +1,8 @@
 """Input encodings (counterpart of ``sdfstudio_tpu/ops/encodings.py``).
 
-The sinusoidal ``NeRFEncoding`` (encodings.py:61-131), the level-resolution
+The sinusoidal ``NeRFEncoding`` (encodings.py:61-131) with mip-NeRF 360's
+off-axis projection onto the icosahedron's 21 directions (``OFF_AXIS_P``,
+encodings.py:30-56), the level-resolution
 and hash-prime constants that ``PermutoEncoding`` shares with the hash grid
 (encodings.py:191-202), the spherical-harmonics ``SHEncoding``
 (encodings.py:172-184), and the multi-resolution ``HashEncoding``
@@ -9,6 +11,7 @@ and hash-prime constants that ``PermutoEncoding`` shares with the hash grid
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,6 +20,35 @@ from torch import nn
 from sdfstudio_tpu_torch.core.math import components_from_spherical_harmonics
 
 HASH_PRIMES = (1, 2654435761, 805459861)  # encodings.py:191 (uint32)
+
+# the icosahedron projection of the off-axis encoding, stored [3, 21] as JAX
+# stores it (encodings.py:30-56)
+OFF_AXIS_P = np.array(
+    [
+        [0.8506508, 0, 0.5257311],
+        [0.809017, 0.5, 0.309017],
+        [0.5257311, 0.8506508, 0],
+        [1, 0, 0],
+        [0.809017, 0.5, -0.309017],
+        [0.8506508, 0, -0.5257311],
+        [0.309017, 0.809017, -0.5],
+        [0, 0.5257311, -0.8506508],
+        [0.5, 0.309017, -0.809017],
+        [0, 1, 0],
+        [-0.5257311, 0.8506508, 0],
+        [-0.309017, 0.809017, -0.5],
+        [0, 0.5257311, 0.8506508],
+        [-0.309017, 0.809017, 0.5],
+        [0.309017, 0.809017, 0.5],
+        [0.5, 0.309017, 0.809017],
+        [0.5, -0.309017, 0.809017],
+        [0, 0, 1],
+        [-0.5, 0.309017, 0.809017],
+        [-0.809017, 0.5, 0.309017],
+        [-0.809017, 0.5, -0.309017],
+    ],
+    dtype=np.float32,
+).T
 
 
 def level_resolutions(num_levels: int, min_res: int, max_res: int) -> np.ndarray:
@@ -38,10 +70,13 @@ def frequencies(num_frequencies: int, min_freq_exp: float, max_freq_exp: float) 
                         dtype=torch.float32)
 
 
-def nerf_encoding(x: torch.Tensor, freqs: torch.Tensor, include_input: bool = False) -> torch.Tensor:
-    """Sinusoidal positional encoding (encodings.py:61-96, no IPE, no off-axis):
-    [sin(x * 2^f), sin(x * 2^f + pi/2)] with the frequency axis minor."""
-    scaled = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)  # [..., D*F]
+def nerf_encoding(x: torch.Tensor, freqs: torch.Tensor, include_input: bool = False,
+                  proj: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sinusoidal positional encoding (encodings.py:61-96, no IPE):
+    [sin(p * 2^f), sin(p * 2^f + pi/2)] with the frequency axis minor, where
+    p is ``x`` or, off-axis, ``x @ proj`` ([3, 21])."""
+    p = x if proj is None else x @ proj
+    scaled = (p[..., None] * freqs).reshape(*p.shape[:-1], -1)  # [..., D*F]
     encoded = torch.sin(torch.cat([scaled, scaled + math.pi / 2.0], dim=-1))
     if include_input:
         encoded = torch.cat([encoded, x], dim=-1)
@@ -58,9 +93,11 @@ class NeRFEncoding(nn.Module):
         min_freq_exp: float = 0.0,
         max_freq_exp: float = 5.0,
         include_input: bool = False,
+        off_axis: bool = False,
     ):
         super().__init__()
         self.in_dim = in_dim
+        self.off_axis = off_axis
         self.num_frequencies = num_frequencies
         self.min_freq_exp = min_freq_exp
         self.max_freq_exp = max_freq_exp
@@ -68,13 +105,18 @@ class NeRFEncoding(nn.Module):
         self.register_buffer(
             "freqs", frequencies(num_frequencies, min_freq_exp, max_freq_exp), persistent=False
         )
+        self.register_buffer("proj", torch.from_numpy(OFF_AXIS_P.copy()) if off_axis else None,
+                             persistent=False)
 
     @property
     def out_dim(self) -> int:
-        return self.in_dim * self.num_frequencies * 2 + (self.in_dim if self.include_input else 0)
+        """``nerf_encoding_dim`` (encodings.py:99-103): 21 projected inputs off-axis."""
+        d = OFF_AXIS_P.shape[1] if self.off_axis else self.in_dim
+        return d * self.num_frequencies * 2 + (self.in_dim if self.include_input else 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nerf_encoding(x, self.freqs, self.include_input)
+        proj = None if self.proj is None else self.proj.to(x.dtype)
+        return nerf_encoding(x, self.freqs, self.include_input, proj)
 
 
 class SHEncoding(nn.Module):

@@ -8,6 +8,9 @@ and copies each leaf into the port model's parameter of the same path:
   ``_DenseParams`` (``kernel [in, out]``, ``bias``) keep their layout: the
   port's layers use ``[in, out]`` kernels too (ops/mlp.py:49-88, 142-155);
 * the hash-grid and permutohedral ``hash_table [rows, F]`` keep their layout;
+* the SDF field's ref-NeRF heads, ``diffuse_color_pred`` and
+  ``specular_tint_pred`` (Flax ``nn.Dense``: ``kernel [in, out]``, ``bias``),
+  keep their names and layout;
 * a proposal field's ``MLP_0/layer_j`` becomes ``mlp.layers.j``, and its
   ``HashEncoding_0/hash_table`` becomes ``encoding.hash_table``;
 * the NeRF background's ``mlp_base/layer_j`` and ``mlp_head/layer_j``

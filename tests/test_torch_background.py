@@ -39,6 +39,7 @@ from sdfstudio_tpu_torch.ops import mlp as tmlp
 from sdfstudio_tpu_torch.ops.mlp import MLP as TMLP
 from sdfstudio_tpu_torch.samplers import spaced as tspaced
 from sdfstudio_tpu_torch.utils.convert import params_from_jax
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 ACTS = {"relu": jax.nn.relu, "none": None}

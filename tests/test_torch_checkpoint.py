@@ -31,6 +31,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SCENE = REPO / ".parity" / "dtu_like"

@@ -28,6 +28,7 @@ from sdfstudio_tpu_torch.configs.methods import method_configs
 from sdfstudio_tpu_torch.data.synthetic import generate_sphere_dataset
 from sdfstudio_tpu_torch.engine.trainer import Trainer, TrainerConfig
 from sdfstudio_tpu_torch.scripts import train as train_script
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SCENE = REPO / ".parity" / "dtu_like"

@@ -80,6 +80,7 @@ from sdfstudio_tpu_torch.utils.convert import params_from_jax
 from tests.test_torch_cues import _margins
 from tests.test_torch_presets import _full_tree_matches
 from tests.test_torch_surface_methods import _given, _port_tree, _t
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 METHODS = ["monosdf", "mono-neus", "mono-unisurf", "geo-neus", "geo-volsdf", "geo-unisurf"]
 BASE = {"monosdf": "volsdf", "mono-neus": "neus", "mono-unisurf": "unisurf", "geo-neus": "neus",

@@ -61,6 +61,7 @@ from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserCo
 from sdfstudio_tpu_torch.data.synthetic import generate_sphere_dataset
 from sdfstudio_tpu_torch.models.base_surface_model import SurfaceModel as TSurfaceModel
 from sdfstudio_tpu_torch.models.base_surface_model import SurfaceModelConfig as TSurfaceModelConfig
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 

@@ -10,6 +10,7 @@ import pathlib
 import torch
 
 from sdfstudio_tpu_torch.scripts import train as train_script
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCENE = pathlib.Path(__file__).resolve().parents[1] / ".parity" / "dtu_like"
 

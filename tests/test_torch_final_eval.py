@@ -43,6 +43,7 @@ from sdfstudio_tpu_torch.utils import metrics as tmetrics
 from sdfstudio_tpu_torch.utils.mesh_io import TriMesh
 
 from test_torch_model import _cameras, _small_models
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SCENE = REPO / ".parity" / "dtu_like"

@@ -50,6 +50,7 @@ import torch
 from sdfstudio_tpu.ops.pallas_mlp import fused_mlp as jfused_mlp
 
 from sdfstudio_tpu_torch.ops import fused_mlp as tfm
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KERNEL_TOL = 1e-4  # chip_smoke.py: max |kernel - plain| / (max |plain| + 1)
 BWD_TOL = 1e-4  # chip_smoke.py: ||kernel - plain|| / ||plain|| of dx, each dW and db

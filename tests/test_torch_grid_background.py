@@ -54,6 +54,7 @@ from tests.test_torch_background import _bundle, _perturbed
 from tests.test_torch_occupancy import _compare_step, _small_models
 from tests.test_torch_presets import _full_tree_matches
 from tests.test_torch_train import _close, _t
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_CAMS = 4
 

@@ -33,6 +33,7 @@ from sdfstudio_tpu_torch.fields.density_field import HashMLPDensityField
 from sdfstudio_tpu_torch.ops import hash_grid as hg
 from sdfstudio_tpu_torch.ops.encodings import HashEncoding
 from sdfstudio_tpu_torch.utils.convert import params_from_jax
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRIDS = {
     "mixed": dict(num_levels=4, min_res=4, max_res=32, log2_hashmap_size=10),

@@ -48,6 +48,7 @@ from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig as TSDFFieldConf
 from sdfstudio_tpu_torch.models.neus_facto import NeuSFactoModel as TNeuSFactoModel
 from sdfstudio_tpu_torch.models.neus_facto import NeuSFactoModelConfig as TNeuSFactoModelConfig
 from sdfstudio_tpu_torch.utils.convert import params_from_jax
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SLICE_TOL = dict(rtol=0, atol=3e-4)
 NUM_IMAGES = 3

@@ -70,6 +70,7 @@ from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig as TSDFFieldConf
 from sdfstudio_tpu_torch.ops.encodings import HashEncoding as THashEncoding
 from sdfstudio_tpu_torch.scripts import train as train_script
 from sdfstudio_tpu_torch.utils.convert import _flatten, _port_key, load_jax_checkpoint, params_from_jax
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_IMAGES = 3
 SCENE = pathlib.Path(__file__).resolve().parents[1] / ".parity" / "dtu_like"

@@ -71,6 +71,7 @@ from sdfstudio_tpu_torch.samplers.surface_guided import voxel_surface_guided_sam
 from sdfstudio_tpu_torch.scripts import train as train_script
 from sdfstudio_tpu_torch.utils.convert import params_from_jax
 from tests.test_torch_train import _close, _port_tree, _t
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_IMAGES = 8
 # the skip re-enters the 47-wide input (xyz, 36 PE, 8 zero grid features) at layer 4

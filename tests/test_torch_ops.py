@@ -42,6 +42,7 @@ from sdfstudio_tpu_torch.ops import render as trender
 from sdfstudio_tpu_torch.ops.encodings import NeRFEncoding as TNeRFEncoding
 from sdfstudio_tpu_torch.ops.mlp import MLP as TMLP
 from sdfstudio_tpu_torch.ops.permuto import PermutoEncoding as TPermuto
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 

@@ -49,6 +49,7 @@ from sdfstudio_tpu_torch.fields.sdf_field import SDFFieldConfig as TSDFFieldConf
 from sdfstudio_tpu_torch.utils.convert import params_from_jax
 from tests.test_torch_surface_methods import _f64_grads, _jax_step_f64
 from tests.test_torch_train import _close, _port_tree, _rays, _t
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_IMAGES = 3
 KW = dict(near=0.8, far=4.0, radius=1.0, collider_type="near_far")

@@ -33,6 +33,7 @@ from sdfstudio_tpu_torch.ops import row_gather as rg
 from sdfstudio_tpu_torch.ops.launches import LAUNCHES
 from sdfstudio_tpu_torch.ops.scatter import sorted_segment_add
 from sdfstudio_tpu_torch.scripts.benchmarking import probe_gather2, probe_prims
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

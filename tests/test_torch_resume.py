@@ -21,6 +21,7 @@ from sdfstudio_tpu_torch.configs.methods import build_model, get_method_config
 from sdfstudio_tpu_torch.data.datamanager import VanillaDataManager
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import parse
 from sdfstudio_tpu_torch.engine.trainer import CHECKPOINT_FILE, Trainer
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCENE = pathlib.Path(__file__).resolve().parents[1] / ".parity" / "dtu_like"
 RAYS = 64

@@ -21,6 +21,7 @@ from sdfstudio_tpu_torch.core.rays import RayBundle as TRayBundle
 from sdfstudio_tpu_torch.samplers import pdf as tpdf
 from sdfstudio_tpu_torch.samplers import proposal as tprop
 from sdfstudio_tpu_torch.samplers import spaced as tspaced
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 

@@ -29,6 +29,7 @@ from sdfstudio_tpu.fields.sdf_field import SDFFieldNet as JSDFFieldNet
 from sdfstudio_tpu_torch.core.rays import RayBundle as TRayBundle
 from sdfstudio_tpu_torch.fields.sdf_field import SDFField, SDFFieldConfig
 from sdfstudio_tpu_torch.utils.convert import params_from_jax
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_IMAGES = 3
 

@@ -74,6 +74,7 @@ from sdfstudio_tpu_torch.samplers import error_bounded as terror_bounded
 from sdfstudio_tpu_torch.samplers import unisurf as tunisurf
 from sdfstudio_tpu_torch.scripts import train as train_script
 from sdfstudio_tpu_torch.utils.convert import _flatten, _port_key, opt_state_from_jax, params_from_jax
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 METHODS = ["neus", "volsdf", "unisurf"]
 NUM_IMAGES = 3

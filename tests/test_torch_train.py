@@ -65,6 +65,7 @@ from sdfstudio_tpu_torch.samplers import proposal as tprop
 from sdfstudio_tpu_torch.samplers import spaced as tspaced
 from sdfstudio_tpu_torch.utils.convert import _flatten, _port_key, opt_state_from_jax, params_from_jax
 from tests.test_torch_model import METHODS, SMALL
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 NUM_IMAGES = 3

@@ -27,6 +27,7 @@ from sdfstudio_tpu_torch.data import png
 from sdfstudio_tpu_torch.data.datamanager import DataManagerConfig, VanillaDataManager
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import parse
 from sdfstudio_tpu_torch.scripts import train as train_script
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCENE = pathlib.Path(__file__).resolve().parents[1] / ".parity" / "dtu_like"
 

@@ -49,6 +49,7 @@ from sdfstudio_tpu_torch.scripts.benchmarking.eval_geometry import chamfer_l1_to
 from sdfstudio_tpu_torch.scripts.make_lpips_weights import make_weights
 from sdfstudio_tpu_torch.utils import writer as writer_lib
 from sdfstudio_tpu_torch.utils.metrics import lpips, lpips_metric_name
+from tests.test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_EVAL = 7
 
