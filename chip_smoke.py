@@ -19,7 +19,7 @@ Phases, each printing its own line with wall-clock seconds:
    1024-ray chunks. Geometric init makes the SDF close to a sphere; the
    image is checked against that sphere (accumulation inside / outside,
    depth), and 256 of its rays are rendered again on the CPU through the
-   plain PyTorch versions and compared. The view's first 12 chunks run
+   plain PyTorch versions and compared. The view's first 6 chunks run
    again under ``torch.profiler``: their wall time, the device's busy time
    and idle share, and the time of each ``sst/*`` range of the model;
 4. kernel against plain: the inputs of the three ``fused_mlp`` calls of one
@@ -100,9 +100,9 @@ Phases, each printing its own line with wall-clock seconds:
    -> 128 -> 128] with a relu output) captured from that step and held and
    timed alone (kernel, plain version, cuBLAS layer by layer, 3xTF32 and
    FP32 bounds), one traced step, and the scene's 384x384 view rendered with
-   the kernels (its ms an image, warm after the training steps), its 96
+   the kernels (its ms an image, warm after the training steps), its 48
    middle rows again with the plain versions (the 0.999 quantile of those
-   rays held to 1e-3), and its first 12 chunks traced. Counted by chain, each must take a forward and
+   rays held to 1e-3), and its first 6 chunks traced. Counted by chain, each must take a forward and
    a backward launch a step and a forward a chunk; each captured
    cotangent, each group's gradient and, on ``unisurf``, the count of rays
    with a surface point must not be zero. ``unisurf`` starts from the
@@ -130,7 +130,7 @@ Phases, each printing its own line with wall-clock seconds:
    from the outward-facing init, ``CLI_EXTRA``) through the train command
    with JAX's grammar: ``scripts/train.py::main`` with ``--experiment-name``,
    ``--output-dir``, ``--timestamp``, ``--vis none``, 40 steps, an eval
-   image every 20 steps, the final evaluation (the 2 eval views, the
+   image every 20 steps, the final evaluation (the first eval view, the
    128^3 mesh) and ``sdfstudio-data --data .parity/dtu_like
    --skip-every-for-val-split 25``; the run's layout (``config.yml``, the
    step directory with ``step.txt``, the metrics, the mesh), the step-20
@@ -184,9 +184,10 @@ Phases, each printing its own line with wall-clock seconds:
 15. baked (``baked[<method>]``, ``baked_phase``): ``bakedsdf``,
    ``bakedsdf-mlp`` and ``bakedangelo`` at their registered values and
    full width through ``<method> mipnerf360-data --data
-   .parity/heritage_like``: 20 steps at the registered rays (ms a step over
-   steps 8-19; ``bakedsdf-mlp`` at the largest power of two up to 4096 that
-   fits, the cut printed), ``eval.py`` on the 3 eval views and
+   .parity/heritage_like --train-split-percentage 0.97``: 20 steps at the
+   registered rays (ms a step over steps 8-19; ``bakedsdf-mlp`` at the
+   largest power of two up to 4096 that fits, the cut printed), ``eval.py``
+   on the one eval view and
    ``extract_mesh.py`` at 128^3 (the mesh empty exactly when the SDF keeps
    one sign on the grid), the kernel step against the plain step on the
    kernel step's resamplings (1e-4; ``bakedangelo`` by ``angelo_tols``) and
@@ -196,11 +197,27 @@ Phases, each printing its own line with wall-clock seconds:
    hash kernels on the step's 2,752,512 captured points, one traced step,
    the peak memory, and the view rendered with and without the kernels
    (``bakedsdf``, ``bakedangelo``);
-16. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+16. density (``density[<method>]``, ``density_phase``): ``instant-ngp`` and
+   ``nerfacto`` through ``sdfstudio-data`` on the DTU-like scene,
+   ``phototourism`` through ``phototourism-data`` on the heritage-like
+   scene, at their registered values and full width through JAX's command
+   line: ``nerfacto`` and ``phototourism`` 20 steps of 4096 rays with the
+   SO3xR3 camera optimizer, ``instant-ngp`` 30 steps of its dynamic batch
+   (every bucket, each refresh's occupied cells and the samples a ray
+   printed, each move held to the rule); ms a step over steps 10 on,
+   rays/s, peak memory; one kernel step against one plain step (and on the
+   kernel step's resamplings), ``camera_opt``'s gradient included; exact
+   launches by kernel and by chain in the steps and ``eval.py``'s views;
+   ``extract_mesh.py`` refusing ``nerfacto``; every chain of the step alone;
+   the hash node's gradient in ``x`` on ``nerfacto``'s captured field call
+   at F = 2 and 4 (``hash_grad_x_case``, 1e-5), timed beside the hash
+   backward; one traced step;
+17. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
    F = 8; the fused-MLP entries carry the surface chains', p4's and phases
-   14 and 15's rows, the hash entries the cli, grid and baked phases'
-   launches, the F = 4 captured call, the background's F = 2 call and
-   ``bakedangelo``'s F = 8 call; the cue phases' launches), the
+   14, 15 and 16's rows, the hash entries the cli, grid, baked and density
+   phases' launches, the F = 4 captured call, the background's F = 2 call,
+   ``bakedangelo``'s F = 8 call and ``nerfacto``'s gradient in ``x``; the
+   cue phases' launches), the
    ``nvidia-smi`` line, and the result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
@@ -263,8 +280,8 @@ EVAL_CHUNK = 8192  # final_eval.py:80
 # 3.8e-3 in accumulation and 1.7e-2 in normal on 4-18 of 8192 rays (NVIDIA
 # H100 80GB HBM3, 700 W); the fused forward itself is held per call.
 RENDER_QUANTILE = 0.999
-PLAIN_RAYS = 96 * IMAGE  # a method's view rendered again by the plain versions: its 96 middle rows
-TRACED_CHUNKS = 12  # the first chunks of a view rendered under the profiler
+PLAIN_RAYS = 48 * IMAGE  # a method's view rendered again by the plain versions: its 48 middle rows
+TRACED_CHUNKS = 6  # the first chunks of a view rendered under the profiler
 RESUME_STEPS = 4  # steps before the save, and after the load
 TRAIN_RAYS = 2048  # the parity protocol's rays per batch (parity.py NUM_RAYS)
 TRAIN_STEPS = 40  # steps 10-39 update the proposal nets on even steps only
@@ -315,13 +332,24 @@ GRID_REFRESH = TRAIN_STEPS // 2  # the heritage phases' fine_grid_update_every a
 # the BakedSDF family through mipnerf360-data on the heritage-like scene (phase 15)
 BAKED_METHODS = ("bakedsdf", "bakedsdf-mlp", "bakedangelo")
 BAKED_STEPS = 20
+# the mipnerf360 parser's split: ceil(0.97 x 36) = 35 train views and 1 eval view (eval.py's;
+# the registered 0.9 holds out 3, cut to save the smoke's time)
+BAKED_TRAIN_SPLIT = 0.97
+BAKED_EVAL_VIEWS = 1
 BAKED_TIMED = 8  # steps 8-19 timed
 # the view rendered with and without kernels; bakedsdf-mlp's takes ~9 s a render, and the
-# smoke's time is short: its eval.py renders the 3 eval views with the kernels
+# smoke's time is short: its eval.py renders the eval view with the kernels
 BAKED_RENDER = ("bakedsdf", "bakedangelo")
 BAKED_CHAINS = {"316-256-256-3": "color", "321-256-256-256-256-3": "color", "10-16-1": "proposal",
                 "32-64-16": "background_base"}
 HERITAGE_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".parity", "heritage_like")
+# phase 16: the density methods through JAX's command line at their registered values
+DENSITY_METHODS = ("instant-ngp", "nerfacto", "phototourism")
+DENSITY_STEPS = {"instant-ngp": 30, "nerfacto": 20, "phototourism": 20}
+DENSITY_TIMED = 10  # steps 10 to the last timed
+NGP_UPDATE_EVERY = 5  # instant-ngp's --trainer.dynamic-update-every and --trainer.steps-per-log
+DENSITY_CHAINS = {"10-16-1": "proposal", "32-64-16": "base"}
+GRAD_X_TOL = 1e-5  # the hash node's gradient in x against the plain encode's under autograd
 # phase 11: Neuralangelo at its registered 512 rays a step. A step's encodes:
 # one a round of the NeuS sampler (4 rounds, 64 + 3 x 16 points a ray,
 # without a gradient) and one over the field's centre and six taps (7 x 512
@@ -348,7 +376,7 @@ CLI_PRESETS = ("neus-facto-tpu", "neus-facto-tpu-p4", "neus-facto-bigmlp")
 CLI_EVAL_STEP = 20  # --trainer.steps-per-eval-image
 CLI_EVAL_SPLIT = 25  # --skip-every-for-val-split: 2 eval views (views 0, 25)
 CLI_MESH_RES = 128  # --trainer.final-eval-resolution, extract_mesh.py --resolution
-CLI_FINAL_IMAGES = 2  # --trainer.final-eval-max-images
+CLI_FINAL_IMAGES = 1  # --trainer.final-eval-max-images
 # neus-facto-bigmlp is JAX's default field, whose init faces inwards (a camera
 # inside the scene). On the object-centred parity scene a 40-step run from that
 # init keeps or loses the surface depending on the seed, in JAX and in the port
@@ -1242,8 +1270,11 @@ def pdf_samples(record: list, replay: bool = False):
     real, given = prop.pdf_sampler, iter(list(record))
 
     def sampler(ray_bundle, samples, weights, *a, **kw):
-        if replay:
-            return next(given)[0]
+        if replay:  # the recorded bins on this step's rays (their graph: the camera optimizer's)
+            return dataclasses.replace(next(given)[0], origins=ray_bundle.origins,
+                                       directions=ray_bundle.directions,
+                                       pixel_area=ray_bundle.pixel_area,
+                                       camera_indices=ray_bundle.camera_indices)
         out = real(ray_bundle, samples, weights, *a, **kw)
         record.append((out, weights.detach()))
         return out
@@ -1281,6 +1312,8 @@ def finest_cells(model, level: int, positions: torch.Tensor) -> torch.Tensor:
         scale = 1.0 if net.field_type == "hash" else 2.0
         return net.normalize(positions) * (scale * _finest(net.encoding))
     field = model.field
+    if not hasattr(field, "contract_positions"):  # the density methods' nerfacto field
+        return field.normalize(positions) * _finest(field.encoding)
     x = field.contract_positions(positions)
     if field.encoding is not None:
         return (x + 2.0) / 4.0 * _finest(field.encoding)
@@ -2670,7 +2703,7 @@ def grid_phase(fm, smi: str, method: str) -> dict:
     net, the background's chain and, for the grid background, the F = 2
     hash grid, swapped for their plain versions); launches by kernel and by
     chain exact in the steps (a captured step's calls times the steps) and
-    the final evaluation (3 views, the 128^3 mesh through the heritage or
+    the final evaluation (1 view, the 128^3 mesh through the heritage or
     DTU-like judge); both chains alone (``chain_checks``); the background's
     F = 2 hash call (``hash_case``, ``neusW`` only); one traced step.
     Returns what the ``kernels`` line reports."""
@@ -2989,15 +3022,15 @@ def facto_angelo_phase(fm, smi: str) -> dict:
 def baked_phase(fm, smi: str, method: str) -> dict:
     """A BakedSDF entry (``baked[<method>]``) at its registered values and
     full width through JAX's command line, ``<method> mipnerf360-data --data
-    .parity/heritage_like``, from seed 0: ``BAKED_STEPS`` steps at the
-    registered rays (ms a step over steps ``BAKED_TIMED``-19, host clock
+    .parity/heritage_like --train-split-percentage 0.97`` (one eval view),
+    from seed 0: ``BAKED_STEPS`` steps at the registered rays (ms a step over steps ``BAKED_TIMED``-19, host clock
     ended by one synchronise; ``bakedsdf-mlp`` at the largest power of two
     up to its 4096 that fits the card, the cut printed); one kernel step
     against one plain step, and the plain step on the kernel step's
     resamplings (``step_vs_plain``; ``bakedangelo``'s tolerances scaled by
     delta, ``angelo_tols``); launches by kernel and by chain exact in the
-    steps (every step trains the proposal nets, as in JAX), ``eval.py``'s 3
-    views and ``extract_mesh.py``'s 128^3 grid; every chain of the step
+    steps (every step trains the proposal nets, as in JAX), ``eval.py``'s
+    view and ``extract_mesh.py``'s 128^3 grid; every chain of the step
     alone (``chain_checks``); one traced step; the peak device memory; the
     train view rendered with and without the kernels; finite PSNR and SSIM
     and a non-empty mesh (no Chamfer: the heritage judge works in the
@@ -3040,7 +3073,8 @@ def baked_phase(fm, smi: str, method: str) -> dict:
                     "--vis", "none", "--trainer.max-num-iterations", str(BAKED_STEPS),
                     "--trainer.steps-per-eval-image", "0",
                     "--datamanager.train-num-rays-per-batch", str(rays),
-                    "mipnerf360-data", "--data", HERITAGE_SCENE]
+                    "mipnerf360-data", "--data", HERITAGE_SCENE,
+                    "--train-split-percentage", str(BAKED_TRAIN_SPLIT)]
             made.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3067,7 +3101,8 @@ def baked_phase(fm, smi: str, method: str) -> dict:
         check(dm.config.train_num_rays_per_batch == rays and trainer.step == BAKED_STEPS,
               f"{phase}: {dm.config.train_num_rays_per_batch} rays, step {trainer.step}")
         check(model.scene_box.collider_type == "near_far" and model.scene_box.far == 1000.0
-              and dm.num_eval_images == 3, f"{phase}: not the mipnerf360 parser's scene and split")
+              and dm.num_eval_images == BAKED_EVAL_VIEWS,
+              f"{phase}: not the mipnerf360 parser's scene and split")
         step_ms = (marks["t1"] - marks["t0"]) * 1e3 / (BAKED_STEPS - BAKED_TIMED)
         run = Path(tmp) / "smoke" / method / "t"
         w0, c0, t = width_counts(fm), _counts(fm), time.perf_counter()
@@ -3076,7 +3111,8 @@ def baked_phase(fm, smi: str, method: str) -> dict:
         torch.cuda.synchronize()
         eval_s, eval_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
         ev = json.loads((Path(tmp) / "eval.json").read_text())
-        check(ev["num_images"] == 3 and all(math.isfinite(ev["results"][k]) for k in ("psnr", "ssim")),
+        check(ev["num_images"] == BAKED_EVAL_VIEWS
+              and all(math.isfinite(ev["results"][k]) for k in ("psnr", "ssim")),
               f"{phase}: eval.py wrote {ev}")
         c0, t = _counts(fm), time.perf_counter()
         check(mesh_script.main(["--load-config", str(run / "config.yml"), "--output-path",
@@ -3139,7 +3175,7 @@ def baked_phase(fm, smi: str, method: str) -> dict:
     image_chunks = math.ceil(IMAGE * IMAGE / 1024)
     sdf_hash = model.field.encoding is not None
     mesh_chunks = math.ceil(CLI_MESH_RES ** 3 / 131072) if sdf_hash else 0
-    eval_want = expected_launches(calls, hash_calls, 0, 0, 3 * image_chunks)
+    eval_want = expected_launches(calls, hash_calls, 0, 0, BAKED_EVAL_VIEWS * image_chunks)
     mesh_want = ({"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "hash_encode_fwd": mesh_chunks,
                   "hash_encode_bwd": 0}, {})
     launches = {
@@ -3204,6 +3240,275 @@ def baked_phase(fm, smi: str, method: str) -> dict:
             "render_chains_fwd": {} if render is None else render["chains"]["fwd"],
             "render_quantile_err": None if render is None else render["quantile_err"],
             "render_idle_share": None if render is None else render["profile"]["device_idle_share"]}
+
+
+def hash_grad_x_case(phase: str, name: str, x, table, spec, g_out) -> dict:
+    """The hash encode's gradient in ``x`` on one captured call: the kernel
+    node (the forward kernel with its jacobian, then ``g_out . jac``)
+    against the plain encode under autograd, held to ``GRAD_X_TOL`` of the
+    plain gradient's largest entry; timed beside the call's forward (with
+    and without the jacobian) and its table backward, the contraction
+    alone with its bytes bound."""
+    from sdfstudio_tpu_torch.ops import hash_grid as hg
+
+    n, LF = x.shape[0], g_out.shape[1]
+    R = table.shape[0]
+    xg = x.detach().requires_grad_(True)
+
+    def kernel():
+        return torch.autograd.grad(hg.hash_encode(xg, table, spec), xg, g_out)[0]
+
+    def plain():
+        return torch.autograd.grad(hg.hash_encode_plain(xg, table, spec), xg, g_out)[0]
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    jac = hg.hash_encode_fwd(x, table, spec, True)[1]
+    g3 = g_out.reshape(n, 1, LF)
+    contraction_bytes = 4.0 * n * (LF * 3 + LF + 3)
+    rec = {"call": name, "points": n, "F": table.shape[1], "levels": spec.num_levels,
+           "max_rel_err": err, "rel_fro_err": rel_fro(got, want),
+           "ms": cuda_time_ms(kernel, 10), "plain_ms": cuda_time_ms(plain, 3, 1),
+           "contraction_ms": cuda_time_many_ms(lambda: torch.bmm(g3, jac)[:, 0], 20),
+           "contraction_bound_ms": contraction_bytes / HBM_RATE * 1e3,
+           "fwd_ms": cuda_time_many_ms(lambda: hg.hash_encode_fwd(x, table, spec, False), 20),
+           "fwd_jac_ms": cuda_time_many_ms(lambda: hg.hash_encode_fwd(x, table, spec, True), 20),
+           "table_bwd_ms": cuda_time_many_ms(lambda: hg.hash_encode_bwd(x, g_out, None, spec, R), 20)}
+    log(phase, f"grad_x {json.dumps(rec)}")
+    check(err <= GRAD_X_TOL, f"{phase} {name}: the hash node's grad_x vs plain {err} > {GRAD_X_TOL}")
+    del xg, got, want, jac, g3
+    torch.cuda.empty_cache()
+    return rec
+
+
+def density_phase(fm, smi: str, method: str) -> dict:
+    """A density method (``density[<method>]``) at its registered values
+    and full width through JAX's command line: ``instant-ngp`` and
+    ``nerfacto`` on the committed DTU-like scene through ``sdfstudio-data``
+    (the eval split every ``CLI_EVAL_SPLIT``-th view), ``phototourism``
+    through ``phototourism-data`` on the heritage-like scene, from seed 0.
+    ``nerfacto`` and ``phototourism`` train 20 steps of 4096 rays with the
+    ``SO3xR3`` camera optimizer (the sample positions take a gradient in the
+    pose table through the hash encode); ``instant-ngp`` 30 steps of its
+    dynamic batch (from ``2^18 / 256`` rays, moved every
+    ``NGP_UPDATE_EVERY`` steps on the measured samples; every bucket, each
+    refresh's occupied cells and the samples a ray printed, and each move
+    held to the rule). The ms a step over steps ``DENSITY_TIMED`` to the
+    last (host clock ended by one synchronise), rays/s, the peak device
+    memory; one kernel step against one plain step (for the proposal
+    methods also on the kernel step's resamplings, ``step_vs_plain(
+    shared_samples=True)``, the free comparison held where it is well
+    posed, as in the baked phases), ``camera_opt``'s gradient included; launches
+    by kernel and by chain exact in the steps (the proposal nets'
+    backward on their update steps only; the grid refreshes' chunks) and
+    in ``eval.py``'s views; ``extract_mesh.py`` refusing a density model
+    (``nerfacto``); every chain of the step alone (``chain_checks``); for
+    ``nerfacto`` the hash node's gradient in ``x`` on the step's captured
+    field call at F = 2 and on an F = 4 table (``hash_grad_x_case``); one
+    traced step. Returns what the ``kernels`` line reports."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics, to_bucket
+    from sdfstudio_tpu_torch.models.neuralreconW import REFRESH_CHUNK
+    from sdfstudio_tpu_torch.scripts import eval as eval_script
+    from sdfstudio_tpu_torch.scripts import extract_mesh as mesh_script
+    from sdfstudio_tpu_torch.scripts import train as train_script
+    from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
+
+    phase = f"density[{method}]"
+    ngp, steps = method == "instant-ngp", DENSITY_STEPS[method]
+    setup = train_script.setup_lib.setup_trainer
+    made, marks, vecs, buckets, refreshes = [], {}, [], [], []
+
+    def keep(*args, **kw):
+        """The trainer ``main`` builds: each step's bucket and metrics kept,
+        steps ``DENSITY_TIMED`` and the last marked, each refresh's occupied
+        cells kept (device scalars, read after the run)."""
+        t = setup(*args, **kw)
+        step = t.train_step
+
+        def marked_step():
+            if t.step == DENSITY_TIMED:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            buckets.append(t.num_rays_per_batch())
+            vecs.append(step())
+            if t.step == steps:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return vecs[-1]
+
+        t.train_step = marked_step
+        if ngp:
+            update = t.model.update_model_state
+
+            def counted_update(state, step_, rng=None):
+                new = update(state, step_, rng)
+                refreshes.append((step_, new.binary.sum()))
+                return new
+
+            t.model.update_model_state = counted_update
+        made.append(t)
+        return t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [method, "--experiment-name", "smoke", "--output-dir", tmp, "--timestamp", "t",
+                "--vis", "none", "--trainer.max-num-iterations", str(steps),
+                "--trainer.steps-per-eval-image", "0"]
+        if ngp:
+            argv += ["--trainer.steps-per-log", str(NGP_UPDATE_EVERY),
+                     "--trainer.dynamic-update-every", str(NGP_UPDATE_EVERY)]
+        argv += (["phototourism-data", "--data", HERITAGE_SCENE] if method == "phototourism" else
+                 ["sdfstudio-data", "--data", SCENE, "--skip-every-for-val-split", str(CLI_EVAL_SPLIT)])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        fm.reset_launch_counts()
+        train_script.setup_lib.setup_trainer = keep
+        t = time.perf_counter()
+        try:
+            check(train_script.main(argv) == 0, f"{phase}: the train command failed")
+        finally:
+            train_script.setup_lib.setup_trainer = setup
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        train_total, train_widths = _counts(fm), width_counts(fm)
+        trainer = made[0]
+        dm, model = trainer.datamanager, trainer.model
+        check(trainer.step == steps and len(vecs) == steps, f"{phase}: step {trainer.step}")
+        step_ms = (marks["t1"] - marks["t0"]) * 1e3 / (steps - DENSITY_TIMED)
+        rays_timed = sum(buckets[DENSITY_TIMED:])
+        rays_per_s = rays_timed / (marks["t1"] - marks["t0"])
+        rows = [dict(zip(trainer.metric_keys, v.tolist())) for v in vecs]
+        check(all(math.isfinite(r["loss"]) for r in rows), f"{phase}: losses {[r['loss'] for r in rows]}")
+        ngp_rec = {}
+        if ngp:
+            samples = [r["num_samples_per_batch"] for r in rows]
+            check(buckets[0] == to_bucket((1 << 18) // 256)
+                  and all(r["num_rays_per_batch"] == b for r, b in zip(rows, buckets)),
+                  f"{phase}: buckets {buckets}")
+            for s in range(1, steps):  # a move at a log row that crosses a multiple of the cadence
+                if s % NGP_UPDATE_EVERY == 0:
+                    want = to_bucket(buckets[s - 1] * (1 << 18) / max(samples[s - 1], 1.0))
+                    check(buckets[s] == want, f"{phase}: step {s} bucket {buckets[s]}, the rule gives "
+                          f"{want} at {samples[s - 1]} samples")
+                else:
+                    check(buckets[s] == buckets[s - 1], f"{phase}: bucket moved at step {s}")
+            res = model.config.grid_resolution
+            ngp_rec = {"buckets": buckets, "bucket_moved": len(set(buckets)) > 1,
+                       "samples_per_batch": samples,
+                       "samples_per_ray": [s_ / b for s_, b in zip(samples, buckets)],
+                       "refreshes": [{"step": s_, "occupied": int(n), "cells": res ** 3}
+                                     for s_, n in refreshes]}
+            check([s_ for s_, _ in refreshes] == list(range(0, steps, 16)),
+                  f"{phase}: refreshes at {[s_ for s_, _ in refreshes]}")
+            log(phase, f"dynamic batch: {json.dumps(ngp_rec)}")
+        else:
+            pose = model.camera_opt.pose_adjustment.detach()
+            check(float(pose.abs().max()) > 0, f"{phase}: the camera optimizer's table did not move")
+            ngp_rec = {"pose_adjustment_max_abs": float(pose.abs().max())}
+        run = Path(tmp) / "smoke" / method / "t"
+        c0, t = _counts(fm), time.perf_counter()
+        check(eval_script.main(["--load-config", str(run / "config.yml"),
+                                "--output-path", f"{tmp}/eval.json"]) == 0, f"{phase}: eval.py failed")
+        torch.cuda.synchronize()
+        eval_s, eval_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
+        ev = json.loads((Path(tmp) / "eval.json").read_text())
+        check(ev["num_images"] == dm.num_eval_images
+              and all(math.isfinite(ev["results"][k]) for k in ("psnr", "ssim")),
+              f"{phase}: eval.py wrote {ev}")
+        refused = None
+        if method == "nerfacto":  # JAX's extract_mesh reads field.sdf_fn, which a density field lacks
+            try:
+                mesh_script.main(["--load-config", str(run / "config.yml"), "--output-path",
+                                  f"{tmp}/mesh.ply", "--resolution", "32"])
+            except ValueError as e:
+                refused = str(e)
+            check(refused is not None and not (Path(tmp) / "mesh.ply").exists(),
+                  f"{phase}: extract_mesh.py did not refuse a density model")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(phase, f"main: {main_s:.1f} s; {steps} steps (rays {sorted(set(buckets))}), steps "
+        f"{DENSITY_TIMED}-{steps - 1}: {step_ms:.2f} ms a step, {rays_per_s:.0f} rays/s; peak memory "
+        f"{peak_gib:.2f} GiB; eval.py {eval_s:.1f} s over {ev['num_images']} views "
+        f"{json.dumps(ev['results'])}; losses first {rows[0]['loss']:.5f} last {rows[-1]['loss']:.5f}"
+        + ("" if refused is None else f"; extract_mesh.py refused: {refused}"))
+
+    # one step twice from the same state and batch (and once on the kernel step's resamplings)
+    sched = model.schedules(trainer.step)
+
+    def one_step():
+        g = torch.Generator(device=dm.device).manual_seed(777)
+        i, b = dm.sample_train_batch(g, num_rays=trainer.num_rays_per_batch())
+        total_, ld, _ = loss_and_metrics(model, dm.generate_rays(i), b, sched, g,
+                                         model_state=trainer.model_state)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
+
+    step = step_vs_plain(fm, phase, one_step, shared_samples=not ngp, only_well_posed=not ngp,
+                         model=None if ngp else model)
+    calls, hash_calls = step["calls"], step["hash_calls"]
+    errs = {k: step.get(k) for k in ("loss_err", "grad_err", "shared_loss_err", "shared_grad_err",
+                                     "parted")}
+    check(ngp or step["grad_norm"]["camera_opt"] > 0, f"{phase}: no gradient in the pose table")
+    del step
+    widths = [_chain_key(c) for c in calls]
+    check(widths == (["32-64-16"] if ngp else ["10-16-1", "10-16-1", "32-64-16"])
+          and all("g" in c for c in calls), f"{phase}: captured chains {widths}, each with a backward")
+    check([r["F"] for r in hash_calls] == [2] * len(widths) and all("g_out" in r for r in hash_calls),
+          f"{phase}: captured hash calls {[(r['F'], r['x'].shape[0]) for r in hash_calls]}")
+
+    # exact launches: the proposal nets' backward on their update steps; the refreshes' chunks
+    n_update = sum(bool(model.schedules(s).get("train_proposal", True)) for s in range(steps))
+    proposal_specs = [net.encoding.spec for net in getattr(model, "proposal_networks", [])]
+    refresh_chunks = len(refreshes) * math.ceil(model.config.grid_resolution ** 3 / REFRESH_CHUNK) if ngp \
+        else 0
+    train_want = expected_launches(calls, hash_calls, steps, n_update, refresh_chunks,
+                                   proposal_chains={(10, 16, 1)}, proposal_specs=proposal_specs)
+    cams = dm.eval_cameras if dm.eval_cameras is not None else dm.train_cameras
+    chunk = model.config.eval_num_rays_per_chunk
+    eval_chunks = sum(math.ceil(int(cams.height[i]) * int(cams.width[i]) / chunk)
+                      for i in range(dm.num_eval_images))
+    launches = {
+        "train": launches_held(phase, "train", train_total, train_want),
+        "eval_py": launches_held(phase, "eval.py", eval_launches,
+                                 expected_launches(calls, hash_calls, 0, 0, eval_chunks)),
+    }
+    check(set(train_widths) <= {"hash_encode_fwd[F=2]", "hash_encode_bwd[F=2]"},
+          f"{phase}: hash launches by width {train_widths}")
+    log(phase, f"launches, exact: {json.dumps(launches)}; proposal update steps {n_update} of {steps}; "
+        f"refresh chunks {refresh_chunks}; eval chunks {eval_chunks}")
+    names = [DENSITY_CHAINS[w] for w in widths]
+    if names.count("proposal") == 2:
+        names[:2] = ["proposal_0", "proposal_1"]
+    chains = chain_checks(fm, calls, names, phase, method)
+    grad_x = []
+    if method == "nerfacto":
+        field = hash_calls[-1]
+        table = model.field.encoding.hash_table.detach()
+        check(field["spec"] == model.field.encoding.spec, f"{phase}: the last hash call is not the field's")
+        with uncounted(fm):
+            grad_x.append(hash_grad_x_case(phase, "field", field["x"], table, field["spec"],
+                                           field["g_out"]))
+            g4 = torch.randn((field["x"].shape[0], field["spec"].num_levels * 4), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(4))
+            grad_x.append(hash_grad_x_case(phase, "field_F4", field["x"],
+                                           hgd.row_table(table.shape[0], 4), field["spec"], g4))
+            del g4
+    del calls, hash_calls
+    torch.cuda.empty_cache()
+    with uncounted(fm):
+        profile = traced_step(trainer)
+    log(phase.replace("[", "_profile["), json.dumps({"train_step": profile}))
+    del trainer, model, made, dm
+    torch.cuda.empty_cache()
+    return {"method": method, "steps": steps, "rays": sorted(set(buckets)), "step_ms": step_ms,
+            "rays_per_s": rays_per_s, "main_s": main_s, "eval_py_s": eval_s, "eval_py": ev["results"],
+            "eval_views": ev["num_images"], "launches": launches, "train_launches": train_total[0],
+            "eval_launches": eval_launches[0], "hash_launches_by_width": train_widths,
+            "chains": chains, "grad_x": grad_x, "extract_mesh_refused": refused,
+            **{f"step_{k}": v for k, v in errs.items()}, **ngp_rec,
+            "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+            "train_step_idle_share": profile["device_idle_share"],
+            "traced_step_ms": profile["traced_wall_ms"], "device_busy_ms": profile["device_busy_ms"],
+            "ranges": profile["ranges"], "peak_memory_gib": peak_gib}
 
 
 def _counts_sum(parts: list) -> tuple:
@@ -3422,8 +3727,10 @@ def main() -> int:
 
     # 15. the BakedSDF family through mipnerf360-data on the heritage-like scene
     baked = {m: baked_phase(fm, smi, m) for m in BAKED_METHODS}
+    # 16. the density methods through JAX's command line ------------------------
+    density = {m: density_phase(fm, smi, m) for m in DENSITY_METHODS}
 
-    # 15. results -----------------------------------------------------------
+    # 17. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -3458,6 +3765,27 @@ def main() -> int:
 
     def cue_launches(name: str) -> int:
         return sum(r["train_launches"][name] for r in cue.values())
+
+    def density_launches(name: str) -> int:
+        """Phase 16's launches of kernel ``name`` (train steps and eval.py)."""
+        return sum(r["train_launches"].get(name, 0) + r["eval_launches"].get(name, 0)
+                   for r in density.values())
+
+    def density_chain_rows(which: str) -> list:
+        """Phase 16's chains alone at a step's captured inputs, with each
+        chain's launches on that method's path (train steps, eval.py)."""
+        rows = []
+        for m, r in density.items():
+            for c in r["chains"]:
+                d = c[which]
+                key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
+                rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
+                             "out_act": c["out_act"],
+                             "launches": sum(part["chains"].get(key, 0)
+                                             for part in r["launches"].values()),
+                             **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
+                                                  "bound_ms", "bound_ms_fp32", "bound_by")}})
+        return rows
 
     def facto_hash(name: str, F: int) -> int:
         """neus-facto-angelo's launches of hash kernel ``name`` at width ``F``, as counted."""
@@ -3563,7 +3891,12 @@ def main() -> int:
             "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
             "replaces": replaces,
             "launches": nf_launches[name] + cli_launches(name) + grid_launches(name)
-            + baked_launches(name),
+            + baked_launches(name) + density_launches(name),
+            "launches_density": {m: r["train_launches"][name] + r["eval_launches"][name]
+                                 for m, r in density.items()},
+            # nerfacto's field call (L16, 2^19 rows, 4096 x 48 points) with the camera optimizer:
+            # the gradient in x (F = 2, and an F = 4 table on the same points) beside this kernel
+            "grad_x_nerfacto": density["nerfacto"]["grad_x"],
             "launches_grid": {m: r["total_launches"][name] for m, r in grid.items()},
             "launches_baked_F2": {m: baked_hash(r, name, 2) for m, r in baked.items()},
             "launches_neus_facto_angelo_F2": facto_hash(name, 2),
@@ -3578,6 +3911,7 @@ def main() -> int:
             "max_abs_err": max([c[which]["max_abs_err"] for c in calls]
                                + [cli["neus-facto-tpu"]["hash_f4"][which]["max_abs_err"],
                                   grid["neusW"]["hash_background"][which]["max_abs_err"]]),
+            "grad_x_max_rel_err": max(g["max_rel_err"] for g in density["nerfacto"]["grad_x"]),
             # one train step's three calls on their captured inputs
             "ms": hash_sum(which, "ms"),
             "plain_ms": hash_sum(which, "plain_ms"),
@@ -3677,7 +4011,11 @@ def main() -> int:
                      + final["launches"]["fused_mlp_fwd"] + resume["launches"]["fused_mlp_fwd"]
                      + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")
                      + cli_launches("fused_mlp_fwd") + cue_launches("fused_mlp_fwd")
-                     + grid_launches("fused_mlp_fwd") + baked_launches("fused_mlp_fwd")),
+                     + grid_launches("fused_mlp_fwd") + baked_launches("fused_mlp_fwd")
+                     + density_launches("fused_mlp_fwd")),
+        "launches_density": {m: r["train_launches"]["fused_mlp_fwd"]
+                             + r["eval_launches"]["fused_mlp_fwd"] for m, r in density.items()},
+        "density_chains": density_chain_rows("fwd"),
         "launches_baked": {m: r["train_launches"]["fused_mlp_fwd"] + r["eval_launches"]["fused_mlp_fwd"]
                            + (r["render_launches"] or {}).get("fused_mlp_fwd", 0)
                            for m, r in baked.items()},
@@ -3700,7 +4038,8 @@ def main() -> int:
         "launches_resume": resume["launches"]["fused_mlp_fwd"],
         "max_abs_err": max([r["max_abs_err"] for r in per_call]
                            + [c["max_abs_err"] for c in surface_chains("fwd") + cli_chain_rows("fwd")
-                              + grid_chain_rows("fwd") + baked_chain_rows("fwd")]),
+                              + grid_chain_rows("fwd") + baked_chain_rows("fwd")
+                              + density_chain_rows("fwd")]),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
@@ -3722,7 +4061,10 @@ def main() -> int:
         "launches": (train["launches"]["fused_mlp_bwd"] + resume["launches"]["fused_mlp_bwd"]
                      + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")
                      + cli_launches("fused_mlp_bwd") + cue_launches("fused_mlp_bwd")
-                     + grid_launches("fused_mlp_bwd") + baked_launches("fused_mlp_bwd")),
+                     + grid_launches("fused_mlp_bwd") + baked_launches("fused_mlp_bwd")
+                     + density_launches("fused_mlp_bwd")),
+        "launches_density": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in density.items()},
+        "density_chains": density_chain_rows("bwd"),
         "launches_baked": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in baked.items()},
         "baked_chains": baked_chain_rows("bwd"),
         "launches_grid": {m: r["total_launches"]["fused_mlp_bwd"] for m, r in grid.items()},
@@ -3738,7 +4080,8 @@ def main() -> int:
         "launches_resume": resume["launches"]["fused_mlp_bwd"],
         "max_abs_err": max([r["max_abs_err"] for r in bwd]
                            + [c["max_abs_err"] for c in surface_chains("bwd") + cli_chain_rows("bwd")
-                              + grid_chain_rows("bwd") + baked_chain_rows("bwd")]),
+                              + grid_chain_rows("bwd") + baked_chain_rows("bwd")
+                              + density_chain_rows("bwd")]),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
@@ -3807,6 +4150,12 @@ def main() -> int:
         "traced_step_ms",
         "device_busy_ms", "render_idle_share", "step_loss_err", "step_grad_err",
         "step_shared_grad_err", "step_parted", "peak_memory_gib")} for m, r in baked.items()}))
+    log("density", json.dumps({m: {k: r.get(k) for k in (
+        "steps", "rays", "step_ms", "rays_per_s", "main_s", "eval_py", "eval_py_s", "eval_views",
+        "train_step_idle_share", "traced_step_ms", "device_busy_ms", "peak_memory_gib",
+        "step_loss_err", "step_grad_err", "step_shared_grad_err", "loss_first", "loss_last",
+        "buckets", "bucket_moved", "refreshes", "pose_adjustment_max_abs", "extract_mesh_refused")}
+        for m, r in density.items()}))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)

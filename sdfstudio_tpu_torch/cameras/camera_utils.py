@@ -1,12 +1,22 @@
-"""Pose orientation and centring on the host, in numpy (counterpart of
-``sdfstudio_tpu/cameras/camera_utils.py:200-248``): the SDFStudio parser's
-``auto_orient`` rotates and centres the poses with these before any tensor
-reaches the card."""
+"""Pose helpers (counterpart of ``sdfstudio_tpu/cameras/camera_utils.py``):
+the composition of two poses on tensors (``multiply_poses``, :22-27), which
+the camera optimizer's correction takes, and the orientation and centring
+on the host, in numpy (:200-248): the SDFStudio parser's ``auto_orient``
+rotates and centres the poses with these before any tensor reaches the
+card."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+
+
+def multiply_poses(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two ``[..., 3, 4]`` poses composed: ``a @ [b; 0 0 0 1]``."""
+    R = a[..., :3, :3] @ b[..., :3, :3]
+    t = a[..., :3, 3:] + a[..., :3, :3] @ b[..., :3, 3:]
+    return torch.cat([R, t], dim=-1)
 
 
 def rotation_matrix_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:

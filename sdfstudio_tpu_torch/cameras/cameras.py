@@ -11,6 +11,7 @@ from typing import Optional, Union
 
 import torch
 
+from sdfstudio_tpu_torch.cameras.camera_utils import multiply_poses
 from sdfstudio_tpu_torch.core.rays import RayBundle
 from sdfstudio_tpu_torch.utils.device import resolve_device
 
@@ -96,10 +97,13 @@ class Cameras:
         K[:, 2, 2] = 1.0
         return K
 
-    def generate_rays(self, camera_indices: torch.Tensor, coords: torch.Tensor) -> RayBundle:
+    def generate_rays(self, camera_indices: torch.Tensor, coords: torch.Tensor,
+                      camera_opt_to_camera: Optional[torch.Tensor] = None) -> RayBundle:
         """Pixel coords (y, x) -> world rays (cameras.py:134-230, perspective
-        branch), each ray from its own camera ``camera_indices[i]``. Pixel
-        centres at +0.5 are the caller's business, as in the JAX package."""
+        branch), each ray from its own camera ``camera_indices[i]``, its pose
+        composed with ``camera_opt_to_camera [R, 3, 4]`` where given (the
+        camera optimizer's correction, cameras.py:205-206). Pixel centres at
+        +0.5 are the caller's business, as in the JAX package."""
         idx = camera_indices
         y, x = coords[..., 0], coords[..., 1]
         fx, fy, cx, cy = self.fx[idx], self.fy[idx], self.cx[idx], self.cy[idx]
@@ -110,6 +114,8 @@ class Cameras:
         cs = torch.stack([c0, c1, c2], 0)  # [3, R, 2]
         d_cam = torch.stack([cs[..., 0], cs[..., 1], -torch.ones_like(cs[..., 0])], -1)
         c2w = self.camera_to_worlds[idx]  # [R, 3, 4]
+        if camera_opt_to_camera is not None:
+            c2w = multiply_poses(c2w, camera_opt_to_camera)
         rotation = c2w[..., :3, :3]
         d = torch.sum(d_cam[..., None, :] * rotation[None], dim=-1)  # [3, R, 3]
         directions_norm = torch.linalg.vector_norm(d[0], dim=-1, keepdim=True)

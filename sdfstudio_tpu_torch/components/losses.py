@@ -1,7 +1,9 @@
 """Training losses of the ported methods (counterpart of
 ``sdfstudio_tpu/components/losses.py``): rgb L1, eikonal, the mip-NeRF
-360 interlevel loss (BakedSDF's) and the zip-NeRF one with its
-step-function blur, the foreground-mask BCE,
+360 interlevel loss (BakedSDF's and nerfacto's) and the zip-NeRF one with
+its step-function blur, mip-NeRF 360's distortion loss, ref-NeRF's
+orientation and predicted-normal losses (nerfacto's), the foreground-mask
+BCE,
 Neuralangelo's curvature loss, MonoSDF's monocular normal and
 scale-and-shift-invariant depth losses, Geo-NeuS's top-k NCC over warped
 patches, the sensor-depth losses and S3IM.
@@ -96,6 +98,37 @@ def interlevel_loss_zip(
         w_gt = bins[..., 1:] - bins[..., :-1]
         loss = loss + torch.mean(torch.clamp(w_gt - weights, min=0.0) ** 2 / (weights + 1e-5))
     return loss
+
+
+def lossfun_distortion(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-ray mip-NeRF 360 distortion of weights ``w [R, S]`` on bin edges
+    ``t [R, S+1]`` (losses.py:144-150): the pairwise term over bin midpoints
+    and the bins' own ``w^2 dt / 3``."""
+    ut = (t[..., 1:] + t[..., :-1]) / 2
+    dut = torch.abs(ut[..., :, None] - ut[..., None, :])
+    loss_inter = torch.sum(w * torch.sum(w[..., None, :] * dut, dim=-1), dim=-1)
+    loss_intra = torch.sum(w**2 * (t[..., 1:] - t[..., :-1]), dim=-1) / 3
+    return loss_inter + loss_intra
+
+
+def distortion_loss(weights_list: Sequence[torch.Tensor], ray_samples_list) -> torch.Tensor:
+    """The mean distortion of the final level, on its s-space bins (losses.py:153-156)."""
+    return torch.mean(lossfun_distortion(ray_samples_to_sdist(ray_samples_list[-1]),
+                                         weights_list[-1]))
+
+
+def orientation_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     viewdirs: torch.Tensor) -> torch.Tensor:
+    """Per ray, the weighted squared part of each normal that faces along
+    the ray, ``sum w min(0, n.v)^2`` (losses.py:164-167)."""
+    n_dot_v = torch.sum(normals * viewdirs[..., None, :], dim=-1)
+    return torch.sum(weights * torch.clamp(n_dot_v, max=0.0) ** 2, dim=-1)
+
+
+def pred_normal_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     pred_normals: torch.Tensor) -> torch.Tensor:
+    """Per ray, ``sum w (1 - n . n_pred)`` (losses.py:170-172)."""
+    return torch.sum(weights * (1.0 - torch.sum(normals * pred_normals, dim=-1)), dim=-1)
 
 
 def binary_cross_entropy(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

@@ -13,7 +13,11 @@ BakedSDF family -- ``bakedsdf`` (:503-542), ``bakedsdf-mlp`` (:544-584) and
 ``bakedangelo`` (:586-636), all three on the SDFStudio parser as JAX
 registers them (``mipnerf360-data`` on the command line) -- and the
 occupancy-grid family -- ``neus-acc`` (:642-652), ``neusW`` (:788-805, with
-the heritage parser) and ``dto`` (:808-823) -- each a ``Config``
+the heritage parser) and ``dto`` (:808-823) -- and the density methods
+-- ``instant-ngp`` (:658-684, the dynamic batch) and ``nerfacto``
+(:739-757) on the Blender parser, ``phototourism`` (:849-865) on the
+phototourism parser, the last two with the ``SO3xR3`` camera optimizer --
+each a ``Config``
 (``configs/base.py``) with JAX's model, optimizer groups, trainer
 (``_SURFACE_TRAINER`` and the entry's own values) and data-manager
 settings, and the SDFStudio parser unless named; nothing is read from
@@ -27,10 +31,13 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from sdfstudio_tpu_torch.cameras.camera_optimizers import CameraOptimizerConfig
 from sdfstudio_tpu_torch.configs.base import Config
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
 from sdfstudio_tpu_torch.data.datamanager import DataManagerConfig
-from sdfstudio_tpu_torch.data.dataparsers.colmap_family import HeritageDataParserConfig
+from sdfstudio_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
+from sdfstudio_tpu_torch.data.dataparsers.colmap_family import (HeritageDataParserConfig,
+                                                                PhototourismDataParserConfig)
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig
 from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGroupConfig
 from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
@@ -40,6 +47,8 @@ from sdfstudio_tpu_torch.models.bakedangelo import BakedAngeloModel, BakedAngelo
 from sdfstudio_tpu_torch.models.bakedsdf import BakedSDFFactoModel, BakedSDFModelConfig
 from sdfstudio_tpu_torch.models.base_surface_model import SurfaceModelConfig
 from sdfstudio_tpu_torch.models.dto import DtoOModel, DtoOModelConfig
+from sdfstudio_tpu_torch.models.instant_ngp import InstantNGPModelConfig, NGPModel
+from sdfstudio_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 from sdfstudio_tpu_torch.models.neuralangelo import NeuralangeloModel, NeuralangeloModelConfig
 from sdfstudio_tpu_torch.models.neuralreconW import NeuralReconWModel, NeuralReconWModelConfig
 from sdfstudio_tpu_torch.models.neus import NeuSModel, NeuSModelConfig
@@ -72,10 +81,13 @@ descriptions = {
     "neus-acc": "NeuS with empty-space skipping.",
     "neusW": "Neural reconstruction in the wild (heritage).",
     "dto": "Occupancy-grid-guided NeuS with density-field background.",
+    "instant-ngp": "Occupancy-grid accelerated NeRF.",
+    "nerfacto": "Recommended density model for real captures.",
+    "phototourism": "Nerfacto on phototourism captures.",
 }
 
 
-def MethodConfig(method_name: str, model_class: type, model: SurfaceModelConfig,
+def MethodConfig(method_name: str, model_class: type, model,
                  optimizers: Optional[Dict[str, OptimizerGroupConfig]] = None,
                  trainer: Optional[TrainerConfig] = None,
                  datamanager: Optional[DataManagerConfig] = None,
@@ -438,6 +450,36 @@ method_configs: Dict[str, Config] = {
         rays_per_batch=2048),
 }
 
+
+def _density_datamanager() -> DataManagerConfig:
+    """The density baselines' data manager (methods.py:745-749, :853-857)."""
+    return DataManagerConfig(train_num_rays_per_batch=4096, eval_num_rays_per_batch=4096,
+                             camera_optimizer=CameraOptimizerConfig(mode="SO3xR3"))
+
+
+method_configs.update({
+    # methods.py:658-684: the dynamic batch at a 2^18-sample budget, the Blender parser
+    "instant-ngp": MethodConfig(
+        "instant-ngp", NGPModel,
+        InstantNGPModelConfig(render_step_size=0.005, eval_num_rays_per_chunk=8192),
+        {"field": OptimizerGroupConfig(_adam(1e-2), _multistep(20000))},
+        TrainerConfig(steps_per_eval_batch=5000, steps_per_eval_image=5000, steps_per_save=20000,
+                      max_num_iterations=20001, dynamic_batch=True, target_num_samples=1 << 18),
+        DataManagerConfig(train_num_rays_per_batch=8192), BlenderDataParserConfig()),
+    # methods.py:739-757
+    "nerfacto": MethodConfig(
+        "nerfacto", NerfactoModel, NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15),
+        {g: OptimizerGroupConfig(_adam(1e-2), _multistep(300000))
+         for g in ("proposal_networks", "field")},
+        TrainerConfig(steps_per_eval_batch=5000, steps_per_save=2000, max_num_iterations=30000),
+        _density_datamanager(), BlenderDataParserConfig()),
+    # methods.py:849-865: nerfacto's model, no schedules, the phototourism parser
+    "phototourism": MethodConfig(
+        "phototourism", NerfactoModel, NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15),
+        {g: OptimizerGroupConfig(_adam(1e-2)) for g in ("proposal_networks", "field")},
+        TrainerConfig(steps_per_eval_batch=500, steps_per_save=2000, max_num_iterations=30000),
+        _density_datamanager(), PhototourismDataParserConfig()),
+})
 
 def get_method_config(name: str) -> Config:
     if name not in method_configs:

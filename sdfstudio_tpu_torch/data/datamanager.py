@@ -12,8 +12,13 @@ cameras serve. The parser's cues sit beside the images (``depth``,
 ``normal``, ``sensor_depth``, ``fg_mask``) and a batch gathers them too.
 ``FlexibleDataManager`` (datamanager.py:287-332, the Geo-NeuS methods) draws
 a batch from one reference image and hands its source views along. The
-camera optimizer is not ported: every registered surface method sets
-``mode="off"`` (ROADMAP queue 1 item 12).
+data manager's ``camera_optimizer`` (``cameras/camera_optimizers.py``)
+corrects the training rays' poses where its mode is not ``"off"`` (the
+density methods' ``SO3xR3``; datamanager.py:111-112, 236-253); eval rays
+take the poses as parsed. Its ``pose_adjustment`` is trained as the
+``camera_opt`` group: ``engine/setup.py`` hangs the module on the model as
+``model.camera_opt``, so that the model's parameters, checkpoints and JAX
+trees hold it as JAX's ``params["camera_opt"]`` does.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sdfstudio_tpu_torch.cameras.camera_optimizers import CameraOptimizer, CameraOptimizerConfig
 from sdfstudio_tpu_torch.core.rays import RayBundle
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import DataparserOutputs
 from sdfstudio_tpu_torch.data.png import load_image
@@ -34,9 +40,12 @@ class DataManagerConfig:
     """The fields of ``DataManagerConfig`` (datamanager.py:29-44) this port
     reads: ``kind`` is ``vanilla`` or ``flexible`` (``engine/setup.py``
     builds the data manager it names); ``neighbors_num`` cuts a flexible
-    batch's sources to that many."""
+    batch's sources to that many. ``eval_num_rays_per_batch`` is carried
+    and read by no code, in JAX either."""
 
     train_num_rays_per_batch: int = 1024
+    eval_num_rays_per_batch: int = 1024
+    camera_optimizer: CameraOptimizerConfig = CameraOptimizerConfig()
     kind: str = "vanilla"
     neighbors_num: Optional[int] = None
 
@@ -49,13 +58,16 @@ def _stack(arrays, what: str) -> np.ndarray:
 
 def stack_images(outputs: DataparserOutputs) -> Dict[str, np.ndarray]:
     """Host stacks as datamanager.py:128-152 builds them: images [N, H, W,
-    3] (RGBA composited over white), and the parser's cues where it read
+    3] (RGBA composited over the parser's ``alpha_color``, white without
+    one), and the parser's cues where it read
     them: ``depth`` and ``sensor_depth`` [N, H, W], ``normal`` [N, H, W, 3],
     ``fg_mask`` [N, H, W, 1]."""
+    bg = outputs.alpha_color if outputs.alpha_color is not None else np.ones(3, np.float32)
+
     def load(f):
         img = load_image(f)
         if img.shape[-1] == 4:
-            img = img[..., :3] * img[..., 3:] + np.ones(3, np.float32) * (1.0 - img[..., 3:])
+            img = img[..., :3] * img[..., 3:] + bg * (1.0 - img[..., 3:])
         return img[..., :3]
 
     data = {"image": _stack([load(f) for f in outputs.image_filenames], "images")}
@@ -89,6 +101,8 @@ class VanillaDataManager:
             eval_outputs = None  # the eval split is the training views: share their tensors
         self.eval_cameras = eval_outputs.cameras.to(self.device) if eval_outputs is not None else None
         self.eval_data = on_device(eval_outputs) if eval_outputs is not None else None
+        self.camera_optimizer = CameraOptimizer(self.num_train_images,
+                                                config.camera_optimizer).to(self.device)
 
     def sample_train_batch(
         self, generator: torch.Generator, num_rays: Optional[int] = None
@@ -103,10 +117,16 @@ class VanillaDataManager:
         batch = {k: v[cam, y, x] for k, v in self.train_data.items()}
         return torch.stack([cam, y, x], dim=-1), batch
 
-    def generate_rays(self, ray_indices: torch.Tensor) -> RayBundle:
-        """(cam, y, x) -> rays through the pixel centres."""
+    def generate_rays(self, ray_indices: torch.Tensor, train: bool = True) -> RayBundle:
+        """(cam, y, x) -> rays through the pixel centres of the training
+        cameras, their poses corrected by the camera optimizer in training
+        (datamanager.py:236-253)."""
+        cam = ray_indices[:, 0]
         coords = ray_indices[:, 1:].to(torch.float32) + 0.5
-        return self.train_cameras.generate_rays(ray_indices[:, 0], coords)
+        correction = None
+        if train and self.config.camera_optimizer.mode != "off":
+            correction = self.camera_optimizer(cam)
+        return self.train_cameras.generate_rays(cam, coords, camera_opt_to_camera=correction)
 
     def eval_image_data(self, image_index: int) -> Dict[str, torch.Tensor]:
         """Eval image ``image_index``'s tensors, [H, W, C] each."""

@@ -19,9 +19,9 @@ voxel_margin``), marks the points' cells of a ``coarse_grid_resolution``^3
 grid over ``[-1, 1]^3`` and dilates it by one cell along each axis (with
 ``np.roll``'s wrap, as JAX), and reads ``masks/<stem>.png`` where every
 image has one. Train is every image; eval is the first 10. The
-``phototourism`` parser comes with the density methods (ROADMAP queue 1
-item 12). Both ported parsers raise on distorted cameras and on images of
-different sizes.
+``phototourism`` parser is the mipnerf360 parser under another default
+scene (colmap_family.py:145-155). The ported parsers raise on distorted
+cameras and on images of different sizes.
 """
 from __future__ import annotations
 
@@ -129,6 +129,13 @@ def parse_mipnerf360(config: Mipnerf360DataParserConfig, split: str = "train") -
                          near=0.05, far=1000.0, collider_type="near_far")
     return DataparserOutputs([files[i] for i in sel], cameras, scene_box,
                              metadata={"transform": transform, "scale": scale})
+
+
+@dataclasses.dataclass(frozen=True)
+class PhototourismDataParserConfig(Mipnerf360DataParserConfig):
+    """colmap_family.py:145-147: parsed by :func:`parse_mipnerf360`."""
+
+    data: Path = Path("data/phototourism/brandenburg-gate")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -54,6 +54,7 @@ class DataparserOutputs:
     sparse_sfm_points: Optional[List[np.ndarray]] = None  # [P_i, 3] a frame
     pairs_srcs: Optional[np.ndarray] = None  # [N, 1 + sources]: the patch warp's views
     metadata: Optional[Dict] = None  # the mipnerf360 parser's {transform, scale}
+    alpha_color: Optional[np.ndarray] = None  # [3] the RGBA images' background; white if None
 
 
 @dataclasses.dataclass(frozen=True)

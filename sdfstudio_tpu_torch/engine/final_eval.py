@@ -81,11 +81,12 @@ def render_image(model, cameras: Cameras, index: int, chunk: Optional[int] = Non
     h, w = int(cameras.height[index]), int(cameras.width[index])
     bundle = cameras.generate_image_rays(index)
     sched = model.schedules(UNTRAINED_STEP if step is None else step)
-    outs = {k: [] for k in IMAGE_KEYS}
+    outs = {}
     for rb, n_real in _chunked(bundle, chunk):
         out = model.get_outputs(rb, sched=sched, train=False, model_state=model_state)
-        for k in IMAGE_KEYS:
-            outs[k].append(out[k][:n_real])
+        for k in IMAGE_KEYS:  # a density model renders no normal
+            if k in out:
+                outs.setdefault(k, []).append(out[k][:n_real])
     return {k: torch.cat(v, 0).reshape(h, w, -1) for k, v in outs.items()}
 
 

@@ -14,6 +14,9 @@ count but leaves the parameters as they are.
 ``adamw`` is ``optax.adamw(lr * schedule, eps=eps, weight_decay=wd)``
 (optimizers.py:37-38) with optax's ``mask=None``: the decay applies to every
 parameter of the group, ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
+``adam`` with a ``weight_decay`` is ``optax.chain(add_decayed_weights(wd),
+adam(...))`` (optimizers.py:30-35, the camera optimizer's group): the decay
+joins the gradient before the moments, ``g + wd * p``.
 The update runs as a few ``torch._foreach_*`` passes over the group: on
 Neuralangelo's 447M-parameter hash table it is a memory-bound pass of
 several GB a step.
@@ -35,8 +38,7 @@ B1, B2 = 0.9, 0.999  # optax.adam's defaults, which optimizers.py:33 keeps
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Adam's and AdamW's settings (optimizers.py:20-45); the other
-    optimizer kinds (``radam``, ``sgd``) and ``weight_decay`` under plain
-    ``adam`` (an ``add_decayed_weights`` before it) are not ported and raise."""
+    optimizer kinds (``radam``, ``sgd``) are not ported and raise."""
 
     lr: float
     eps: float
@@ -47,18 +49,20 @@ class OptimizerConfig:
         if self.kind not in ("adam", "adamw"):
             raise NotImplementedError(f"optimizer kind {self.kind!r} is not ported; 'adam' and "
                                       "'adamw' are")
-        if self.kind == "adam" and self.weight_decay:
-            raise NotImplementedError("weight_decay under 'adam' is not ported; 'adamw' takes it")
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerGroupConfig:
+    """A group's optimizer and schedule; without one the rate is constant
+    (JAX's ``SchedulerConfig(kind="none")``, optimizers.py:66)."""
+
     optimizer: OptimizerConfig
-    scheduler: SchedulerConfig
+    scheduler: Optional[SchedulerConfig] = None
 
 
 class GroupAdam:
-    """optax ``adam(lr * schedule(count), eps=eps)``, or ``adamw`` with the
+    """optax ``adam(lr * schedule(count), eps=eps)`` (after
+    ``add_decayed_weights`` with a ``weight_decay``), or ``adamw`` with the
     group's ``weight_decay``, over one group's tensors."""
 
     def __init__(self, params: Sequence[torch.Tensor], names: Sequence[str],
@@ -68,7 +72,8 @@ class GroupAdam:
         self.names = list(names)  # the parameters' names in the model
         self.lr, self.eps, self.kind = opt.lr, opt.eps, opt.kind
         self.weight_decay = opt.weight_decay if opt.kind == "adamw" else 0.0
-        self.schedule = config.scheduler.build()
+        self.grad_decay = opt.weight_decay if opt.kind == "adam" else 0.0
+        self.schedule = (config.scheduler or SchedulerConfig(kind="none")).build()
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -79,6 +84,8 @@ class GroupAdam:
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]], apply: bool) -> None:
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        if self.grad_decay:  # optax.add_decayed_weights, before scale_by_adam
+            grads = torch._foreach_add(grads, self.params, alpha=self.grad_decay)
         lr = self.lr_at(self.count)  # optax's schedule reads the count before the increment
         count = self.count + 1
         # the bias corrections in f32, as optax computes decay ** count

@@ -1,7 +1,8 @@
 """Learning-rate multipliers as plain functions of the step (counterpart of
 ``sdfstudio_tpu/engine/schedulers.py``): the ``neus`` warmup-cosine, the
 ``multistep``, the ``multistep_warmup`` and the ``exponential`` schedules that
-the registered methods use."""
+the registered methods use, and ``none`` (a constant 1, a group without a
+scheduler)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +18,7 @@ Schedule = Callable[[float], float]
 class SchedulerConfig:
     """The fields of ``SchedulerConfig`` (schedulers.py:19-58) these schedules read."""
 
-    kind: str  # neus | multistep | multistep_warmup | exponential
+    kind: str  # neus | multistep | multistep_warmup | exponential | none
     max_steps: int = 1000000
     warm_up_end: int = 5000
     learning_rate_alpha: float = 0.05
@@ -35,6 +36,8 @@ class SchedulerConfig:
             return multistep_warmup_schedule(self.warm_up_end, self.milestones, self.gamma)
         if self.kind == "exponential":
             return exponential_schedule(self.decay_rate, self.max_steps)
+        if self.kind == "none":
+            return lambda step: 1.0
         raise NotImplementedError(f"scheduler kind {self.kind!r} is not ported (ROADMAP queue 1)")
 
 

@@ -7,7 +7,11 @@ complete checkpoint (``eval_setup``, setup.py:92-104).
 The port's entry points run on ``cuda`` unless given ``device="cpu"``.
 The model's parameters come from the port's seeded initialiser
 (``MODEL_SEED``); ``Config.seed`` seeds the trainer's batch and jitter
-generator.
+generator. A data manager whose camera optimizer is on (the density
+methods' ``SO3xR3``) hangs it on the model as ``model.camera_opt``, and its
+``camera_opt`` group is added with JAX's settings unless the config names
+one (Adam, lr 6e-4, eps 1e-8, ``weight_decay`` 1e-2, no schedule;
+setup.py:57-64).
 """
 from __future__ import annotations
 
@@ -18,9 +22,12 @@ from typing import Optional, Tuple
 from sdfstudio_tpu_torch.configs.base import Config
 from sdfstudio_tpu_torch.configs.methods import build_model
 from sdfstudio_tpu_torch.data.datamanager import FlexibleDataManager, VanillaDataManager
+from sdfstudio_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig, parse_blender
 from sdfstudio_tpu_torch.data.dataparsers.colmap_family import (
-    HeritageDataParserConfig, Mipnerf360DataParserConfig, parse_heritage, parse_mipnerf360)
+    HeritageDataParserConfig, Mipnerf360DataParserConfig, PhototourismDataParserConfig,
+    parse_heritage, parse_mipnerf360)
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig, parse_config
+from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGroupConfig
 from sdfstudio_tpu_torch.engine.trainer import Trainer
 from sdfstudio_tpu_torch.utils.device import resolve_device
 from sdfstudio_tpu_torch.utils.writer import Writer
@@ -28,7 +35,18 @@ from sdfstudio_tpu_torch.utils.writer import Writer
 MODEL_SEED = 0
 # each ported parser's config type and its parse function (split -> DataparserOutputs)
 PARSERS = {SDFStudioDataParserConfig: parse_config, HeritageDataParserConfig: parse_heritage,
-           Mipnerf360DataParserConfig: parse_mipnerf360}
+           Mipnerf360DataParserConfig: parse_mipnerf360,
+           PhototourismDataParserConfig: parse_mipnerf360, BlenderDataParserConfig: parse_blender}
+CAMERA_OPT_GROUP = OptimizerGroupConfig(OptimizerConfig(lr=6e-4, eps=1e-8, weight_decay=1e-2))
+
+
+def optimizer_groups(config: Config) -> dict:
+    """The run's optimizer groups: the config's, and ``camera_opt`` where
+    the camera optimizer is on and the config names no such group."""
+    groups = dict(config.optimizers)
+    if config.datamanager.camera_optimizer.mode != "off" and "camera_opt" not in groups:
+        groups["camera_opt"] = CAMERA_OPT_GROUP
+    return groups
 
 
 def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str] = None,
@@ -49,7 +67,10 @@ def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str]
     config.dataparser = parser  # as JAX's setup does, so that config.yml names the scene
     parse = PARSERS[type(parser)]
     train_outputs = parse(parser, "train")
-    eval_outputs = parse(parser, "val")
+    try:
+        eval_outputs = parse(parser, "val")
+    except FileNotFoundError:  # a Blender scene without transforms_val.json (setup.py:41-44)
+        eval_outputs = None
     # setup.py:42-52: the Geo-NeuS methods' data manager draws from one reference image
     kinds = {"vanilla": VanillaDataManager, "flexible": FlexibleDataManager}
     if config.datamanager.kind not in kinds:
@@ -58,12 +79,15 @@ def setup_trainer(config: Config, test_mode: bool = False, device: Optional[str]
                                                  device=dev)
     model = build_model(config, train_outputs.scene_box, num_train_data=datamanager.num_train_images,
                         seed=MODEL_SEED, device=dev).train()
+    if config.datamanager.camera_optimizer.mode != "off":
+        # its pose table is then one of the model's parameters (JAX's params["camera_opt"])
+        model.camera_opt = datamanager.camera_optimizer
     run_dir = config.get_base_dir() if checkpoints else None
     writer = Writer(run_dir, use_tensorboard=config.vis == "tensorboard" and not test_mode,
                     use_wandb=config.vis == "wandb" and not test_mode,
                     experiment_name=f"{config.experiment_name}/{config.method_name}",
                     banner=f"[sdfstudio-tpu-torch] method={config.method_name} out={run_dir}")
-    return Trainer(config.trainer, model, datamanager, dict(config.optimizers), run_dir,
+    return Trainer(config.trainer, model, datamanager, optimizer_groups(config), run_dir,
                    method_name=config.method_name, writer=writer, seed=config.seed,
                    scene_dir=Path(parser.data))
 

@@ -41,9 +41,27 @@ the TPU) is taken and has no effect here: its counterpart is CUDA-graph
 capture (ROADMAP queue 1 item 17).
 
 A model with ``has_model_state`` (the occupancy grids of ``neusW``,
-``dto`` and ``neus-acc``) gets its ``init_model_state()`` at set-up; the
-state goes to every train forward and every render chunk
+``dto``, ``neus-acc`` and ``instant-ngp``) gets its ``init_model_state()``
+at set-up; the state goes to every train forward and every render chunk
 (trainer.py:108, 158-175, 345, 477-521).
+
+With ``dynamic_batch`` (``instant-ngp``) the rays of a step move over
+power-of-two buckets from 256 to 131,072 (trainer.py:205-259): the first
+is ``target_num_samples / max_num_samples_per_ray`` rounded to a power of
+two (or the ``dynamic_batch.txt`` of the run's checkpoint directory), and
+at a log row that crosses a multiple of ``dynamic_update_every`` the
+bucket moves to the one whose rays would take ``target_num_samples`` at
+the last step's ``num_samples_per_batch``: one host read, which the log
+row makes anyway. The step's metrics carry ``num_rays_per_batch``. The
+port compiles nothing per bucket; it keeps JAX's buckets so that both
+packages draw the same rays at each step. With ``defer_heavy_ops`` the
+bucket moves at the end of the run instead and is written to
+``dynamic_batch.txt`` (trainer.py:609-614).
+
+The camera optimizer's ``pose_adjustment`` is a parameter of the model
+(``model.camera_opt``, hung there by ``engine/setup.py``), trained as
+the ``camera_opt`` group; the data manager corrects the training rays
+with it (trainer.py:148-149, 351).
 
 Checkpoints (trainer.py:736-805) lie as JAX lays them out,
 ``<base_dir>/sdfstudio_models/step-{step:09d}/`` with ``step.txt`` written
@@ -59,6 +77,7 @@ counterpart, so the generator then keeps its seed.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import shutil
 import time
@@ -86,10 +105,10 @@ CHECKPOINT_FILE = "checkpoint.pt"  # the port's format, in a step directory
 class TrainerConfig:
     """JAX's ``TrainerConfig`` (trainer.py:37-107): every field, with JAX's
     defaults. ``dynamic_batch`` (``instant-ngp``'s power-of-two ray buckets,
-    ROADMAP queue 1 item 12) and ``mixed_precision`` (every registered
-    surface method trains in f32) raise when set; ``target_num_samples`` and
-    ``dynamic_update_every`` belong to the first. The final evaluation's
-    judges are ``"dtu-like"``, ``"heritage-like"`` and ``"sphere"``."""
+    with ``target_num_samples`` and ``dynamic_update_every``) is
+    ``Trainer``'s; ``mixed_precision`` (every registered method trains in
+    f32) raises when set. The final evaluation's judges are
+    ``"dtu-like"``, ``"heritage-like"`` and ``"sphere"``."""
 
     steps_per_save: int = 1000
     steps_per_eval_batch: int = 500
@@ -117,6 +136,12 @@ class TrainerConfig:
 def crossed(cadence: int, lo: int, hi: int) -> bool:
     """Does (lo, hi] hold a multiple of ``cadence`` (trainer.py:602-604)?"""
     return cadence > 0 and hi // cadence > lo // cadence
+
+
+def to_bucket(n: float) -> int:
+    """The power of two nearest ``n`` in log2, clamped to [256, 131072]
+    (``Trainer._to_bucket``, trainer.py:215-219)."""
+    return int(min(max(2 ** round(math.log2(max(n, 1.0))), 256), 131072))
 
 
 def eval_image_index(step: int, num_eval_images: int) -> int:
@@ -193,9 +218,6 @@ class Trainer:
         seed: int = SEED,
         scene_dir: Optional[Path] = None,
     ):
-        if config.dynamic_batch:
-            raise NotImplementedError("dynamic_batch=True is not ported (ROADMAP queue 1 item 12, "
-                                      "with instant-ngp)")
         if config.mixed_precision:
             raise NotImplementedError("mixed_precision=True is not ported: the port trains in f32")
         self.config = config
@@ -215,6 +237,7 @@ class Trainer:
         self.metric_keys: Sequence[str] = ()
         self.eval_history: List[Dict] = []  # the loop's eval images: step, image, metrics, seconds
         self.interrupted_step: Optional[int] = None
+        self.dyn_num_rays: Optional[int] = None  # the dynamic batch's bucket
 
     def setup(self) -> None:
         set_fp32_precision()
@@ -225,6 +248,34 @@ class Trainer:
                             if getattr(self.model, "has_model_state", False) else None)
         if self.config.load_dir is not None:
             self.load_checkpoint(self.config.load_dir, self.config.load_step)
+        self.dyn_num_rays = self.initial_bucket() if self.config.dynamic_batch else None
+
+    # -- the dynamic batch (trainer.py:205-259) ----------------------------------------
+    def initial_bucket(self) -> int:
+        """The run's saved bucket, else ``target_num_samples //
+        max_num_samples_per_ray`` as a bucket (trainer.py:206-213)."""
+        saved = self.ckpt_dir / "dynamic_batch.txt" if self.ckpt_dir is not None else None
+        if saved is not None and saved.exists():
+            return int(saved.read_text().strip())
+        max_per_ray = int(getattr(self.model.config, "max_num_samples_per_ray", 256))
+        return to_bucket(self.config.target_num_samples // max(max_per_ray, 1))
+
+    def update_dynamic_batch(self, samples_per_batch: float) -> None:
+        """Move to the bucket whose rays meet ``target_num_samples`` at the
+        measured samples of a batch (trainer.py:243-259)."""
+        if not samples_per_batch or self.dyn_num_rays is None:
+            return
+        want = self.dyn_num_rays * (self.config.target_num_samples / max(samples_per_batch, 1.0))
+        new = to_bucket(want)
+        if new != self.dyn_num_rays:
+            print(f"[dynamic-batch] rays/batch {self.dyn_num_rays} -> {new} (measured "
+                  f"{samples_per_batch:,.0f} samples vs target {self.config.target_num_samples:,})",
+                  flush=True)
+            self.dyn_num_rays = new
+
+    def num_rays_per_batch(self) -> int:
+        """The rays of a sub-batch: the bucket, or ``train_num_rays_per_batch``."""
+        return self.dyn_num_rays or self.datamanager.config.train_num_rays_per_batch
 
     def train_step(self) -> torch.Tensor:
         """One step; returns its metrics as one device vector (``metric_keys``)."""
@@ -234,7 +285,7 @@ class Trainer:
             # before the step's forward, step 0 included (trainer.py:314-327)
             self.model_state = model.update_model_state(self.model_state, self.step, gen)
         accum = self.rays_multiple()
-        R = dm.config.train_num_rays_per_batch
+        R = self.num_rays_per_batch()
         additional = None
         with record_function("sst/train_batch"):
             if hasattr(dm, "sample_train_batch_flexible"):
@@ -269,6 +320,8 @@ class Trainer:
             apply_grads(self.optimizers, grads, sched)
         self.step += 1
         out = {"loss": total.detach(), **{k: v.detach() for k, v in loss_dict.items()}, **metrics}
+        if self.dyn_num_rays is not None:  # trainer.py:427-430
+            out["num_rays_per_batch"] = torch.tensor(float(self.dyn_num_rays), device=total.device)
         self.metric_keys = sorted(out)
         return torch.stack([out[k].reshape(()).to(torch.float32) for k in self.metric_keys])
 
@@ -323,6 +376,12 @@ class Trainer:
             self.interrupted_step = self.step
             print(f"[trainer] interrupted at step {self.step}; checkpointing before exit", flush=True)
             max_iters = self.step
+        if self.dyn_num_rays is not None and cfg.defer_heavy_ops:
+            # deferred runs move the bucket at the run's end only (trainer.py:609-614)
+            self.update_dynamic_batch(last.get("num_samples_per_batch", 0.0))
+            if self.ckpt_dir is not None:
+                self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+                (self.ckpt_dir / "dynamic_batch.txt").write_text(str(self.dyn_num_rays))
         if max_iters > start and (cfg.defer_heavy_ops or self.interrupted_step is not None):
             if self.ckpt_dir is not None:
                 self.save_checkpoint(max_iters)
@@ -338,7 +397,6 @@ class Trainer:
         """The loop of trainer.py:668-742, one step a window."""
         cfg, dm = self.config, self.datamanager
         window_t0, window_steps = time.perf_counter(), 0
-        rays = dm.config.train_num_rays_per_batch * self.rays_multiple()
         while self.step < max_iters:
             lo = self.step
             vec = self.train_step()
@@ -350,6 +408,10 @@ class Trainer:
                 last.update(zip(self.metric_keys, vec.tolist()))
                 dt = (time.perf_counter() - window_t0) / window_steps
                 window_t0, window_steps = time.perf_counter(), 0
+                if (self.dyn_num_rays is not None and not cfg.defer_heavy_ops
+                        and crossed(cfg.dynamic_update_every, lo, step)):
+                    self.update_dynamic_batch(last.get("num_samples_per_batch", 0.0))
+                rays = self.num_rays_per_batch() * self.rays_multiple()
                 self.writer.put_dict(last, step - 1)
                 self.writer.put_scalar(writer_lib.ITER_TRAIN_TIME, dt, step - 1)
                 self.writer.put_scalar(writer_lib.TRAIN_RAYS_PER_SEC, rays / dt, step - 1)

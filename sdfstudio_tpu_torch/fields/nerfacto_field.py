@@ -1,17 +1,23 @@
 """Nerfacto-style grid field (counterpart of
 ``sdfstudio_tpu/fields/nerfacto_field.py``): the surface methods' ``"grid"``
-background.
+background and the field of ``nerfacto``, ``phototourism`` and
+``instant-ngp``.
 
 A hash grid (L16 x F2, 2^19 rows a level, resolutions 16 to 1024) over the
-contracted positions mapped to [0, 1]^3, ``mlp_base`` [32 -> 64 -> 16]
-(relu hidden, no output activation; one fused kernel), ``trunc_exp`` of its
-first output as the density, the SH encoding of the direction (levels 4,
-16 components), a 32-wide appearance embedding, and ``mlp_head`` [63 -> 64
+contracted positions mapped to [0, 1]^3 (or the aabb's box without a
+contraction, ``instant-ngp``), ``mlp_base`` [32 -> 64 -> 16] (relu hidden,
+no output activation; one fused kernel), ``trunc_exp`` of its first output
+as the density, the SH encoding of the direction (levels 4, 16
+components), a 32-wide appearance embedding, and ``mlp_head`` [63 -> 64
 -> 64 -> 3] with a sigmoid output, which stays on the plain product as in
-JAX (its fused kernel takes no sigmoid, ``ops/mlp.py``). The encode runs
-without a jacobian: the positions take no gradient. The transient,
-semantic and predicted-normal heads, which only the density methods
-(``nerfacto``, ``phototourism``, ``semantic-nerfw``) set, raise.
+JAX (its fused kernel takes no sigmoid, ``ops/mlp.py``). The positions
+keep their gradient, as in JAX (no ``stop_gradient`` there): with the
+camera optimizer on they depend on the pose table, and the encode gives
+the gradient in ``x`` (``ops/hash_grid.py``). With ``use_pred_normals``
+(nerfacto's ``predict_normals``) a head predicts normals from the geometry
+features and a 2-frequency positional encoding (:49, :88-90, :136-141).
+The transient and semantic heads, which only ``semantic-nerfw`` sets,
+raise.
 """
 from __future__ import annotations
 
@@ -27,8 +33,8 @@ from sdfstudio_tpu_torch.core.rays import RaySamples
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
 from sdfstudio_tpu_torch.ops.contraction import contract
 from sdfstudio_tpu_torch.ops.density import trunc_exp
-from sdfstudio_tpu_torch.ops.encodings import HashEncoding, SHEncoding
-from sdfstudio_tpu_torch.ops.mlp import MLP
+from sdfstudio_tpu_torch.ops.encodings import HashEncoding, NeRFEncoding, SHEncoding
+from sdfstudio_tpu_torch.ops.mlp import MLP, DenseLayer, lecun_normal_
 
 # NerfactoFieldNet's widths (nerfacto_field.py:30-42), which every surface caller keeps
 NUM_LAYERS = 2
@@ -68,13 +74,11 @@ class NerfactoField(nn.Module):
         use_pred_normals: bool = False,
     ):
         super().__init__()
-        for flag, name, methods in ((use_transient_embedding, "use_transient_embedding",
-                                     "phototourism"),
-                                    (use_semantics, "use_semantics", "semantic-nerfw"),
-                                    (use_pred_normals, "use_pred_normals", "nerfacto")):
+        for flag, name in ((use_transient_embedding, "use_transient_embedding"),
+                           (use_semantics, "use_semantics")):
             if flag:
                 raise NotImplementedError(f"NerfactoField {name}=True is not ported yet: it comes "
-                                          f"with {methods} (ROADMAP queue 1 item 12)")
+                                          "with semantic-nerfw (ROADMAP queue 1 item 12)")
         self.spatial_distortion = spatial_distortion
         self.use_average_appearance_embedding = use_average_appearance_embedding
         self.use_appearance_embedding = use_appearance_embedding
@@ -86,11 +90,19 @@ class NerfactoField(nn.Module):
                                      features_per_level=FEATURES_PER_LEVEL)
         self.mlp_base = MLP(self.encoding.out_dim, NUM_LAYERS, HIDDEN_DIM, out_dim=1 + GEO_FEAT_DIM)
         self.direction_encoding = SHEncoding(levels=4)
-        self.embedding_appearance = nn.Module()
-        self.embedding_appearance.embedding = nn.Parameter(
-            torch.zeros(num_images, APPEARANCE_EMBEDDING_DIM))
+        if use_appearance_embedding:  # flax makes no table that is never read
+            self.embedding_appearance = nn.Module()
+            self.embedding_appearance.embedding = nn.Parameter(
+                torch.zeros(num_images, APPEARANCE_EMBEDDING_DIM))
         self.mlp_head = MLP(self.direction_encoding.out_dim + GEO_FEAT_DIM + APPEARANCE_EMBEDDING_DIM,
                             NUM_LAYERS_COLOR, HIDDEN_DIM_COLOR, out_dim=3, out_activation="sigmoid")
+        self.use_pred_normals = use_pred_normals
+        if use_pred_normals:  # nerfacto_field.py:62-64, 88-90
+            self.position_encoding = NeRFEncoding(in_dim=3, num_frequencies=2, min_freq_exp=0.0,
+                                                  max_freq_exp=1.0)
+            self.mlp_pred_normals = MLP(GEO_FEAT_DIM + self.position_encoding.out_dim, 3, 64,
+                                        out_dim=64)
+            self.head_pred_normals = DenseLayer(64, 3)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -100,9 +112,14 @@ class NerfactoField(nn.Module):
         self.encoding.reset_parameters(generator)
         self.mlp_base.reset_parameters(generator)
         self.mlp_head.reset_parameters(generator)
-        emb = self.embedding_appearance.embedding
-        std = math.sqrt(1.0 / emb.shape[0]) / 0.87962566103423978
-        nn.init.trunc_normal_(emb, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        if self.use_pred_normals:
+            self.mlp_pred_normals.reset_parameters(generator)
+            lecun_normal_(self.head_pred_normals.kernel, generator)
+            self.head_pred_normals.bias.zero_()
+        if self.use_appearance_embedding:
+            emb = self.embedding_appearance.embedding
+            std = math.sqrt(1.0 / emb.shape[0]) / 0.87962566103423978
+            nn.init.trunc_normal_(emb, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
     def normalize(self, positions: torch.Tensor) -> torch.Tensor:
         """Contract, then map to [0, 1] (nerfacto_field.py:186-192)."""
@@ -112,20 +129,29 @@ class NerfactoField(nn.Module):
             return (contract(positions, order=None) + 2.0) / 4.0
         return SceneBox.get_normalized_positions(positions, self.aabb)
 
-    def density_raw(self, positions01: torch.Tensor):
-        """(raw density, geometry features [.., 15]) at normalised positions (:94-97)."""
+    def density_raw(self, positions01: torch.Tensor, plain: bool = False):
+        """(raw density, geometry features [.., 15]) at normalised positions
+        (:94-97); with ``plain`` ``mlp_base`` takes the plain product, whose
+        backward a second backward can take."""
         with record_function("sst/hash_encode"):
-            feature = self.encoding(positions01.detach())
-        h = self.mlp_base(feature)
+            feature = self.encoding(positions01)
+        h = self.mlp_base.forward_plain(feature) if plain else self.mlp_base(feature)
         return h[..., 0], h[..., 1:]
+
+    def density_fn(self, positions: torch.Tensor) -> torch.Tensor:
+        """Density at world positions [..., 3] (nerfacto_field.py:194-202)."""
+        raw, _ = self.density_raw(self.normalize(positions.reshape(-1, 3)))
+        return trunc_exp(raw).reshape(positions.shape[:-1])
 
     def appearance(self, camera_indices: torch.Tensor, train: bool) -> torch.Tensor:
         """The embedding rows of the samples (nerfacto_field.py:109-121), [N, 32]."""
-        table = self.embedding_appearance.embedding
         n = camera_indices.shape[0]
-        if self.use_appearance_embedding and train:
+        if not self.use_appearance_embedding:
+            return self.encoding.hash_table.new_zeros((n, APPEARANCE_EMBEDDING_DIM))
+        table = self.embedding_appearance.embedding
+        if train:
             return table[camera_indices]
-        if self.use_appearance_embedding and self.use_average_appearance_embedding:
+        if self.use_average_appearance_embedding:
             return table.mean(0).expand(n, -1)
         return table.new_zeros((n, table.shape[1]))
 
@@ -136,7 +162,14 @@ class NerfactoField(nn.Module):
         d = self.direction_encoding(directions)
         emb = self.appearance(camera_indices, train)
         rgb = self.mlp_head(torch.cat([d, geo_feat, emb], dim=-1))
-        return {"density": trunc_exp(raw), "rgb": rgb}
+        out = {"density": trunc_exp(raw), "rgb": rgb}
+        if self.use_pred_normals:  # nerfacto_field.py:136-141
+            pe = self.position_encoding(positions01)
+            n = self.mlp_pred_normals(torch.cat([geo_feat, pe], dim=-1))
+            pred = torch.matmul(n, self.head_pred_normals.kernel) + self.head_pred_normals.bias
+            out["pred_normals"] = pred / torch.clamp(
+                torch.linalg.vector_norm(pred, dim=-1, keepdim=True), min=1e-10)
+        return out
 
     def get_outputs(self, ray_samples: RaySamples, train: bool = False) -> Dict[str, torch.Tensor]:
         """Density [R, S] and rgb [R, S, 3] at the frustum centres (:204-221);

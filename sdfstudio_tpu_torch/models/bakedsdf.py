@@ -19,7 +19,8 @@ from torch.profiler import record_function
 
 from sdfstudio_tpu_torch.components import losses as L
 from sdfstudio_tpu_torch.core.rays import RayBundle
-from sdfstudio_tpu_torch.models.neus_facto import annealed_beta, proposal_networks
+from sdfstudio_tpu_torch.models.neus_facto import (annealed_beta, proposal_density_fns,
+                                                    proposal_networks)
 from sdfstudio_tpu_torch.models.volsdf import VolSDFModel, VolSDFModelConfig
 from sdfstudio_tpu_torch.ops import render as R
 from sdfstudio_tpu_torch.samplers.proposal import proposal_network_sampler
@@ -124,7 +125,7 @@ class BakedSDFFactoModel(VolSDFModel):
         with record_function("sst/proposal_sampler"):
             ray_samples, weights_list, ray_samples_list = proposal_network_sampler(
                 ray_bundle,
-                list(self.proposal_networks),
+                proposal_density_fns(self.proposal_networks, cfg.num_proposal_iterations),
                 rng=rng if train else None,
                 num_proposal_samples_per_ray=cfg.num_proposal_samples_per_ray,
                 num_nerf_samples_per_ray=cfg.num_neus_samples_per_ray,

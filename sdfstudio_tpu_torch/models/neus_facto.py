@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,18 +60,27 @@ class NeuSFactoModelConfig(NeuSModelConfig):
     steps_per_level: int = 10_000
 
 
-def proposal_networks(config, scene_box) -> nn.ModuleList:
+def proposal_networks(config, scene_box, spatial_distortion: Optional[str] = None) -> nn.ModuleList:
     """The proposal fields of ``proposal_net_args_list`` with the scene
-    contraction, each by its ``field_type`` (hash unless the args say
-    ``"mlp"``; neus_facto.py:62-75, bakedsdf.py:54-66);
-    ``use_same_proposal_network`` raises."""
-    if config.use_same_proposal_network:
-        raise NotImplementedError("use_same_proposal_network is not ported yet")
+    contraction (``config.scene_contraction_norm`` unless given), each by
+    its ``field_type`` (hash unless the args say ``"mlp"``;
+    neus_facto.py:62-80, bakedsdf.py:54-69, nerfacto.py:70-88). With
+    ``use_same_proposal_network`` one field, of the first args, serves every
+    iteration (:func:`proposal_density_fns`), its parameters
+    ``proposal_networks.0`` as in JAX's tree."""
     args = config.proposal_net_args_list
+    n = 1 if config.use_same_proposal_network else config.num_proposal_iterations
+    dist = config.scene_contraction_norm if spatial_distortion is None else spatial_distortion
     return nn.ModuleList(
-        HashMLPDensityField(aabb=scene_box.aabb, spatial_distortion=config.scene_contraction_norm,
+        HashMLPDensityField(aabb=scene_box.aabb, spatial_distortion=dist,
                             **args[min(i, len(args) - 1)])
-        for i in range(config.num_proposal_iterations))
+        for i in range(n))
+
+
+def proposal_density_fns(nets: nn.ModuleList, num_iterations: int) -> List[nn.Module]:
+    """The density function of each proposal iteration: the shared field
+    for every one when ``nets`` holds one."""
+    return [nets[min(i, len(nets) - 1)] for i in range(num_iterations)]
 
 
 def annealed_beta(b0: float, b1: float, max_num_iters: int, s: np.float32) -> np.float32:
@@ -181,7 +190,7 @@ class NeuSFactoModel(NeuSModel):
         with record_function("sst/proposal_sampler"):
             ray_samples, weights_list, ray_samples_list = proposal_network_sampler(
                 ray_bundle,
-                list(self.proposal_networks),
+                proposal_density_fns(self.proposal_networks, cfg.num_proposal_iterations),
                 rng=rng if (train and cfg.perturb) else None,
                 num_proposal_samples_per_ray=cfg.num_proposal_samples_per_ray,
                 num_nerf_samples_per_ray=cfg.num_neus_samples_per_ray,

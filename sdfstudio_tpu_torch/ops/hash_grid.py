@@ -43,11 +43,16 @@ the sorted rows.
 
 ``hash_encode`` takes the plain versions for tensors on the CPU, launches
 the kernels for CUDA tensors, and raises on anything else. Under autograd
-it is one ``torch.autograd.Function`` whose backward gives the table's
-gradient from the cotangents of ``out`` and ``jac``; it gives none for
-``x`` and refuses an ``x`` that requires one (no path of the port needs it:
-the encode's input is sample positions, and the SDF gradient is taken
-through the analytic jacobian).
+the encode is one ``torch.autograd.Function`` whose backward gives the
+table's gradient from the cotangents of ``out`` and ``jac``. An ``x`` that
+requires a gradient gets the one JAX takes through its plain ``jnp`` blend
+(encodings.py:370-399): the density methods' sample positions depend on
+the camera optimizer's pose table. The forward kernel then writes ``jac``
+too, and a second node contracts ``grad_x[n, a] = sum_k g_out[n, k]
+jac[n, k, a]`` in plain PyTorch (XLA code in JAX, under the profiler range
+``sst/hash_grad_x``); a cotangent of ``jac`` (a caller that takes it, or a
+loss on a gradient in ``x``, as nerfacto's ``predict_normals`` has) adds the
+weights' second derivative (:func:`hash_jac_vjp_x`, plain PyTorch).
 """
 from __future__ import annotations
 
@@ -384,53 +389,105 @@ def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t if t.device.type == "cpu" or t.data_ptr() % 16 == 0 else t.clone()
 
 
+def hash_jac_vjp_x(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
+                   g_jac: torch.Tensor) -> torch.Tensor:
+    """``sum_{k,a} g_jac[n, k, a] d jac[n, k, a] / dx`` [N, 3]: the part of
+    the gradient in ``x`` that the jacobian's cotangent carries, through the
+    weights' second derivatives (the floor and the corner rows are
+    constant in ``x``, as in JAX). Plain PyTorch on either device: only a
+    loss on a gradient in ``x`` (nerfacto's ``predict_normals``) or a caller
+    that takes ``jac`` and a gradient in ``x`` at once reaches it; it takes
+    no further derivative."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        idx, offset = corner_indices(xg, spec)
+        _, dweights = corner_weights(offset, spec, True)
+        feats = _gather_rows(table.detach(), idx)
+        jac = torch.einsum("nlca,nlcf->nlfa", dweights, feats)
+        return torch.autograd.grad(jac, xg, g_jac.detach().reshape(jac.shape))[0]
+
+
 class _HashEncode(torch.autograd.Function):
     """One autograd node for the encode (the JAX custom VJP of
     ``table_gather`` with the blend around it): the residual is ``x``, from
-    which the backward rebuilds the corners and weights."""
+    which the backward rebuilds the corners and weights. Its gradient in
+    ``x`` is the jacobian cotangent's part only (:func:`hash_jac_vjp_x`);
+    :class:`_HashGradX` adds the ``out`` cotangent's."""
 
     @staticmethod
     def forward(ctx, x, table, spec, want_jac):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, table)
         ctx.spec, ctx.rows = spec, table.shape[0]
         if x.device.type == "cpu":
             return hash_encode_plain(x, table.detach(), spec, want_jac)
-        return hash_encode_fwd(x, table, spec, want_jac)
+        return hash_encode_fwd(x, table.detach(), spec, want_jac)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_out, g_jac=None):
-        (x,) = ctx.saved_tensors
+        x, table = ctx.saved_tensors
         if g_out is None and g_jac is None:
             return None, None, None, None
-        g_out, g_jac = _aligned(g_out), _aligned(g_jac)
-        if x.device.type == "cpu":
-            grad = hash_encode_bwd_plain(x, g_out, g_jac, ctx.spec, ctx.rows)
-        else:
-            # the autograd engine runs this on its own thread, outside the
-            # caller's profiler ranges: name the kernel's range here
-            with record_function("sst/hash_encode_bwd"):
-                grad = hash_encode_bwd(x, g_out, g_jac, ctx.spec, ctx.rows)
-        return None, grad, None, None
+        grad = grad_x = None
+        if ctx.needs_input_grad[1]:
+            ga, gj = _aligned(g_out), _aligned(g_jac)
+            if x.device.type == "cpu":
+                grad = hash_encode_bwd_plain(x, ga, gj, ctx.spec, ctx.rows)
+            else:
+                # the autograd engine runs this on its own thread, outside the
+                # caller's profiler ranges: name the kernel's range here
+                with record_function("sst/hash_encode_bwd"):
+                    grad = hash_encode_bwd(x, ga, gj, ctx.spec, ctx.rows)
+        if ctx.needs_input_grad[0] and g_jac is not None:
+            grad_x = hash_jac_vjp_x(x, table, ctx.spec, g_jac)
+        return grad_x, grad, None, None
+
+
+class _HashGradX(torch.autograd.Function):
+    """The encode's gradient in ``x`` through ``out``, as a node of its own
+    after the encode: it passes ``out`` (and ``jac``) through unchanged, and
+    its backward adds ``grad_x = sum_k g_out[:, k] jac[:, k, :]``. The
+    contraction is plain PyTorch on ``jac``, an output of the encode node,
+    so that a double backward (a loss on a gradient in ``x``, as nerfacto's
+    orientation loss is) reaches the table and ``x`` again through the
+    encode's ``jac`` cotangent, and whatever came before through
+    ``g_out``."""
+
+    @staticmethod
+    def forward(ctx, out, jac, x, want_jac):
+        # x is an input only so that autograd routes grad_x to it
+        ctx.save_for_backward(jac)
+        ctx.want_jac = want_jac
+        return (out.view_as(out), jac.view_as(jac)) if want_jac else out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g_out, g_jac=None):
+        (jac,) = ctx.saved_tensors
+        grad_x = None
+        if g_out is not None:
+            with record_function("sst/hash_grad_x"):
+                grad_x = torch.bmm(g_out.reshape(jac.shape[0], 1, -1), jac)[:, 0]
+        return g_out, g_jac if ctx.want_jac else None, grad_x, None
 
 
 def hash_encode(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec, want_jac: bool = False):
     """``x [..., 3]`` in [0, 1] -> ``out [..., L*F]`` and, with ``want_jac``,
-    ``jac [..., L*F, 3]``; differentiable in the table. CPU tensors take
-    :func:`hash_encode_plain` and :func:`hash_encode_bwd_plain`."""
+    ``jac [..., L*F, 3]``; differentiable in the table and in ``x``. CPU
+    tensors take :func:`hash_encode_plain` and :func:`hash_encode_bwd_plain`."""
     _check(x, table, spec)
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise ValueError("hash_encode gives no gradient for x; pass positions that do not "
-                         "require one")
     batch, F = x.shape[:-1], table.shape[1]
     x2 = x.reshape(-1, 3).contiguous()
-    if torch.is_grad_enabled() and table.requires_grad:
-        res = _HashEncode.apply(x2, table, spec, want_jac)
+    grad_x = torch.is_grad_enabled() and x.requires_grad
+    fwd_jac = want_jac or grad_x  # the gradient in x reads the forward's jacobian
+    if torch.is_grad_enabled() and (table.requires_grad or grad_x):
+        res = _HashEncode.apply(x2, table, spec, fwd_jac)
     elif x.device.type == "cpu":
-        res = hash_encode_plain(x2, table, spec, want_jac)
+        res = hash_encode_plain(x2, table, spec, fwd_jac)
     else:
-        res = hash_encode_fwd(x2, table, spec, want_jac)
+        res = hash_encode_fwd(x2, table, spec, fwd_jac)
+    if grad_x:
+        res = _HashGradX.apply(*res, x2, want_jac)
     L = spec.num_levels
     if not want_jac:
         return res.reshape(*batch, L * F)

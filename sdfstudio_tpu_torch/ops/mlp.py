@@ -157,6 +157,11 @@ class MLP(nn.Module):
                 self.activation,
                 self.out_activation,
             )
+        return self.forward_plain(x)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain product layer by layer, which a double backward can
+        take (the fused kernel's backward is differentiable once)."""
         inputs = h = x
         n = len(self.layers)
         for i, layer in enumerate(self.layers):

@@ -1,7 +1,7 @@
 """Volume-rendering math (counterpart of ``sdfstudio_tpu/ops/render.py``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,17 +42,29 @@ def weights_from_alphas(alphas: torch.Tensor) -> torch.Tensor:
     return weights_and_transmittance_from_alphas(alphas)[0]
 
 
-def render_rgb(rgb: torch.Tensor, weights: torch.Tensor, background_color: str = "black") -> torch.Tensor:
-    """Composite per-sample colours (render.py:79-100) for a constant background."""
+def render_rgb(rgb: torch.Tensor, weights: torch.Tensor, background_color: str = "black",
+               background_rgb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Composite per-sample colours (render.py:73-98) over
+    ``background_rgb [..., 3]`` where given, else over the named
+    background: ``"white"``, ``"black"``, ``"last_sample"`` (each ray's last
+    sample colour), ``"none"`` (no background); ``"random"`` without a
+    ``background_rgb`` is black, as in JAX."""
     checks.check_weights_values(weights, rgb, "render_rgb")
     comp = torch.sum(weights[..., None] * rgb, dim=-2)
-    if background_color == "none":
-        return comp
-    if background_color not in BACKGROUND_COLORS:
-        raise NotImplementedError(f"background_color={background_color!r} is not ported")
+    if background_rgb is None:
+        if background_color == "none":
+            return comp
+        if background_color == "last_sample":
+            background_rgb = rgb[..., -1, :]
+        elif background_color == "random":
+            background_rgb = torch.zeros(3, dtype=rgb.dtype, device=rgb.device)
+        elif background_color in BACKGROUND_COLORS:
+            background_rgb = torch.tensor(BACKGROUND_COLORS[background_color], dtype=rgb.dtype,
+                                          device=rgb.device)
+        else:
+            raise ValueError(f"unknown background_color {background_color!r}")
     accumulation = torch.sum(weights, dim=-1, keepdim=True)
-    bg = torch.tensor(BACKGROUND_COLORS[background_color], dtype=rgb.dtype, device=rgb.device)
-    return comp + bg * (1.0 - accumulation)
+    return comp + background_rgb * (1.0 - accumulation)
 
 
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:
@@ -71,6 +83,26 @@ def render_depth_expected(
     return torch.minimum(
         torch.maximum(depth, steps.amin(dim=-1, keepdim=True)), steps.amax(dim=-1, keepdim=True)
     )
+
+
+def render_depth_median(weights: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """The first bin centre where the cumulative weight reaches 0.5 (the
+    last bin's where it never does), [..., 1] (render.py:117-126)."""
+    checks.check_sample_axis("render_depth_median", weights=weights, starts=starts, ends=ends)
+    steps = (starts + ends) * 0.5
+    cumulative = torch.cumsum(weights, dim=-1)
+    idx = torch.sum((cumulative < 0.5).to(torch.int64), dim=-1, keepdim=True)
+    return torch.gather(steps, -1, torch.clamp(idx, 0, steps.shape[-1] - 1))
+
+
+def render_normals(normals: torch.Tensor, weights: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """Weighted sum of per-sample normals, divided by its norm + 1e-10 with
+    ``normalize`` (render.py:136-141)."""
+    checks.check_weights_values(weights, normals, "render_normals")
+    out = torch.sum(weights[..., None] * normals, dim=-2)
+    if normalize:
+        out = out / (torch.linalg.vector_norm(out, dim=-1, keepdim=True) + 1e-10)
+    return out
 
 
 def render_semantics(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

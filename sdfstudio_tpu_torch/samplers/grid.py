@@ -147,20 +147,25 @@ def occupancy_grid_sampler(
     grid: OccupancyGrid,
     num_samples: int,
     rng: Rng = None,
+    render_step_size: Optional[float] = None,
 ) -> Tuple[RaySamples, torch.Tensor]:
     """Fixed-step marching through the grid (grid.py:119-149): ``num_samples``
-    bins evenly over each ray's [near, far], every bin start but the last
-    moved by one draw a ray times its width with an ``rng``; a sample is
-    valid where its centre lies in an occupied cell and it starts before
-    far. Returns (samples, valid [R, S]). JAX's ``render_step_size`` steps
-    serve only ``instant-ngp``, which the port does not register yet."""
+    bins evenly over each ray's [near, far], or with ``render_step_size``
+    (``instant-ngp``) bins of that length from each ray's near; every bin
+    start but the last moved by one draw a ray times its width with an
+    ``rng``. A sample is valid where its centre lies in an occupied cell
+    and it starts before far. Returns (samples, valid [R, S])."""
     with record_function("sst/occupancy_grid"):
         R = ray_bundle.num_rays
         dev = ray_bundle.origins.device
         nears, fars = ray_bundle.nears, ray_bundle.fars
-        edges = nears + (fars - nears) * linspace01(num_samples + 1, dev)[None]
+        if render_step_size is not None:
+            steps = torch.arange(num_samples + 1, dtype=nears.dtype, device=dev) * render_step_size
+            edges = (nears + steps[None]).expand(R, num_samples + 1)
+        else:
+            edges = nears + (fars - nears) * linspace01(num_samples + 1, dev).to(nears.dtype)[None]
         if rng is not None:
-            jitter = uniform(rng, (R, 1), dev)
+            jitter = uniform(rng, (R, 1), dev).to(nears.dtype)
             step = edges[:, 1:] - edges[:, :-1]
             edges = torch.cat([edges[:, :-1] + jitter * step, edges[:, -1:]], dim=-1)
         ray_samples = ray_bundle.get_ray_samples(euclidean_bins=edges)

@@ -35,7 +35,7 @@ def sample_pdf_bins(
     cdf = torch.clamp(torch.cumsum(pdf, dim=-1), max=1.0)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # [R, N+1]
 
-    u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, device=cdf.device)
+    u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, device=cdf.device, dtype=cdf.dtype)
     if rng is not None:
         shape = (*cdf.shape[:-1], 1 if single_jitter else num_bins)
         u = u + uniform(rng, shape, cdf.device) / num_bins

@@ -41,7 +41,7 @@ def spaced_sampler(
     checks.check_ray_bundle(ray_bundle)
     dev = ray_bundle.origins.device
     num_rays = ray_bundle.num_rays
-    bins = torch.linspace(0.0, 1.0, num_samples + 1, device=dev)[None, :]
+    bins = torch.linspace(0.0, 1.0, num_samples + 1, device=dev, dtype=ray_bundle.nears.dtype)[None, :]
     if rng is not None:
         t_rand = uniform(rng, (num_rays, 1) if single_jitter else (num_rays, num_samples + 1), dev)
         centers = (bins[..., 1:] + bins[..., :-1]) / 2.0

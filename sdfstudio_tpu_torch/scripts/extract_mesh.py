@@ -43,6 +43,10 @@ def run(load_config: Path, output_path: Path, resolution: int = 512,
             raise NotImplementedError(f"{flag} is not ported (ROADMAP queue 1 item 14)")
     _, trainer = eval_setup(load_config, device=device)
     field = trainer.model.field
+    if not hasattr(field, "sdf"):
+        # a density method's field has no SDF; JAX's reads ``field.sdf_fn`` and fails there too
+        raise ValueError(f"{type(trainer.model).__name__} has no SDF field: extract_mesh takes the "
+                         "surface methods")
     dev = next(trainer.model.parameters()).device
 
     def positions(pts: torch.Tensor) -> torch.Tensor:

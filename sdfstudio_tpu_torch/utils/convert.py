@@ -19,7 +19,9 @@ and copies each leaf into the port model's parameter of the same path:
 * the ``"grid"`` background's (``NerfactoField``) ``encoding/hash_table``,
   ``mlp_base/layer_j``, ``mlp_head/layer_j`` and
   ``embedding_appearance/embedding``, and the SDF field's
-  ``embedding_appearance/embedding``, keep their paths (``layers.j``).
+  ``embedding_appearance/embedding``, keep their paths (``layers.j``);
+* the camera optimizer's ``camera_opt/pose_adjustment`` keeps its path
+  (``engine/setup.py`` hangs the module on the model as ``camera_opt``).
 
 It raises on any missing, extra or mis-shaped leaf. The JAX tree's
 ``field_background/dummy`` (the placeholder group of a model without a
@@ -33,8 +35,11 @@ the port's per-group Adam (engine/optimizers.py): for each group, the
 parameters. The chain's ``ScaleByScheduleState`` count must equal Adam's,
 because the port reads the schedule at Adam's count. An ``adamw`` group's
 chain, ``(ScaleByAdamState, EmptyState, ScaleByScheduleState)``, carries
-the same state (``add_decayed_weights`` keeps none); the chain's kind must
-be the group's. The optax objects are
+the same state (``add_decayed_weights`` keeps none), and so does an
+``adam`` group with a ``weight_decay`` (the camera optimizer's), whose
+chain nests Adam's after the decay, ``(EmptyState, (ScaleByAdamState,
+ScaleByScheduleState))``; the chain's kind (the decay after Adam's state
+is ``adamw``) must be the group's. The optax objects are
 read by their attributes, so this module imports nothing of JAX.
 
 ``model_state_from_jax(tree)`` takes JAX's ``model_state`` (an
@@ -115,11 +120,19 @@ def _map_tree(tree: Mapping, prefix: str, names) -> Dict[str, np.ndarray]:
     return flat
 
 
+def _flat_chain(states) -> list:
+    """An optax chain's states in order, nested chains (plain tuples) opened."""
+    out = []
+    for s in states:
+        out.extend(_flat_chain(s) if type(s) is tuple else [s])
+    return out
+
+
 def opt_state_from_jax(optimizers: Mapping, opt_state) -> None:
     """Load optax's per-group Adam state into ``optimizers`` ({group: GroupAdam}) in place."""
     inner = opt_state.inner_states
     for group, opt in optimizers.items():
-        chain = getattr(inner[group], "inner_state", inner[group])
+        chain = _flat_chain(getattr(inner[group], "inner_state", inner[group]))
         adam = [s for s in chain if hasattr(s, "mu") and hasattr(s, "nu")]
         if len(adam) != 1:
             raise ValueError(f"opt_state_from_jax: group {group} has no single Adam state")
@@ -129,7 +142,8 @@ def opt_state_from_jax(optimizers: Mapping, opt_state) -> None:
                   if "count" in getattr(s, "_fields", ()) and not hasattr(s, "mu")]
         if any(c != count for c in others):
             raise ValueError(f"opt_state_from_jax: group {group} schedule counts {others} != Adam count {count}")
-        kind = "adamw" if any(type(s).__name__ == "EmptyState" for s in chain) else "adam"
+        at = chain.index(adam[0])
+        kind = "adamw" if any(type(s).__name__ == "EmptyState" for s in chain[at:]) else "adam"
         if kind != opt.kind:
             raise ValueError(f"opt_state_from_jax: group {group} holds {kind} state, the port's "
                              f"group is {opt.kind}")

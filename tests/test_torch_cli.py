@@ -90,7 +90,11 @@ def _jax_tree(argv):
     return _strip(jtrain.parse_args(argv).to_dict())
 
 
-@pytest.mark.parametrize("method", sorted(method_configs))
+# the density methods' trees (no SDF field) are held in tests/test_torch_density_methods.py
+DENSITY = ("instant-ngp", "nerfacto", "phototourism")
+
+
+@pytest.mark.parametrize("method", sorted(m for m in method_configs if m not in DENSITY))
 def test_overrides_give_jax_config_tree(method):
     argv = _argv(method)
     config, port = train_script.parse_args(argv)
@@ -150,16 +154,14 @@ def test_help_lists_the_methods(capsys):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
-        train_script.parse_args(["neus-facto", "blender-data", "--data", "x"])
+        train_script.parse_args(["neus-facto", "nerfstudio-data", "--data", "x"])
     with pytest.raises(NotImplementedError, match="item 13"):
         train_script.parse_args(["neus-facto", "--machine.num-devices", "2"])
     with pytest.raises(ValueError, match="unknown flag"):
         train_script.parse_args(["neus-facto", "--model.not-a-field", "1"])
     with pytest.raises(NotImplementedError, match="viewer"):
         train_script.main(["neus-facto", "--vis", "viewer"])
-    config, _ = train_script.parse_args(["neus-facto", "--trainer.dynamic-batch", "True"])
-    with pytest.raises(NotImplementedError, match="dynamic_batch"):
-        Trainer(config.trainer, None, None, {})
+    # the dynamic batch is ported (tests/test_torch_instant_ngp.py); mixed precision is not
     with pytest.raises(NotImplementedError, match="mixed_precision"):
         Trainer(TrainerConfig(mixed_precision=True), None, None, {})
     # the parser reads every option of JAX's now; a cue the scene lacks raises, as JAX asserts

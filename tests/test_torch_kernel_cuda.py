@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 fused MLP, forward and backward, the row gathers ``take`` and ``loop``, and
 the hash-grid encode, forward and table gradient (F = 2, 4 and 8; by
-atomics and by the deterministic segment sum).
+atomics and by the deterministic segment sum), and its gradient in ``x``.
 
 Every test here needs an NVIDIA card (marked ``cuda``) and skips elsewhere.
 The file imports no JAX, so on a machine with the card but without JAX it
@@ -438,6 +438,8 @@ _HASH_GRIDS = {
     "sdf": dict(num_levels=16, min_res=16, max_res=2048, log2_hashmap_size=19, smoothstep=True),
     "proposal_64": dict(num_levels=5, min_res=16, max_res=64, log2_hashmap_size=17),
     "proposal_256": dict(num_levels=5, min_res=16, max_res=256, log2_hashmap_size=17),
+    # the density methods' field (nerfacto, phototourism, instant-ngp): L16 x F2, 2^19 rows, 16-1024
+    "nerfacto": dict(num_levels=16, min_res=16, max_res=1024, log2_hashmap_size=19),
     "dense": dict(num_levels=3, min_res=2, max_res=8, log2_hashmap_size=10, smoothstep=True),
     # neus-facto-tpu's SDF grid (L8 x F4, 2^19 rows, 16-512), and an all-dense F = 4 grid
     "tpu_f4": dict(num_levels=8, min_res=16, max_res=512, log2_hashmap_size=19,
@@ -599,8 +601,8 @@ def test_hash_encode_paired_corners_even_and_odd_cx(card, grid):
 
 def test_hash_encode_autograd_wiring(card):
     """The autograd node on the card launches both kernels and gives the
-    table the plain version's gradient, from both outputs' cotangents; it
-    refuses an x that requires a gradient."""
+    table the plain version's gradient, from both outputs' cotangents; an
+    x that requires a gradient gets one (``test_hash_grad_x_matches_plain``)."""
     enc = HashEncoding(**_HASH_GRIDS["sdf"]).to(card)
     with torch.no_grad():
         enc.hash_table.copy_(row_table(enc.total_rows, 2, card))
@@ -613,8 +615,41 @@ def test_hash_encode_autograd_wiring(card):
     assert hg.LAUNCHES["hash_encode_bwd"] == before["hash_encode_bwd"] + 1
     ref = hg.hash_encode_bwd_plain(x, torch.ones_like(out), jac.detach(), enc.spec, enc.total_rows)
     assert _rel_fro(enc.hash_table.grad, ref) <= HASH_BWD_TOL
-    with pytest.raises(ValueError, match="no gradient for x"):
-        enc(x.clone().requires_grad_(True))
+    xg = x.clone().requires_grad_(True)
+    enc(xg).sum().backward()
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
+
+
+GRAD_X_TOL = 1e-5  # chip_smoke.py
+
+
+@pytest.mark.parametrize("grid,n", [("nerfacto", 196608), ("proposal_256", 393216), ("tpu_f4", 98304),
+                                    ("dense_f4", 4099), ("nerfacto", 1)])
+def test_hash_grad_x_matches_plain(card, grid, n):
+    """The encode's gradient in ``x`` (the forward kernel's jacobian
+    contracted with the output cotangent, the density methods' camera
+    optimizer path) against ``hash_encode_plain`` under autograd, to 1e-5
+    of max |plain| at F = 2 and 4; the forward runs once, the table's
+    backward kernel once, and the table gradient holds the plain one's."""
+    enc = HashEncoding(**_HASH_GRIDS[grid]).to(card)
+    with torch.no_grad():
+        enc.hash_table.copy_(row_table(enc.total_rows, enc.features_per_level, card))
+    x = _ray_points(n, 48, card)
+    g = torch.randn((n, enc.out_dim), device=card, generator=torch.Generator(card).manual_seed(1))
+    xk = x.clone().requires_grad_(True)
+    before = dict(hg.LAUNCHES)
+    (enc(xk) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["hash_encode_fwd"] == before["hash_encode_fwd"] + 1
+    assert hg.LAUNCHES["hash_encode_bwd"] == before["hash_encode_bwd"] + 1
+    xp = x.clone().requires_grad_(True)
+    table = enc.hash_table.detach().clone().requires_grad_(True)
+    (hg.hash_encode_plain(xp, table, enc.spec) * g).sum().backward()
+    # a point at 1.0 whose dense far corner lies past the table reads a row of NaN on both sides
+    nan = torch.isnan(xp.grad)
+    assert torch.equal(torch.isnan(xk.grad), nan) and bool((~nan).any())
+    assert _rel_max(xk.grad[~nan], xp.grad[~nan]) <= GRAD_X_TOL
+    assert _rel_fro(enc.hash_table.grad, table.grad) <= HASH_BWD_TOL
 
 
 @pytest.fixture

@@ -132,13 +132,14 @@ def test_appearance_embedding_raises():
     """``use_appearance_embedding=True`` builds since the embedding was
     ported (its rows are held against JAX in
     ``tests/test_torch_grid_background.py``); what still raises are the grid
-    background's heads that only the density methods set, each naming them."""
+    background's heads that only ``semantic-nerfw`` sets, each naming it;
+    the predicted-normal head (nerfacto's ``predict_normals``) builds."""
     from sdfstudio_tpu_torch.fields.nerfacto_field import NerfactoField
 
     field = SDFField(dataclasses.replace(SDFFieldConfig(), use_appearance_embedding=True),
                      num_images=3)
     assert field.embedding_appearance.embedding.shape == (3, 32)
-    for flag, method in (("use_transient_embedding", "phototourism"),
-                         ("use_semantics", "semantic-nerfw"), ("use_pred_normals", "nerfacto")):
-        with pytest.raises(NotImplementedError, match=method):
+    for flag in ("use_transient_embedding", "use_semantics"):
+        with pytest.raises(NotImplementedError, match="semantic-nerfw"):
             NerfactoField(**{flag: True})
+    assert NerfactoField(use_pred_normals=True).head_pred_normals.kernel.shape == (64, 3)
