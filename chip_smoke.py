@@ -184,8 +184,8 @@ Phases, each printing its own line with wall-clock seconds:
 15. baked (``baked[<method>]``, ``baked_phase``): ``bakedsdf``,
    ``bakedsdf-mlp`` and ``bakedangelo`` at their registered values and
    full width through ``<method> mipnerf360-data --data
-   .parity/heritage_like --train-split-percentage 0.97``: 20 steps at the
-   registered rays (ms a step over steps 8-19; ``bakedsdf-mlp`` at the
+   .parity/heritage_like --train-split-percentage 0.97``: 14 steps at the
+   registered rays (ms a step over steps 6-13; ``bakedsdf-mlp`` at the
    largest power of two up to 4096 that fits, the cut printed), ``eval.py``
    on the one eval view and
    ``extract_mesh.py`` at 128^3 (the mesh empty exactly when the SDF keeps
@@ -212,13 +212,29 @@ Phases, each printing its own line with wall-clock seconds:
    the hash node's gradient in ``x`` on ``nerfacto``'s captured field call
    at F = 2 and 4 (``hash_grad_x_case``, 1e-5), timed beside the hash
    backward; one traced step;
-17. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+17. nerf (``nerf[<method>]``, ``nerf_phase``): ``vanilla-nerf``,
+   ``mipnerf`` and ``tensorf`` through ``blender-data``, ``dnerf`` through
+   ``dnerf-data`` (its cameras' times reach the rays: the distortion trains)
+   and for 2 steps through ``blender-data`` (no times: the distortion's
+   parameters unmoved, its RAdam count advanced, none of its launches), and
+   ``semantic-nerfw`` through ``friends-data``, on scenes written on a host
+   thread from the smoke's start (``write_nerf_scenes``: the sphere in
+   Blender's layout, with a time a frame, and in the Friends layout with
+   segmentations that nothing reads), at their registered values and full
+   width: 12 steps (ms a step over steps 4-11, rays/s, peak memory),
+   ``eval.py``, the kernel step against the plain step on the kernel
+   step's resamplings (``dnerf``'s groups against twice the plain float32
+   step's own distance from a float64 step, ``f32_conditioning``) and the
+   free comparison where well posed, launches exact by kernel and by chain,
+   every chain alone (``chain_checks``), ``tensorf``'s tri-plane encodes
+   timed against their bytes bounds (``tensorvm_cases``), one traced step;
+18. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
    F = 8; the fused-MLP entries carry the surface chains', p4's and phases
-   14, 15 and 16's rows, the hash entries the cli, grid, baked and density
-   phases' launches, the F = 4 captured call, the background's F = 2 call,
-   ``bakedangelo``'s F = 8 call and ``nerfacto``'s gradient in ``x``; the
-   cue phases' launches), the
-   ``nvidia-smi`` line, and the result line.
+   14, 15, 16 and 17's rows, the hash entries the cli, grid, baked, density
+   and nerf phases' launches, the F = 4 captured call, the background's
+   F = 2 call, ``bakedangelo``'s F = 8 call and ``nerfacto``'s gradient in
+   ``x``; the cue phases' launches), the ``nvidia-smi`` line, and the
+   result line.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
 call (unless the caller set it), so that cuBLAS accepts the deterministic
@@ -331,12 +347,12 @@ GRID_METHODS = ("neusW", "dto", "neus-acc")  # the occupancy-grid family, at its
 GRID_REFRESH = TRAIN_STEPS // 2  # the heritage phases' fine_grid_update_every and fine_grid_warmup
 # the BakedSDF family through mipnerf360-data on the heritage-like scene (phase 15)
 BAKED_METHODS = ("bakedsdf", "bakedsdf-mlp", "bakedangelo")
-BAKED_STEPS = 20
+BAKED_STEPS = 14
 # the mipnerf360 parser's split: ceil(0.97 x 36) = 35 train views and 1 eval view (eval.py's;
 # the registered 0.9 holds out 3, cut to save the smoke's time)
 BAKED_TRAIN_SPLIT = 0.97
 BAKED_EVAL_VIEWS = 1
-BAKED_TIMED = 8  # steps 8-19 timed
+BAKED_TIMED = 6  # steps 6-13 timed
 # the view rendered with and without kernels; bakedsdf-mlp's takes ~9 s a render, and the
 # smoke's time is short: its eval.py renders the eval view with the kernels
 BAKED_RENDER = ("bakedsdf", "bakedangelo")
@@ -350,6 +366,25 @@ DENSITY_TIMED = 10  # steps 10 to the last timed
 NGP_UPDATE_EVERY = 5  # instant-ngp's --trainer.dynamic-update-every and --trainer.steps-per-log
 DENSITY_CHAINS = {"10-16-1": "proposal", "32-64-16": "base"}
 GRAD_X_TOL = 1e-5  # the hash node's gradient in x against the plain encode's under autograd
+# phase 17: the NeRF baselines through JAX's command line at their registered values, on
+# scenes the smoke writes beside the card's work (write_nerf_scenes): the sphere in Blender's
+# layout (vanilla-nerf, mipnerf, tensorf; dnerf's short run without times), with a time a frame
+# (dnerf through dnerf-data) and in the Friends layout (semantic-nerfw through friends-data)
+NERF_METHODS = ("vanilla-nerf", "mipnerf", "dnerf", "tensorf", "semantic-nerfw")
+NERF_STEPS = 12
+NERF_TIMED = 4  # steps 4 to 11 timed
+NERF_IMAGE = 128  # the Blender-layout views, NERF_VIEWS of them, every 8th an eval view
+NERF_VIEWS = 16
+FRIENDS_VIEWS = 4  # every Friends frame is in both splits: eval.py renders them all
+NERF_PARSERS = {"dnerf": ("dnerf-data", "dnerf"), "semantic-nerfw": ("friends-data", "friends")}
+NERF_CHAINS = {"283-128-128": "mlp_head", "84-256-256-256-3": "temporal_distortion",
+               "150-128-128": "mlp_head", "10-16-1": "proposal", "32-64-16": "base",
+               "31-64-64": "transient", "15-64-64": "semantics"}
+_NERF_SCENES = {}  # the scenes' directory and the writer's thread, removed at exit
+# the phases whose kernel step is held to the plain float32 step's own distance from float64
+# (f32_conditioning): D-NeRF's distortion gradient is ill-conditioned in float32 in either
+# package (tests/test_torch_nerf_methods.py, F32_ILL_CONDITIONED)
+NERF_F32_CONDITIONED = ("dnerf",)
 # phase 11: Neuralangelo at its registered 512 rays a step. A step's encodes:
 # one a round of the NeuS sampler (4 rounds, 64 + 3 x 16 points a ray,
 # without a gradient) and one over the field's centre and six taps (7 x 512
@@ -390,7 +425,7 @@ DIVERGENCE_SEEDS = tuple(range(1000, 1003))  # neus-facto-bigmlp's extra kernel-
 # phase 13: the MonoSDF and Geo-NeuS entries at their registered 1024 rays on the DTU-like scene
 # with its monocular cues, made at run time (JAX's generator at its defaults: 49 views, 384 x 384)
 CUE_METHODS = ("monosdf", "mono-neus", "mono-unisurf", "geo-neus", "geo-volsdf", "geo-unisurf")
-CUE_STEPS = 20
+CUE_STEPS = 12
 CUE_RAYS = 1024  # the six entries' registered rays a step
 CUE_PAIRS = 8  # pairs.txt: +-1..+-4 around the ring, 7 sources after the parser's quirk
 CUE_SFM_POINTS = 500  # GT surface points a view (geo-neus's parser reads them; no loss does)
@@ -1265,25 +1300,33 @@ def pdf_samples(record: list, replay: bool = False):
     (``samplers/proposal.py::pdf_sampler``): each one's samples and the
     weights it resampled from appended to ``record``, or, with ``replay``,
     ``record``'s samples handed back in order in place of resampling."""
+    from sdfstudio_tpu_torch.models import tensorf, vanilla_nerf
     from sdfstudio_tpu_torch.samplers import proposal as prop
 
-    real, given = prop.pdf_sampler, iter(list(record))
+    # the proposal sampler's, and the NeRF models' one resampling (each module's own name)
+    modules = (prop, vanilla_nerf, tensorf)
+    reals, given = [m.pdf_sampler for m in modules], iter(list(record))
 
-    def sampler(ray_bundle, samples, weights, *a, **kw):
-        if replay:  # the recorded bins on this step's rays (their graph: the camera optimizer's)
-            return dataclasses.replace(next(given)[0], origins=ray_bundle.origins,
-                                       directions=ray_bundle.directions,
-                                       pixel_area=ray_bundle.pixel_area,
-                                       camera_indices=ray_bundle.camera_indices)
-        out = real(ray_bundle, samples, weights, *a, **kw)
-        record.append((out, weights.detach()))
-        return out
+    def wrap(real):
+        def sampler(ray_bundle, samples, weights, *a, **kw):
+            if replay:  # the recorded bins on this step's rays (their graph: the camera optimizer's)
+                return dataclasses.replace(next(given)[0], origins=ray_bundle.origins,
+                                           directions=ray_bundle.directions,
+                                           pixel_area=ray_bundle.pixel_area,
+                                           camera_indices=ray_bundle.camera_indices)
+            out = real(ray_bundle, samples, weights, *a, **kw)
+            record.append((out, weights.detach()))
+            return out
 
-    prop.pdf_sampler = sampler
+        return sampler
+
+    for m, real in zip(modules, reals):
+        m.pdf_sampler = wrap(real)
     try:
         yield
     finally:
-        prop.pdf_sampler = real
+        for m, real in zip(modules, reals):
+            m.pdf_sampler = real
 
 
 def _finest(encoding) -> float:
@@ -1302,11 +1345,17 @@ def finest_cells(model, level: int, positions: torch.Tensor) -> torch.Tensor:
     them: a proposal net's or the SDF field's finest grid cell in its [0, 1]
     input, or, for a positional encoding, the period over 2 pi of its
     highest frequency (on a PE+MLP proposal's [-1, 1] input, or on the
-    field's contracted positions when it has no grid). Where two samples are
+    field's contracted positions when it has no grid). The NeRF models'
+    one resampling: TensoRF's plane cell, or the NeRF field's PE. Where two samples are
     a fraction f of such a unit apart, the gradient of that network's
     parameters at them differs by up to ~f of itself (a hash table's
     trilinear weights change by 1 / cell per unit of position)."""
-    nets = list(model.proposal_networks)
+    nets = list(getattr(model, "proposal_networks", []))
+    if not nets and hasattr(model, "encodings"):  # TensoRF's tri-planes over the aabb
+        return model.normalize(positions) * model.encodings.color_encoding.resolution
+    if not nets and hasattr(model, "fine_field"):  # a NeRF field's PE on its own positions
+        field = model.fine_field
+        return field.contract_positions(positions) * _finest(field.position_encoding)
     if level < len(nets):
         net = nets[level]
         scale = 1.0 if net.field_type == "hash" else 2.0
@@ -1356,7 +1405,7 @@ def samples_parted(k_rec: list, p_rec: list, merge_radius: Optional[float], mode
 def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=STEP_LOSS_TOL,
                   grad_tol: float = STEP_GRAD_TOL, shared_samples: bool = False,
                   merge_radius: Optional[float] = None, only_well_posed: bool = False,
-                  model=None) -> dict:
+                  model=None, group_tols: Optional[dict] = None) -> dict:
     """One step twice from the same state and batch, its launches not
     counted: with the kernels (their fused-MLP and hash-grid calls
     captured), then with their plain versions (the fused MLP's and, with
@@ -1378,7 +1427,8 @@ def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=ST
     ``merge_radius``. Elsewhere the two steps differentiate the networks at
     samples that differ, to the gradient, by more than the tolerance (or
     the background merge's discrete choice differs), and that comparison is
-    reported, not held."""
+    reported, not held. ``group_tols`` gives a group a gradient tolerance of
+    its own in place of ``grad_tol`` (``f32_conditioning``)."""
     from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
 
     calls, hash_calls, k_rec, p_rec = [], [], [], []
@@ -1408,8 +1458,10 @@ def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=ST
         for k, e in loss_err.items():
             check(e <= tol_of(k), f"{phase} {k}: kernel step and {what} differ by {e}")
         for g, e in grad_err.items():
-            check(e <= grad_tol and grad_norm[g] > 0,
-                  f"{phase} {g} gradient: kernel step and {what} differ by {e} (norm {grad_norm[g]})")
+            tol = (group_tols or {}).get(g, grad_tol)
+            check(e <= tol and grad_norm[g] > 0,
+                  f"{phase} {g} gradient: kernel step and {what} differ by {e} (tol {tol}, norm "
+                  f"{grad_norm[g]})")
 
     loss_err, grad_err = errors(p_loss, p_grads)
     out = {"loss": k_loss, "loss_err": loss_err, "grad_err": grad_err, "grad_norm": grad_norm,
@@ -3511,6 +3563,348 @@ def density_phase(fm, smi: str, method: str) -> dict:
             "ranges": profile["ranges"], "peak_memory_gib": peak_gib}
 
 
+def write_nerf_scenes() -> None:
+    """Start writing phase 17's scenes into a temporary directory, on a
+    thread of the host while the card runs the earlier phases: the sphere in
+    Blender's layout, the same with a time a frame (D-NeRF's), and in the
+    Friends layout with its segmentations (``data/synthetic.py``)."""
+    from sdfstudio_tpu_torch.data import synthetic
+
+    out = Path(tempfile.mkdtemp(prefix="sst_nerf_scenes_"))
+
+    def write() -> dict:
+        t = time.perf_counter()
+        kw = dict(num_images=NERF_VIEWS, width=NERF_IMAGE, height=NERF_IMAGE)
+        dirs = {"blender": synthetic.generate_blender_sphere_dataset(out / "blender", **kw),
+                "dnerf": synthetic.generate_blender_sphere_dataset(out / "dnerf", times=True, **kw),
+                "friends": synthetic.generate_friends_sphere_dataset(
+                    out / "friends", num_images=FRIENDS_VIEWS, width=NERF_IMAGE,
+                    height=NERF_IMAGE * 3 // 4)}
+        return {"seconds": time.perf_counter() - t, **{k: str(v) for k, v in dirs.items()}}
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    _NERF_SCENES.update(dir=out, pool=pool, future=pool.submit(write))
+
+
+def finish_nerf_scenes() -> dict:
+    info = _NERF_SCENES["future"].result(timeout=600)
+    log("nerf", f"scenes written beside the card's work: {json.dumps(info)}")
+    return info
+
+
+def remove_nerf_scenes() -> None:
+    if "pool" in _NERF_SCENES:
+        _NERF_SCENES["pool"].shutdown(wait=True)
+        shutil.rmtree(_NERF_SCENES["dir"], ignore_errors=True)
+
+
+def tensorvm_cases(phase: str, model, one_step) -> list:
+    """TensoRF's tri-plane encodes (plain PyTorch, ``sst/tensorvm_encode``)
+    on one train step's inputs, recorded by running ``one_step`` once: each
+    call's forward, and the backward into its planes from a seeded
+    cotangent, timed with CUDA events beside the bytes bound of each (each
+    input read once, each output written once: the points and the planes in,
+    the features out; the backward the points and the cotangent in, the
+    planes' gradient out)."""
+    from sdfstudio_tpu_torch.ops import encodings as enc_ops
+
+    calls, real = [], enc_ops.TensorVMEncoding.forward
+
+    def recording(self, x, want_jac=False):
+        calls.append((self, x.detach().clone(), torch.is_grad_enabled()))
+        return real(self, x, want_jac)
+
+    enc_ops.TensorVMEncoding.forward = recording
+    try:
+        one_step()
+    finally:
+        enc_ops.TensorVMEncoding.forward = real
+    names = {id(model.encodings.density_encoding): "density", id(model.encodings.color_encoding): "color"}
+    recs = []
+    for enc, x, grad in calls:
+        n, C, res = x.shape[0], enc.num_components, enc.resolution
+        table = 4.0 * 3 * res * res * C
+        g = torch.randn((n, 3 * C), device=x.device,
+                        generator=torch.Generator(device=x.device).manual_seed(3))
+        out = enc(x)
+        fwd_ms = cuda_time_ms(lambda: enc(x), 10)
+        # the uniform pass runs without a graph: no backward on the path
+        bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(out, enc.plane_coef, g, retain_graph=True),
+                              10) if grad else None
+        nbytes = 4.0 * (3 * n + 3 * C * n) + table  # the backward's: x and g in, the planes' gradient out
+        flop = 3.0 * n * C * 9  # three bilinear blends of C features a plane
+        rec = {"encoding": names[id(enc)], "pass": "fine" if grad else "uniform (no grad)", "points": n,
+               "components": C, "resolution": res, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+               "fwd_bound_ms": max(nbytes / HBM_RATE, flop / FP32_PEAK) * 1e3,
+               "bwd_bound_ms": max(nbytes / HBM_RATE, 2 * flop / FP32_PEAK) * 1e3 if grad else None,
+               "bound_by": "bytes"}
+        recs.append(rec)
+        log(phase, f"tensorvm_encode {json.dumps(rec)}")
+        del out, g
+    check([(r["encoding"], r["pass"]) for r in recs] == [("density", "uniform (no grad)"),
+                                                         ("density", "fine"), ("color", "fine")],
+          f"{phase}: the step's tri-plane calls {[(r['encoding'], r['pass']) for r in recs]}")
+    torch.cuda.empty_cache()
+    return recs
+
+
+def f32_conditioning(fm, model, one_batch, sched) -> dict:
+    """How far float32 itself carries one plain step: the plain versions'
+    float32 step against a float64 step of a copy of the model on the same
+    batch and the same PDF resamplings (``pdf_samples`` replayed), each
+    group's gradient as the relative Frobenius distance, and each loss's
+    relative distance. ``one_batch()`` gives the step's (rays, batch,
+    generator) from a fixed seed."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+
+    rec = []
+
+    def step(m, dtype):
+        rb, b, g = one_batch()
+        rb = rb.map(lambda t: t.to(dtype) if t.is_floating_point() else t)
+        total, ld, _ = loss_and_metrics(m, rb, {k: v.to(dtype) for k, v in b.items()}, sched, g)
+        names, params = zip(*m.named_parameters())
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        groups = {}
+        for n, p, gr in zip(names, params, grads):
+            groups.setdefault(n.split(".")[0], []).append(
+                (gr if gr is not None else torch.zeros_like(p)).reshape(-1).double())
+        return ({k: float(v) for k, v in ld.items()},
+                {k: torch.cat(v) for k, v in groups.items()})
+
+    with uncounted(fm), swap_fused_mlp(fm.fused_mlp_plain):
+        with pdf_samples(rec):
+            l32, g32 = step(model, torch.float32)
+        m64 = copy.deepcopy(model).double()
+        with pdf_samples(rec, replay=True):
+            l64, g64 = step(m64, torch.float64)
+    del m64
+    torch.cuda.empty_cache()
+    return {"grad": {k: rel_fro(g32[k], g64[k]) for k in g64},
+            "loss": {k: abs(l32[k] - l64[k]) / max(abs(l64[k]), 1e-12) for k in l64}}
+
+
+def nerf_phase(fm, smi: str, method: str, scenes: dict) -> dict:
+    """A NeRF baseline (``nerf[<method>]``) at its registered values and full
+    width through JAX's command line, from seed 0: ``vanilla-nerf``,
+    ``mipnerf`` and ``tensorf`` through ``blender-data`` on the written
+    sphere scene, ``dnerf`` through ``dnerf-data`` on its timed copy (the
+    distortion runs; then 2 steps through ``blender-data``, where the rays
+    carry no times: the distortion's launches none, its parameters unmoved,
+    its RAdam count advanced), ``semantic-nerfw`` through ``friends-data``
+    (4,096 rays; the segmentations written and never read). ``NERF_STEPS``
+    steps at the registered rays: the ms a step over steps ``NERF_TIMED`` on
+    (host clock ended by one synchronise), rays/s, the peak memory; one
+    ``eval.py`` pass over the eval views; the kernel step against the plain
+    step on the kernel step's resamplings (and the free comparison where it
+    is well posed, ``step_vs_plain``); launches exact by kernel and by
+    chain (semantic-nerfw's transient chain in training only, its
+    proposals' backward on their update steps); every chain of the step
+    alone (``chain_checks``; the semantic chain, which no loss reaches
+    without labels, on a seeded cotangent); for ``tensorf`` the tri-plane
+    encodes alone (``tensorvm_cases``); one traced step."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.scripts import eval as eval_script
+    from sdfstudio_tpu_torch.scripts import train as train_script
+
+    phase = f"nerf[{method}]"
+    parser, scene_key = NERF_PARSERS.get(method, ("blender-data", "blender"))
+    setup = train_script.setup_lib.setup_trainer
+    made, marks, vecs, initial = [], {}, [], []
+
+    def keep(*args, **kw):
+        """The trainer ``main`` builds, steps ``NERF_TIMED`` and the last
+        marked, the distortion's parameters kept as they start."""
+        t = setup(*args, **kw)
+        initial.append({n: p.detach().clone() for n, p in t.model.named_parameters()
+                        if n.startswith("temporal_distortion")})
+        step = t.train_step
+
+        def marked_step():
+            if t.step == NERF_TIMED:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            vecs.append(step())
+            if t.step == NERF_STEPS:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return vecs[-1]
+
+        t.train_step = marked_step
+        made.append(t)
+        return t
+
+    def run(argv):
+        train_script.setup_lib.setup_trainer = keep
+        try:
+            check(train_script.main(argv) == 0, f"{phase}: the train command failed: {argv}")
+        finally:
+            train_script.setup_lib.setup_trainer = setup
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [method, "--experiment-name", "smoke", "--output-dir", tmp, "--timestamp", "t",
+                "--vis", "none", "--trainer.max-num-iterations", str(NERF_STEPS),
+                "--trainer.steps-per-eval-image", "0", parser, "--data", scenes[scene_key]]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        fm.reset_launch_counts()
+        t = time.perf_counter()
+        run(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        train_total, train_widths = _counts(fm), width_counts(fm)
+        trainer = made[0]
+        dm, model = trainer.datamanager, trainer.model
+        rays = dm.config.train_num_rays_per_batch
+        check(trainer.step == NERF_STEPS and len(vecs) == NERF_STEPS, f"{phase}: step {trainer.step}")
+        step_ms = (marks["t1"] - marks["t0"]) * 1e3 / (NERF_STEPS - NERF_TIMED)
+        rays_per_s = rays * (NERF_STEPS - NERF_TIMED) / (marks["t1"] - marks["t0"])
+        rows = [dict(zip(trainer.metric_keys, v.tolist())) for v in vecs]
+        check(all(math.isfinite(r["loss"]) for r in rows), f"{phase}: losses {[r['loss'] for r in rows]}")
+        extra = {}
+        if method == "dnerf":  # dnerf-data: the times reach the rays, the distortion trains
+            moved = [n for n, p in model.named_parameters()
+                     if n in initial[0] and not torch.equal(p, initial[0][n])]
+            check(dm.train_cameras.times is not None and dm.eval_cameras.times is not None
+                  and len(moved) == len(initial[0]) == 8,
+                  f"{phase}: dnerf-data's times or the distortion's training ({moved})")
+        if method == "semantic-nerfw":  # JAX's data manager reads no segmentation, nor does the port's
+            sem = Path(scenes["friends"]) / "segmentations" / "thing"
+            check(set(dm.train_data) == {"image"} and len(list(sem.glob("*.png"))) == FRIENDS_VIEWS,
+                  f"{phase}: the batch keys {sorted(dm.train_data)}")
+            extra["segmentations_written_unread"] = len(list(sem.glob("*.png")))
+        run_dir = Path(tmp) / "smoke" / method / "t"
+        c0, t = _counts(fm), time.perf_counter()
+        check(eval_script.main(["--load-config", str(run_dir / "config.yml"),
+                                "--output-path", f"{tmp}/eval.json"]) == 0, f"{phase}: eval.py failed")
+        torch.cuda.synchronize()
+        eval_s, eval_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
+        ev = json.loads((Path(tmp) / "eval.json").read_text())
+        check(ev["num_images"] == dm.num_eval_images
+              and all(math.isfinite(ev["results"][k]) for k in ("psnr", "ssim")),
+              f"{phase}: eval.py wrote {ev}")
+        if method == "dnerf":  # the registered blender-data: no times, the distortion skipped
+            c0 = _counts(fm)
+            run([method, "--output-dir", tmp, "--timestamp", "blender", "--vis", "none",
+                 "--trainer.max-num-iterations", "2", "--trainer.steps-per-eval-image", "0",
+                 "blender-data", "--data", scenes["blender"]])
+            blender = made.pop()
+            blender_launches = _minus(_counts(fm), c0)
+            td = blender.optimizers["temporal_distortion"]
+            unmoved = all(torch.equal(p, initial[1][n]) for n, p in blender.model.named_parameters()
+                          if n in initial[1])
+            check(blender.datamanager.train_cameras.times is None and td.count == 2 and unmoved
+                  and float(sum(v.abs().sum() for v in td.nu)) == 0.0,
+                  f"{phase}: blender-data's distortion moved or its RAdam count is {td.count}")
+            extra["blender_data"] = {"launches": blender_launches, "distortion_count": td.count,
+                                     "distortion_unmoved": unmoved}
+            del blender
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(phase, f"main: {main_s:.1f} s; {NERF_STEPS} steps of {rays} rays, steps "
+        f"{NERF_TIMED}-{NERF_STEPS - 1}: {step_ms:.2f} ms a step, {rays_per_s:.0f} rays/s; peak memory "
+        f"{peak_gib:.2f} GiB ({smi}); eval.py {eval_s:.1f} s over {ev['num_images']} views "
+        f"{json.dumps(ev['results'])}; losses first {rows[0]['loss']:.5f} last {rows[-1]['loss']:.5f}")
+
+    sched = model.schedules(trainer.step)
+
+    def one_batch():
+        g = torch.Generator(device=dm.device).manual_seed(777)
+        i, b = dm.sample_train_batch(g, num_rays=rays)
+        return dm.generate_rays(i), b, g
+
+    def one_step():
+        rb, b, g = one_batch()
+        total_, ld, _ = loss_and_metrics(model, rb, b, sched, g)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
+
+    # where float32 itself moves a group's gradient by more than the tolerance (D-NeRF's
+    # distortion: its gradient comes through the field's 512-frequency PE, a sum with heavy
+    # cancellation), the kernel step is held to twice the plain float32 step's own distance
+    # from float64 on the same samples
+    cond = f32_conditioning(fm, model, one_batch, sched) if method in NERF_F32_CONDITIONED else None
+    group_tols = (None if cond is None else
+                  {g: max(STEP_GRAD_TOL, 2.0 * e) for g, e in cond["grad"].items()})
+    if cond is not None:
+        log(phase, f"float32's own distance from float64 on one plain step (the same samples): "
+            f"{json.dumps(cond)}; the kernel step's gradient tolerances {json.dumps(group_tols)}")
+    step = step_vs_plain(fm, phase, one_step, shared_samples=True, only_well_posed=True, model=model,
+                         group_tols=group_tols)
+    calls, hash_calls = step["calls"], step["hash_calls"]
+    errs = {k: step.get(k) for k in ("loss_err", "grad_err", "shared_loss_err", "shared_grad_err",
+                                     "parted", "well_posed")}
+    del step
+    widths = [_chain_key(c) for c in calls]
+    want = {"vanilla-nerf": ["283-128-128"] * 2, "mipnerf": ["283-128-128"] * 2,
+            "dnerf": ["84-256-256-256-3", "283-128-128"] * 2, "tensorf": ["150-128-128"],
+            "semantic-nerfw": ["10-16-1", "10-16-1", "32-64-16", "31-64-64", "15-64-64"]}[method]
+    # every chain takes a backward but the semantic one, which no loss reaches without labels
+    check(widths == want and all(("g" in c) == (k != "15-64-64") for c, k in zip(calls, widths)),
+          f"{phase}: captured chains {widths}, with a backward {[('g' in c) for c in calls]}")
+    check([r["F"] for r in hash_calls] == ([2, 2, 2] if method == "semantic-nerfw" else []),
+          f"{phase}: captured hash calls {[(r['F'], r['x'].shape[0]) for r in hash_calls]}")
+
+    # exact launches: the proposal nets' backward on their update steps; no transient chain at eval
+    n_update = sum(bool(model.schedules(s).get("train_proposal", True)) for s in range(NERF_STEPS))
+    proposal_specs = [net.encoding.spec for net in getattr(model, "proposal_networks", [])]
+    train_want = expected_launches(calls, hash_calls, NERF_STEPS, n_update, 0,
+                                   proposal_chains={(10, 16, 1)}, proposal_specs=proposal_specs)
+    cams = dm.eval_cameras if dm.eval_cameras is not None else dm.train_cameras
+    chunk = model.config.eval_num_rays_per_chunk
+    eval_chunks = sum(math.ceil(int(cams.height[i]) * int(cams.width[i]) / chunk)
+                      for i in range(dm.num_eval_images))
+    eval_calls = [c for c, k in zip(calls, widths) if k != "31-64-64"]
+    launches = {
+        "train": launches_held(phase, "train", train_total, train_want),
+        "eval_py": launches_held(phase, "eval.py", eval_launches,
+                                 expected_launches(eval_calls, hash_calls, 0, 0, eval_chunks)),
+    }
+    if method == "dnerf":
+        heads = [c for c, k in zip(calls, widths) if k == "283-128-128"]
+        launches["blender_data"] = launches_held(phase, "blender-data", extra["blender_data"]["launches"],
+                                                 expected_launches(heads, [], 2, 2, 0))
+        extra["blender_data"]["launches"] = launches["blender_data"]
+    check(set(train_widths) <= {"hash_encode_fwd[F=2]", "hash_encode_bwd[F=2]"},
+          f"{phase}: hash launches by width {train_widths}")
+    log(phase, f"launches, exact: {json.dumps(launches)}; proposal update steps {n_update} of "
+        f"{NERF_STEPS}; eval chunks {eval_chunks}")
+    names = [NERF_CHAINS[w] for w in widths]
+    if names.count("proposal") == 2:
+        names[:2] = ["proposal_0", "proposal_1"]
+    if method in ("vanilla-nerf", "mipnerf", "dnerf"):  # the coarse pass's calls, then the fine's
+        half = len(names) // 2
+        names = [f"{n}_{'coarse' if i < half else 'fine'}" for i, n in enumerate(names)]
+    for c in calls:  # the semantic chain: a seeded cotangent, for its backward held alone
+        if "g" not in c:
+            c["g"] = torch.randn((c["x"].shape[0], c["ws"][-1].shape[1]), device=c["x"].device,
+                                 generator=torch.Generator(device=c["x"].device).manual_seed(5))
+            c["g_seeded"] = True
+    chains = chain_checks(fm, calls, names, phase, method)
+    for rec, c in zip(chains, calls):
+        rec["g_seeded"] = c.get("g_seeded", False)
+    del calls, hash_calls
+    tensorvm = tensorvm_cases(phase, model, one_step) if method == "tensorf" else None
+    torch.cuda.empty_cache()
+    with uncounted(fm):
+        profile = traced_step(trainer)
+    log(phase.replace("[", "_profile["), json.dumps({"train_step": profile}))
+    check(method != "tensorf" or "sst/tensorvm_encode" in profile["ranges"],
+          f"{phase}: no sst/tensorvm_encode range in the traced step: {sorted(profile['ranges'])}")
+    del trainer, model, made, dm
+    torch.cuda.empty_cache()
+    return {"method": method, "parser": parser, "steps": NERF_STEPS, "rays": rays, "step_ms": step_ms,
+            "f32_conditioning": cond, "group_tols": group_tols,
+            "rays_per_s": rays_per_s, "main_s": main_s, "eval_py_s": eval_s, "eval_py": ev["results"],
+            "eval_views": ev["num_images"], "launches": launches, "train_launches": train_total[0],
+            "eval_launches": eval_launches[0], "hash_launches_by_width": train_widths,
+            "chains": chains, "tensorvm": tensorvm, **extra,
+            **{f"step_{k}": v for k, v in errs.items()},
+            "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+            "train_step_idle_share": profile["device_idle_share"],
+            "traced_step_ms": profile["traced_wall_ms"], "device_busy_ms": profile["device_busy_ms"],
+            "ranges": profile["ranges"], "peak_memory_gib": peak_gib}
+
+
 def _counts_sum(parts: list) -> tuple:
     kernels, chains = {}, {}
     for k, c in parts:
@@ -3534,8 +3928,9 @@ def main() -> int:
     from sdfstudio_tpu_torch.scripts.benchmarking import hash_grid_designs as hgd
     from sdfstudio_tpu_torch.utils import cuda_build, host_build
 
-    # the cue phases' scene, generated on the host while the card works
+    # the cue phases' scene and the NeRF phases' scenes, generated on the host while the card works
     start_cue_scene()
+    write_nerf_scenes()
 
     # 1. device -------------------------------------------------------------
     smi = nvidia_smi_line()
@@ -3729,8 +4124,11 @@ def main() -> int:
     baked = {m: baked_phase(fm, smi, m) for m in BAKED_METHODS}
     # 16. the density methods through JAX's command line ------------------------
     density = {m: density_phase(fm, smi, m) for m in DENSITY_METHODS}
+    # 17. the NeRF baselines through JAX's command line on the written scenes
+    nerf_scenes = finish_nerf_scenes()
+    nerf = {m: nerf_phase(fm, smi, m, nerf_scenes) for m in NERF_METHODS}
 
-    # 17. results -----------------------------------------------------------
+    # 18. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -3781,6 +4179,28 @@ def main() -> int:
                 key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
                 rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
                              "out_act": c["out_act"],
+                             "launches": sum(part["chains"].get(key, 0)
+                                             for part in r["launches"].values()),
+                             **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
+                                                  "bound_ms", "bound_ms_fp32", "bound_by")}})
+        return rows
+
+    def nerf_launches(name: str) -> int:
+        """Phase 17's launches of kernel ``name`` (train steps, eval.py, dnerf's blender-data run)."""
+        return sum(r["train_launches"].get(name, 0) + r["eval_launches"].get(name, 0)
+                   + (r["launches"].get("blender_data") or {"kernels": {}})["kernels"].get(name, 0)
+                   for r in nerf.values())
+
+    def nerf_chain_rows(which: str) -> list:
+        """Phase 17's chains alone at a step's captured inputs, with each
+        chain's launches on that method's path."""
+        rows = []
+        for m, r in nerf.items():
+            for c in r["chains"]:
+                d = c[which]
+                key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
+                rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
+                             "out_act": c["out_act"], "g_seeded": c["g_seeded"],
                              "launches": sum(part["chains"].get(key, 0)
                                              for part in r["launches"].values()),
                              **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
@@ -3891,7 +4311,9 @@ def main() -> int:
             "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
             "replaces": replaces,
             "launches": nf_launches[name] + cli_launches(name) + grid_launches(name)
-            + baked_launches(name) + density_launches(name),
+            + baked_launches(name) + density_launches(name) + nerf_launches(name),
+            "launches_nerf": {m: r["train_launches"].get(name, 0) + r["eval_launches"].get(name, 0)
+                              for m, r in nerf.items()},
             "launches_density": {m: r["train_launches"][name] + r["eval_launches"][name]
                                  for m, r in density.items()},
             # nerfacto's field call (L16, 2^19 rows, 4096 x 48 points) with the camera optimizer:
@@ -4012,7 +4434,10 @@ def main() -> int:
                      + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")
                      + cli_launches("fused_mlp_fwd") + cue_launches("fused_mlp_fwd")
                      + grid_launches("fused_mlp_fwd") + baked_launches("fused_mlp_fwd")
-                     + density_launches("fused_mlp_fwd")),
+                     + density_launches("fused_mlp_fwd") + nerf_launches("fused_mlp_fwd")),
+        "launches_nerf": {m: r["train_launches"]["fused_mlp_fwd"] + r["eval_launches"]["fused_mlp_fwd"]
+                          for m, r in nerf.items()},
+        "nerf_chains": nerf_chain_rows("fwd"),
         "launches_density": {m: r["train_launches"]["fused_mlp_fwd"]
                              + r["eval_launches"]["fused_mlp_fwd"] for m, r in density.items()},
         "density_chains": density_chain_rows("fwd"),
@@ -4039,7 +4464,7 @@ def main() -> int:
         "max_abs_err": max([r["max_abs_err"] for r in per_call]
                            + [c["max_abs_err"] for c in surface_chains("fwd") + cli_chain_rows("fwd")
                               + grid_chain_rows("fwd") + baked_chain_rows("fwd")
-                              + density_chain_rows("fwd")]),
+                              + density_chain_rows("fwd") + nerf_chain_rows("fwd")]),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
@@ -4062,7 +4487,9 @@ def main() -> int:
                      + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")
                      + cli_launches("fused_mlp_bwd") + cue_launches("fused_mlp_bwd")
                      + grid_launches("fused_mlp_bwd") + baked_launches("fused_mlp_bwd")
-                     + density_launches("fused_mlp_bwd")),
+                     + density_launches("fused_mlp_bwd") + nerf_launches("fused_mlp_bwd")),
+        "launches_nerf": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in nerf.items()},
+        "nerf_chains": nerf_chain_rows("bwd"),
         "launches_density": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in density.items()},
         "density_chains": density_chain_rows("bwd"),
         "launches_baked": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in baked.items()},
@@ -4081,7 +4508,7 @@ def main() -> int:
         "max_abs_err": max([r["max_abs_err"] for r in bwd]
                            + [c["max_abs_err"] for c in surface_chains("bwd") + cli_chain_rows("bwd")
                               + grid_chain_rows("bwd") + baked_chain_rows("bwd")
-                              + density_chain_rows("bwd")]),
+                              + density_chain_rows("bwd") + nerf_chain_rows("bwd")]),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
@@ -4156,6 +4583,14 @@ def main() -> int:
         "step_loss_err", "step_grad_err", "step_shared_grad_err", "loss_first", "loss_last",
         "buckets", "bucket_moved", "refreshes", "pose_adjustment_max_abs", "extract_mesh_refused")}
         for m, r in density.items()}))
+    log("nerf", json.dumps({m: {k: r.get(k) for k in (
+        "parser", "steps", "rays", "step_ms", "rays_per_s", "main_s", "eval_py", "eval_py_s",
+        "eval_views", "train_step_idle_share", "traced_step_ms", "device_busy_ms", "peak_memory_gib",
+        "step_loss_err", "step_grad_err", "step_shared_loss_err", "step_shared_grad_err",
+        "step_well_posed", "f32_conditioning", "group_tols", "loss_first", "loss_last", "tensorvm",
+        "blender_data",
+        "segmentations_written_unread")} | {"tensorvm_encode_range": r["ranges"].get("sst/tensorvm_encode")}
+        for m, r in nerf.items()}, default=str))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)
@@ -4169,4 +4604,5 @@ if __name__ == "__main__":
         code = main()
     finally:
         stop_cue_scene()
+        remove_nerf_scenes()
     sys.exit(code)

@@ -3,6 +3,8 @@
 Counterpart of ``sdfstudio_tpu/cameras/cameras.py`` for the perspective model
 without distortion, which is what the DTU-like scenes use. Fisheye,
 equirectangular and distortion parameters raise instead of being ignored.
+A camera may carry a time (D-NeRF's frames, cameras.py:58, 98), which its
+rays carry as ``RayBundle.times`` (:223).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ class Cameras:
     cy: torch.Tensor
     width: torch.Tensor  # [N] int
     height: torch.Tensor  # [N] int
+    times: Optional[torch.Tensor] = None  # [N]
 
     @classmethod
     def create(
@@ -43,6 +46,7 @@ class Cameras:
         camera_type: int = PERSPECTIVE,
         distortion_params=None,
         device: Optional[Union[str, torch.device]] = None,
+        times=None,
     ) -> "Cameras":
         """Build from broadcastable host values (cameras.py:60-99)."""
         if camera_type != PERSPECTIVE:
@@ -66,6 +70,8 @@ class Cameras:
             cy=vec(cy),
             width=vec(width, torch.int64),
             height=vec(height, torch.int64),
+            times=None if times is None else torch.as_tensor(times, dtype=torch.float32)
+            .reshape(n).to(dev),
         )
 
     @property
@@ -76,16 +82,17 @@ class Cameras:
     def device(self) -> torch.device:
         return self.camera_to_worlds.device
 
+    def _map(self, fn) -> "Cameras":
+        return dataclasses.replace(self, **{
+            f.name: None if getattr(self, f.name) is None else fn(getattr(self, f.name))
+            for f in dataclasses.fields(self)})
+
     def to(self, device: Union[str, torch.device]) -> "Cameras":
-        return dataclasses.replace(
-            self, **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
-        )
+        return self._map(lambda t: t.to(device))
 
     def __getitem__(self, indices: torch.Tensor) -> "Cameras":
         """The cameras at ``indices`` [M] (``gather_cameras``, datamanager.py:279-284)."""
-        return dataclasses.replace(
-            self, **{f.name: getattr(self, f.name)[indices] for f in dataclasses.fields(self)}
-        )
+        return self._map(lambda t: t[indices])
 
     def get_intrinsics_matrices(self) -> torch.Tensor:
         """[N, 3, 3] pinhole intrinsics in the focal lengths' type (cameras.py:113-122)."""
@@ -129,6 +136,7 @@ class Cameras:
             pixel_area=(dx * dy)[..., None],
             camera_indices=idx,
             directions_norm=directions_norm,
+            times=None if self.times is None else self.times[idx][..., None],
         )
 
     def generate_image_rays(self, camera_index: int) -> RayBundle:

@@ -16,7 +16,10 @@ occupancy-grid family -- ``neus-acc`` (:642-652), ``neusW`` (:788-805, with
 the heritage parser) and ``dto`` (:808-823) -- and the density methods
 -- ``instant-ngp`` (:658-684, the dynamic batch) and ``nerfacto``
 (:739-757) on the Blender parser, ``phototourism`` (:849-865) on the
-phototourism parser, the last two with the ``SO3xR3`` camera optimizer --
+phototourism parser, the last two with the ``SO3xR3`` camera optimizer,
+and the NeRF baselines -- ``vanilla-nerf`` (:697-710), ``dnerf``
+(:712-725), ``mipnerf`` (:727-737) and ``tensorf`` (:763-781) on the
+Blender parser and ``semantic-nerfw`` (:829-841) on the Friends parser --
 each a ``Config``
 (``configs/base.py``) with JAX's model, optimizer groups, trainer
 (``_SURFACE_TRAINER`` and the entry's own values) and data-manager
@@ -38,6 +41,7 @@ from sdfstudio_tpu_torch.data.datamanager import DataManagerConfig
 from sdfstudio_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
 from sdfstudio_tpu_torch.data.dataparsers.colmap_family import (HeritageDataParserConfig,
                                                                 PhototourismDataParserConfig)
+from sdfstudio_tpu_torch.data.dataparsers.misc_parsers import FriendsDataParserConfig
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig
 from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGroupConfig
 from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
@@ -54,7 +58,11 @@ from sdfstudio_tpu_torch.models.neuralreconW import NeuralReconWModel, NeuralRec
 from sdfstudio_tpu_torch.models.neus import NeuSModel, NeuSModelConfig
 from sdfstudio_tpu_torch.models.neus_acc import NeuSAccModel, NeuSAccModelConfig
 from sdfstudio_tpu_torch.models.neus_facto import NeuSFactoModel, NeuSFactoModelConfig
+from sdfstudio_tpu_torch.models.semantic_nerfw import SemanticNerfWModel, SemanticNerfWModelConfig
+from sdfstudio_tpu_torch.models.tensorf import TensoRFModel, TensoRFModelConfig
 from sdfstudio_tpu_torch.models.unisurf import UniSurfModel, UniSurfModelConfig
+from sdfstudio_tpu_torch.models.vanilla_nerf import (MipNerfModel, MipNerfModelConfig, NeRFModel,
+                                                     VanillaModelConfig)
 from sdfstudio_tpu_torch.models.volsdf import VolSDFModel, VolSDFModelConfig
 from sdfstudio_tpu_torch.utils.device import resolve_device
 
@@ -84,6 +92,11 @@ descriptions = {
     "instant-ngp": "Occupancy-grid accelerated NeRF.",
     "nerfacto": "Recommended density model for real captures.",
     "phototourism": "Nerfacto on phototourism captures.",
+    "vanilla-nerf": "Original NeRF.",
+    "mipnerf": "Mip-NeRF (IPE) model.",
+    "tensorf": "TensoRF model.",
+    "semantic-nerfw": "Semantic segmentation + transient filtering.",
+    "dnerf": "Dynamic NeRF with temporal deformation.",
 }
 
 
@@ -100,8 +113,9 @@ def MethodConfig(method_name: str, model_class: type, model,
                   dataparser=dataparser or SDFStudioDataParserConfig())
 
 
-def _adam(lr: float, kind: str = "adam", weight_decay: float = 0.0) -> OptimizerConfig:
-    return OptimizerConfig(lr=lr, eps=1e-15, kind=kind, weight_decay=weight_decay)  # methods.py:62-63
+def _adam(lr: float, kind: str = "adam", weight_decay: float = 0.0,
+          eps: float = 1e-15) -> OptimizerConfig:
+    return OptimizerConfig(lr=lr, eps=eps, kind=kind, weight_decay=weight_decay)  # methods.py:62-63
 
 
 def _neus_sched(warm_up_end: int = 5000, alpha: float = 0.05, max_steps: int = 300000):
@@ -479,6 +493,48 @@ method_configs.update({
         {g: OptimizerGroupConfig(_adam(1e-2)) for g in ("proposal_networks", "field")},
         TrainerConfig(steps_per_eval_batch=500, steps_per_save=2000, max_num_iterations=30000),
         _density_datamanager(), PhototourismDataParserConfig()),
+})
+
+
+def _nerf(name: str, model_class: type, model, optimizers: Dict[str, OptimizerGroupConfig],
+          max_steps: int = 1000000) -> Config:
+    """The NeRF baselines on the Blender parser at 1024 rays a step (methods.py:697-781)."""
+    return MethodConfig(name, model_class, model, optimizers,
+                        TrainerConfig(max_num_iterations=max_steps),
+                        DataManagerConfig(train_num_rays_per_batch=1024), BlenderDataParserConfig())
+
+
+def _radam() -> OptimizerGroupConfig:
+    return OptimizerGroupConfig(_adam(5e-4, kind="radam", eps=1e-8))  # methods.py:707-708
+
+
+def _decay(lr: float, lr_final: float) -> OptimizerGroupConfig:
+    """tensorf's groups (methods.py:772-779)."""
+    return OptimizerGroupConfig(_adam(lr, eps=1e-8), SchedulerConfig(
+        kind="exponential_decay", lr_final=lr_final, max_steps=30000))
+
+
+method_configs.update({
+    # methods.py:697-710: JAX configures a temporal_distortion group, which holds nothing here
+    "vanilla-nerf": _nerf("vanilla-nerf", NeRFModel, VanillaModelConfig(),
+                          {"field": _radam(), "temporal_distortion": _radam()}),
+    # methods.py:712-725
+    "dnerf": _nerf("dnerf", NeRFModel, VanillaModelConfig(enable_temporal_distortion=True),
+                   {"field": _radam(), "temporal_distortion": _radam()}),
+    # methods.py:727-737
+    "mipnerf": _nerf("mipnerf", MipNerfModel, MipNerfModelConfig(eval_num_rays_per_chunk=1024),
+                     {"field": _radam()}),
+    # methods.py:763-781
+    "tensorf": _nerf("tensorf", TensoRFModel, TensoRFModelConfig(),
+                     {"field": _decay(0.001, 0.0001), "encodings": _decay(0.02, 0.002)}, 30000),
+    # methods.py:829-841
+    "semantic-nerfw": MethodConfig(
+        "semantic-nerfw", SemanticNerfWModel,
+        SemanticNerfWModelConfig(eval_num_rays_per_chunk=1 << 16),
+        {g: OptimizerGroupConfig(_adam(1e-2)) for g in ("proposal_networks", "field")},
+        TrainerConfig(steps_per_eval_batch=500, steps_per_save=2000, max_num_iterations=30000),
+        DataManagerConfig(train_num_rays_per_batch=4096, eval_num_rays_per_batch=4096),
+        FriendsDataParserConfig()),
 })
 
 def get_method_config(name: str) -> Config:

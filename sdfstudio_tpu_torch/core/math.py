@@ -1,6 +1,8 @@
 """Math helpers (counterpart of ``sdfstudio_tpu/core/math.py``)."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 
@@ -61,3 +63,39 @@ def components_from_spherical_harmonics(levels: int, directions: torch.Tensor) -
             0.4425326924449826 * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
         ]
     return torch.stack(comps, dim=-1)
+
+
+class Gaussians(NamedTuple):
+    """A multivariate Gaussian (core/math.py:60-64)."""
+
+    mean: torch.Tensor  # [..., dim]
+    cov: torch.Tensor  # [..., dim, dim]
+
+
+def compute_3d_gaussian(directions: torch.Tensor, means: torch.Tensor, dir_variance: torch.Tensor,
+                        radius_variance: torch.Tensor) -> Gaussians:
+    """A Gaussian oriented along the ray (core/math.py:67-78): the variance
+    along the direction and across it."""
+    dir_outer = directions[..., :, None] * directions[..., None, :]
+    eye = torch.eye(directions.shape[-1], dtype=directions.dtype, device=directions.device)
+    dir_mag_sq = torch.clamp(torch.sum(directions**2, dim=-1, keepdim=True), min=1e-10)
+    null_outer = eye - directions[..., :, None] * (directions / dir_mag_sq)[..., None, :]
+    cov = dir_variance[..., None] * dir_outer + radius_variance[..., None] * null_outer
+    return Gaussians(mean=means, cov=cov)
+
+
+def conical_frustum_to_gaussian(origins: torch.Tensor, directions: torch.Tensor,
+                                starts: torch.Tensor, ends: torch.Tensor,
+                                radius: torch.Tensor) -> Gaussians:
+    """mip-NeRF's stable Gaussian of a conical frustum (core/math.py:96-109)."""
+    mu = (starts + ends) / 2.0
+    hw = (ends - starts) / 2.0
+    means = origins + directions * (mu + (2.0 * mu * hw**2.0) / (3.0 * mu**2.0 + hw**2.0))
+    dir_variance = (hw**2) / 3 - (4 / 15) * ((hw**4 * (12 * mu**2 - hw**2)) / (3 * mu**2 + hw**2) ** 2)
+    radius_variance = radius**2 * ((mu**2) / 4 + (5 / 12) * hw**2 - 4 / 15 * (hw**4) / (3 * mu**2 + hw**2))
+    return compute_3d_gaussian(directions, means, dir_variance, radius_variance)
+
+
+def expected_sin(x_means: torch.Tensor, x_vars: torch.Tensor) -> torch.Tensor:
+    """E[sin(y)] for y ~ N(mean, var) (core/math.py:112-114)."""
+    return torch.exp(-0.5 * x_vars) * torch.sin(x_means)

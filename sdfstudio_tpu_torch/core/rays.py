@@ -63,6 +63,7 @@ class RayBundle:
     fars: Optional[torch.Tensor] = None  # [R, 1]
     camera_indices: Optional[torch.Tensor] = None  # [R] int
     directions_norm: Optional[torch.Tensor] = None  # [R, 1]
+    times: Optional[torch.Tensor] = None  # [R, 1], the camera's time (rays.py:87)
 
     @property
     def num_rays(self) -> int:
@@ -105,6 +106,7 @@ class RayBundle:
             s_near=s_near,
             s_far=s_far,
             spacing_kind=spacing_kind,
+            times=self.times,
         )
         checks.check_ray_samples(samples)
         return samples
@@ -125,6 +127,7 @@ class RaySamples:
     s_far: Optional[torch.Tensor] = None  # [R, 1]
     camera_indices: Optional[torch.Tensor] = None
     spacing_kind: str = SPACING_EUCLIDEAN
+    times: Optional[torch.Tensor] = None  # [R, 1], the rays' (rays.py:142)
 
     @property
     def num_rays(self) -> int:

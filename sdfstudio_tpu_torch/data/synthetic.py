@@ -5,6 +5,15 @@ normal cues, the foreground masks and ``pairs.txt``, computed in numpy as
 JAX computes them; the PNGs are written by the port's own writer
 (``data/png.py``) where JAX uses PIL, with the same pixels. The verify
 recipes train on it, and ``final_eval_gt="sphere"`` judges its mesh.
+
+The same sphere in two more layouts, which the NeRF baselines read (the
+JAX package has no generator for them): ``generate_blender_sphere_dataset``
+writes RGBA views and ``transforms_{train,val}.json`` (Blender's layout,
+``blender-data``; with ``times`` each frame's ``time`` and a sphere that
+moves with it, D-NeRF's layout, ``dnerf-data``), and
+``generate_friends_sphere_dataset`` writes ``cameras.json``, the views
+and their segmentations (``segmentations/thing/<stem>.png``: 1 on the
+sphere, 0 elsewhere), the Friends layout (``friends-data``).
 """
 from __future__ import annotations
 
@@ -132,4 +141,98 @@ def generate_sphere_dataset(
         "frames": frames,
     }
     (out_dir / "meta_data.json").write_text(json.dumps(meta, indent=1))
+    return out_dir
+
+
+def _ring_pose(i: int, n: int, cam_radius: float) -> np.ndarray:
+    """Camera ``i`` of ``n`` on a tilted ring around the origin, looking at
+    it: camera-to-world [4, 4] in OpenCV's axes (x right, y down, z forward)."""
+    phi = 2 * np.pi * i / n
+    elev = 0.35 + 0.25 * np.sin(3 * phi)
+    pos = cam_radius * np.array([np.cos(phi) * np.cos(elev), np.sin(phi) * np.cos(elev),
+                                 np.sin(elev)])
+    forward = -pos / np.linalg.norm(pos)
+    right = np.cross(forward, np.array([0.0, 0.0, 1.0]))
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([right, np.cross(forward, right), forward], axis=1)
+    c2w[:3, 3] = pos
+    return c2w
+
+
+def _sphere_view(c2w: np.ndarray, focal: float, width: int, height: int, center: np.ndarray,
+                 radius: float):
+    """(rgb [H, W, 3] in [0, 1] over black, hit [H, W]) of the shaded sphere
+    seen by an OpenCV camera ``c2w`` with pixel centres at +0.5."""
+    ys, xs = np.meshgrid(np.arange(height) + 0.5, np.arange(width) + 0.5, indexing="ij")
+    d_cam = np.stack([(xs - width / 2.0) / focal, (ys - height / 2.0) / focal, np.ones_like(xs)], -1)
+    d_world = (d_cam / np.linalg.norm(d_cam, axis=-1, keepdims=True)) @ c2w[:3, :3].T
+    o_world = np.broadcast_to(c2w[:3, 3], d_world.shape)
+    t, hit = _sphere_trace(o_world, d_world, center, radius)
+    pts = o_world + t[..., None] * d_world
+    normals = (pts - center) / radius
+    light = np.array([1.0, 1.0, 1.0]) / np.sqrt(3.0)
+    shade = 0.2 + 0.8 * np.clip(normals @ light, 0, 1)
+    albedo = 0.6 + 0.4 * np.stack([np.cos(4 * pts[..., 0]), np.cos(4 * pts[..., 1]),
+                                   np.cos(4 * pts[..., 2])], axis=-1)
+    return np.where(hit[..., None], np.clip(shade[..., None] * albedo, 0, 1), 0.0), hit
+
+
+def generate_blender_sphere_dataset(out_dir: Path, num_images: int = 16, width: int = 64,
+                                    height: int = 64, radius: float = 1.0, cam_radius: float = 4.0,
+                                    times: bool = False, val_every: int = 8) -> Path:
+    """The sphere in Blender's layout under ``out_dir``: RGBA views
+    ``train/r_<i>.png`` (alpha 1 on the sphere) and ``transforms_train.json``
+    / ``transforms_val.json`` (every ``val_every``-th view) with
+    ``camera_angle_x`` and OpenGL camera-to-world matrices, the cameras on a
+    ring of ``cam_radius`` (4 by default: the sphere lies between the NeRF
+    models' near and far planes at 2 and 6), at a focal length of 1.2
+    widths. With ``times`` each frame has
+    ``time = i / (n - 1)`` and the sphere's centre moves along x by ``0.2
+    time``. Returns ``out_dir``."""
+    out_dir = Path(out_dir)
+    (out_dir / "train").mkdir(parents=True, exist_ok=True)
+    focal = 1.2 * width
+    splits = {"train": [], "val": []}
+    for i in range(num_images):
+        c2w = _ring_pose(i, num_images, cam_radius)
+        time = i / max(num_images - 1, 1)
+        center = np.array([0.2 * time, 0.0, 0.0]) if times else np.zeros(3)
+        rgb, hit = _sphere_view(c2w, focal, width, height, center, radius)
+        rgba = np.concatenate([rgb, hit[..., None].astype(np.float64)], -1)
+        write_png(out_dir / "train" / f"r_{i}.png", np.round(rgba * 255).astype(np.uint8))
+        gl = c2w.copy()
+        gl[:3, 1:3] *= -1  # OpenCV's y down, z forward -> OpenGL's y up, z back
+        frame = {"file_path": f"./train/r_{i}", "transform_matrix": gl.tolist()}
+        if times:
+            frame["time"] = time
+        splits["val" if i % val_every == 0 else "train"].append(frame)
+    for split, frames in splits.items():
+        (out_dir / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": float(2 * np.arctan(0.5 * width / focal)), "frames": frames}))
+    return out_dir
+
+
+def generate_friends_sphere_dataset(out_dir: Path, num_images: int = 8, width: int = 64,
+                                    height: int = 48, radius: float = 0.5,
+                                    cam_radius: float = 2.5) -> Path:
+    """The sphere in the Friends layout under ``out_dir``: ``cameras.json``
+    (a ``file_path``, OpenCV ``camtoworld`` and 3 x 3 ``intrinsics`` a
+    frame), ``images/<i>.png`` (the sphere over a grey background) and
+    ``segmentations/thing/<i>.png`` (class 1 on the sphere). Returns ``out_dir``."""
+    out_dir = Path(out_dir)
+    for d in ("images", "segmentations/thing"):
+        (out_dir / d).mkdir(parents=True, exist_ok=True)
+    focal = 0.8 * width
+    frames = []
+    for i in range(num_images):
+        c2w = _ring_pose(i, num_images, cam_radius)
+        rgb, hit = _sphere_view(c2w, focal, width, height, np.zeros(3), radius)
+        rgb = np.where(hit[..., None], rgb, 0.5)
+        write_png(out_dir / "images" / f"{i:05d}.png", np.round(rgb * 255).astype(np.uint8))
+        write_png(out_dir / "segmentations" / "thing" / f"{i:05d}.png", hit.astype(np.uint8))
+        intr = [[focal, 0.0, width / 2.0], [0.0, focal, height / 2.0], [0.0, 0.0, 1.0]]
+        frames.append({"file_path": f"images/{i:05d}.png", "camtoworld": c2w.tolist(),
+                       "intrinsics": intr})
+    (out_dir / "cameras.json").write_text(json.dumps({"frames": frames}))
     return out_dir

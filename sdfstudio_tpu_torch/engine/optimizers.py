@@ -1,6 +1,7 @@
-"""Adam and AdamW per named parameter group (counterpart of
-``sdfstudio_tpu/engine/optimizers.py``: one optax ``adam`` or ``adamw`` with
-an injected schedule per top-level group, combined by ``multi_transform``).
+"""Adam, AdamW and RAdam per named parameter group (counterpart of
+``sdfstudio_tpu/engine/optimizers.py``: one optax ``adam``, ``adamw`` or
+``radam`` with an injected schedule per top-level group, combined by
+``multi_transform``).
 
 The update is a short functional Adam on tensors, written to follow optax
 step for step rather than ``torch.optim.Adam``: optax evaluates the
@@ -17,6 +18,17 @@ parameter of the group, ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
 ``adam`` with a ``weight_decay`` is ``optax.chain(add_decayed_weights(wd),
 adam(...))`` (optimizers.py:30-35, the camera optimizer's group): the decay
 joins the gradient before the moments, ``g + wd * p``.
+``radam`` is ``optax.radam(lr * schedule, eps=eps)`` (optimizers.py:38-39):
+Adam's moments and bias corrections, and with ``rho_inf = 2 / (1 - b2) - 1``
+and ``rho_t = rho_inf - 2 t b2^t / (1 - b2^t)`` (in float32, as optax
+computes them) the update ``r_t m_hat / (sqrt(v_hat) + eps)`` with the
+rectifier ``r_t = sqrt((rho_t - 4)(rho_t - 2) rho_inf / ((rho_inf - 4)
+(rho_inf - 2) rho_t))`` where ``rho_t >= 5``, and the plain first moment
+``m_hat`` below (the first five steps at b2 = 0.999). Its state is Adam's
+(count, mu, nu), so JAX's packed checkpoints load into it.
+A configured group that holds no parameters (``vanilla-nerf``'s
+``temporal_distortion``) gets no optimizer, as ``multi_transform`` updates
+nothing there.
 The update runs as a few ``torch._foreach_*`` passes over the group: on
 Neuralangelo's 447M-parameter hash table it is a memory-bound pass of
 several GB a step.
@@ -33,22 +45,24 @@ from sdfstudio_tpu_torch.engine.schedulers import SchedulerConfig
 
 
 B1, B2 = 0.9, 0.999  # optax.adam's defaults, which optimizers.py:33 keeps
+RADAM_THRESHOLD = 5.0  # optax.radam's threshold of rho_t
+KINDS = ("adam", "adamw", "radam")
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    """Adam's and AdamW's settings (optimizers.py:20-45); the other
-    optimizer kinds (``radam``, ``sgd``) are not ported and raise."""
+    """Adam's, AdamW's and RAdam's settings (optimizers.py:20-45); ``sgd``,
+    which no registered method sets, is not ported and raises."""
 
     lr: float
     eps: float
-    kind: str = "adam"  # adam | adamw
+    kind: str = "adam"  # adam | adamw | radam
     weight_decay: float = 0.0
 
     def __post_init__(self):
-        if self.kind not in ("adam", "adamw"):
-            raise NotImplementedError(f"optimizer kind {self.kind!r} is not ported; 'adam' and "
-                                      "'adamw' are")
+        if self.kind not in KINDS:
+            raise NotImplementedError(f"optimizer kind {self.kind!r} is not ported; "
+                                      f"{', '.join(KINDS)} are")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,10 +74,24 @@ class OptimizerGroupConfig:
     scheduler: Optional[SchedulerConfig] = None
 
 
+def radam_rectifier(count: int) -> float:
+    """optax's ``r_t`` at step ``count`` (1, 2, ...) in float32, or 0.0
+    where ``rho_t`` is below the threshold and the update is the plain
+    first moment (transform.py, ``scale_by_radam``)."""
+    f32 = np.float32
+    rho_inf = f32(2.0 / (1.0 - B2) - 1.0)
+    b2t = f32(B2) ** f32(count)
+    rho = rho_inf - f32(2 * count) * b2t / (f32(1.0) - b2t)
+    if not rho >= f32(RADAM_THRESHOLD):
+        return 0.0
+    den = f32((2.0 / (1.0 - B2) - 1.0 - 4.0) * (2.0 / (1.0 - B2) - 1.0 - 2.0)) * rho
+    return float(np.sqrt((rho - f32(4.0)) * (rho - f32(2.0)) * rho_inf / den))
+
+
 class GroupAdam:
     """optax ``adam(lr * schedule(count), eps=eps)`` (after
-    ``add_decayed_weights`` with a ``weight_decay``), or ``adamw`` with the
-    group's ``weight_decay``, over one group's tensors."""
+    ``add_decayed_weights`` with a ``weight_decay``), ``adamw`` with the
+    group's ``weight_decay``, or ``radam``, over one group's tensors."""
 
     def __init__(self, params: Sequence[torch.Tensor], names: Sequence[str],
                  config: OptimizerGroupConfig):
@@ -73,7 +101,7 @@ class GroupAdam:
         self.lr, self.eps, self.kind = opt.lr, opt.eps, opt.kind
         self.weight_decay = opt.weight_decay if opt.kind == "adamw" else 0.0
         self.grad_decay = opt.weight_decay if opt.kind == "adam" else 0.0
-        self.schedule = (config.scheduler or SchedulerConfig(kind="none")).build()
+        self.schedule = (config.scheduler or SchedulerConfig(kind="none")).build(opt.lr)
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -98,12 +126,16 @@ class GroupAdam:
         self.count = count
         if not apply:
             return
-        denom = torch._foreach_div(self.nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(self.mu, bc1)
-        torch._foreach_div_(upd, denom)
-        del denom
+        r = radam_rectifier(count) if self.kind == "radam" else 1.0
+        if r:  # Adam's step, RAdam's rectified one
+            if self.kind == "radam":
+                torch._foreach_mul_(upd, r)
+            denom = torch._foreach_div(self.nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            torch._foreach_div_(upd, denom)
+            del denom
         if self.weight_decay:  # optax.add_decayed_weights, after scale_by_adam
             torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)

@@ -1,8 +1,10 @@
 """Learning-rate multipliers as plain functions of the step (counterpart of
 ``sdfstudio_tpu/engine/schedulers.py``): the ``neus`` warmup-cosine, the
-``multistep``, the ``multistep_warmup`` and the ``exponential`` schedules that
-the registered methods use, and ``none`` (a constant 1, a group without a
-scheduler)."""
+``multistep``, the ``multistep_warmup``, the ``exponential``, the jaxnerf
+``exponential_decay`` (``tensorf``'s) and the ``delayed_exponential``
+schedules, and ``none`` (a constant 1, a group without a scheduler). A
+multiplier is relative to the group's base rate ``lr_init``, which only the
+two log-lerp schedules read."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,15 +20,25 @@ Schedule = Callable[[float], float]
 class SchedulerConfig:
     """The fields of ``SchedulerConfig`` (schedulers.py:19-58) these schedules read."""
 
-    kind: str  # neus | multistep | multistep_warmup | exponential | none
+    kind: str  # neus | multistep | multistep_warmup | exponential | exponential_decay |
+    #            delayed_exponential | none
+    lr_final: float = 5e-6
     max_steps: int = 1000000
+    lr_delay_steps: int = 0
+    lr_delay_mult: float = 1.0
     warm_up_end: int = 5000
     learning_rate_alpha: float = 0.05
     milestones: Tuple[int, ...] = (300000, 400000, 500000)
     gamma: float = 0.33
     decay_rate: float = 0.1
 
-    def build(self) -> Schedule:
+    def build(self, lr_init: float = 1.0) -> Schedule:
+        if self.kind == "exponential_decay":
+            return exponential_decay_schedule(lr_init, self.lr_final, self.max_steps,
+                                              self.lr_delay_steps, self.lr_delay_mult)
+        if self.kind == "delayed_exponential":
+            return delayed_exponential_schedule(lr_init, self.lr_final, self.max_steps,
+                                                self.warm_up_end)
         if self.kind == "neus":
             return neus_schedule(self.warm_up_end, self.learning_rate_alpha, self.max_steps)
         if self.kind == "multistep":
@@ -90,5 +102,43 @@ def exponential_schedule(decay_rate: float, max_steps: int) -> Schedule:
 
     def sched(step: float) -> float:
         return rate ** float(step)
+
+    return sched
+
+
+def exponential_decay_schedule(lr_init: float, lr_final: float, max_steps: int,
+                               lr_delay_steps: int = 0, lr_delay_mult: float = 1.0) -> Schedule:
+    """jaxnerf's log-lerp from ``lr_init`` to ``lr_final`` over ``max_steps``,
+    held at ``lr_final`` after, with an optional sine-eased delay over the
+    first ``lr_delay_steps`` that starts at ``lr_delay_mult``, as a multiplier
+    of ``lr_init`` (schedulers.py:75-96). In float32 as JAX computes it: the
+    step, the fraction, the logs of the rates and the ``exp``."""
+    f32 = np.float32
+    log_init, log_final = f32(np.log(lr_init)), f32(np.log(lr_final))
+    half_pi = f32(0.5 * np.pi)
+
+    def sched(step: float) -> float:
+        s = f32(step)
+        if lr_delay_steps > 0:
+            ramp = np.clip(s / f32(lr_delay_steps), f32(0), f32(1))
+            delay_rate = f32(lr_delay_mult) + f32(1 - lr_delay_mult) * np.sin(half_pi * ramp)
+        else:
+            delay_rate = f32(1.0)
+        t = np.clip(s / f32(max_steps), f32(0), f32(1))
+        log_lerp = np.exp(log_init * (f32(1) - t) + log_final * t)
+        return float(delay_rate * log_lerp / f32(lr_init))
+
+    return sched
+
+
+def delayed_exponential_schedule(lr_init: float, lr_final: float, max_steps: int,
+                                 delay: int) -> Schedule:
+    """0 up to ``delay``, then the log-lerp of ``exponential_decay_schedule``
+    from the delay on (schedulers.py:39-46)."""
+    base = exponential_decay_schedule(lr_init, lr_final, max_steps)
+
+    def sched(step: float) -> float:
+        s = np.float32(step)
+        return base(max(s - np.float32(delay), np.float32(0))) if s > delay else 0.0
 
     return sched

@@ -26,6 +26,8 @@ from sdfstudio_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
 from sdfstudio_tpu_torch.data.dataparsers.colmap_family import (
     HeritageDataParserConfig, Mipnerf360DataParserConfig, PhototourismDataParserConfig,
     parse_heritage, parse_mipnerf360)
+from sdfstudio_tpu_torch.data.dataparsers.misc_parsers import (
+    DNeRFDataParserConfig, FriendsDataParserConfig, parse_dnerf, parse_friends)
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig, parse_config
 from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGroupConfig
 from sdfstudio_tpu_torch.engine.trainer import Trainer
@@ -36,7 +38,8 @@ MODEL_SEED = 0
 # each ported parser's config type and its parse function (split -> DataparserOutputs)
 PARSERS = {SDFStudioDataParserConfig: parse_config, HeritageDataParserConfig: parse_heritage,
            Mipnerf360DataParserConfig: parse_mipnerf360,
-           PhototourismDataParserConfig: parse_mipnerf360, BlenderDataParserConfig: parse_blender}
+           PhototourismDataParserConfig: parse_mipnerf360, BlenderDataParserConfig: parse_blender,
+           DNeRFDataParserConfig: parse_dnerf, FriendsDataParserConfig: parse_friends}
 CAMERA_OPT_GROUP = OptimizerGroupConfig(OptimizerConfig(lr=6e-4, eps=1e-8, weight_decay=1e-2))
 
 

@@ -16,8 +16,13 @@ camera optimizer on they depend on the pose table, and the encode gives
 the gradient in ``x`` (``ops/hash_grid.py``). With ``use_pred_normals``
 (nerfacto's ``predict_normals``) a head predicts normals from the geometry
 features and a 2-frequency positional encoding (:49, :88-90, :136-141).
-The transient and semantic heads, which only ``semantic-nerfw`` sets,
-raise.
+``semantic-nerfw``'s heads (:75-87, 127-135): with
+``use_transient_embedding`` a 16-wide transient embedding of the camera
+joins the geometry features into ``mlp_transient`` [31 -> 64 -> 64] (one
+fused kernel), whose uncertainty (softplus), rgb (sigmoid) and density
+(``trunc_exp``) heads run in training only; with ``use_semantics``
+``mlp_semantics`` [15 -> 64 -> 64] (fused) on the detached geometry
+features and a ``num_semantic_classes``-wide head give the class logits.
 """
 from __future__ import annotations
 
@@ -45,6 +50,14 @@ FEATURES_PER_LEVEL = 2
 NUM_LAYERS_COLOR = 3
 HIDDEN_DIM_COLOR = 64
 APPEARANCE_EMBEDDING_DIM = 32
+TRANSIENT_EMBEDDING_DIM = 16  # nerfacto_field.py:43-46
+NUM_LAYERS_TRANSIENT = 2
+HIDDEN_DIM_TRANSIENT = 64
+SEMANTIC_WIDTH = 64  # mlp_semantics, nerfacto_field.py:85
+
+
+def _dense(x: torch.Tensor, layer: DenseLayer) -> torch.Tensor:
+    return torch.matmul(x, layer.kernel) + layer.bias
 
 
 class NerfactoField(nn.Module):
@@ -52,7 +65,9 @@ class NerfactoField(nn.Module):
     ``NerfactoField`` wrapper's normalisation and ray-sample evaluation
     (:150-221). Parameters carry JAX's names: ``encoding.hash_table``,
     ``mlp_base.layers.i``, ``embedding_appearance.embedding`` and
-    ``mlp_head.layers.i``.
+    ``mlp_head.layers.i`` (and ``embedding_transient.embedding``,
+    ``mlp_transient``, ``head_transient_{uncertainty,rgb,density}``,
+    ``mlp_semantics`` and ``head_semantics`` with the heads).
 
     The appearance rows follow JAX (:109-121): in training each sample
     takes its camera's row (and the table its gradient); at eval zeros, or
@@ -71,14 +86,10 @@ class NerfactoField(nn.Module):
         use_appearance_embedding: bool = True,
         use_transient_embedding: bool = False,
         use_semantics: bool = False,
+        num_semantic_classes: int = 100,
         use_pred_normals: bool = False,
     ):
         super().__init__()
-        for flag, name in ((use_transient_embedding, "use_transient_embedding"),
-                           (use_semantics, "use_semantics")):
-            if flag:
-                raise NotImplementedError(f"NerfactoField {name}=True is not ported yet: it comes "
-                                          "with semantic-nerfw (ROADMAP queue 1 item 12)")
         self.spatial_distortion = spatial_distortion
         self.use_average_appearance_embedding = use_average_appearance_embedding
         self.use_appearance_embedding = use_appearance_embedding
@@ -103,6 +114,26 @@ class NerfactoField(nn.Module):
             self.mlp_pred_normals = MLP(GEO_FEAT_DIM + self.position_encoding.out_dim, 3, 64,
                                         out_dim=64)
             self.head_pred_normals = DenseLayer(64, 3)
+        self.use_transient_embedding = use_transient_embedding
+        if use_transient_embedding:  # nerfacto_field.py:75-82
+            self.embedding_transient = nn.Module()
+            self.embedding_transient.embedding = nn.Parameter(
+                torch.zeros(num_images, TRANSIENT_EMBEDDING_DIM))
+            self.mlp_transient = MLP(GEO_FEAT_DIM + TRANSIENT_EMBEDDING_DIM, NUM_LAYERS_TRANSIENT,
+                                     HIDDEN_DIM_TRANSIENT, out_dim=HIDDEN_DIM_TRANSIENT)
+            self.head_transient_uncertainty = DenseLayer(HIDDEN_DIM_TRANSIENT, 1)
+            self.head_transient_rgb = DenseLayer(HIDDEN_DIM_TRANSIENT, 3)
+            self.head_transient_density = DenseLayer(HIDDEN_DIM_TRANSIENT, 1)
+        self.use_semantics = use_semantics
+        if use_semantics:  # nerfacto_field.py:83-85
+            self.mlp_semantics = MLP(GEO_FEAT_DIM, 2, SEMANTIC_WIDTH, out_dim=SEMANTIC_WIDTH)
+            self.head_semantics = DenseLayer(SEMANTIC_WIDTH, num_semantic_classes)
+
+    def heads(self):
+        """The plain dense heads this field holds."""
+        names = ["head_pred_normals", "head_transient_uncertainty", "head_transient_rgb",
+                 "head_transient_density", "head_semantics"]
+        return [getattr(self, n) for n in names if hasattr(self, n)]
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -112,14 +143,17 @@ class NerfactoField(nn.Module):
         self.encoding.reset_parameters(generator)
         self.mlp_base.reset_parameters(generator)
         self.mlp_head.reset_parameters(generator)
-        if self.use_pred_normals:
-            self.mlp_pred_normals.reset_parameters(generator)
-            lecun_normal_(self.head_pred_normals.kernel, generator)
-            self.head_pred_normals.bias.zero_()
-        if self.use_appearance_embedding:
-            emb = self.embedding_appearance.embedding
-            std = math.sqrt(1.0 / emb.shape[0]) / 0.87962566103423978
-            nn.init.trunc_normal_(emb, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        for mlp in ("mlp_pred_normals", "mlp_transient", "mlp_semantics"):
+            if hasattr(self, mlp):
+                getattr(self, mlp).reset_parameters(generator)
+        for head in self.heads():
+            lecun_normal_(head.kernel, generator)
+            head.bias.zero_()
+        for emb in ("embedding_appearance", "embedding_transient"):
+            if hasattr(self, emb):
+                table = getattr(self, emb).embedding
+                std = math.sqrt(1.0 / table.shape[0]) / 0.87962566103423978
+                nn.init.trunc_normal_(table, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
     def normalize(self, positions: torch.Tensor) -> torch.Tensor:
         """Contract, then map to [0, 1] (nerfacto_field.py:186-192)."""
@@ -166,9 +200,18 @@ class NerfactoField(nn.Module):
         if self.use_pred_normals:  # nerfacto_field.py:136-141
             pe = self.position_encoding(positions01)
             n = self.mlp_pred_normals(torch.cat([geo_feat, pe], dim=-1))
-            pred = torch.matmul(n, self.head_pred_normals.kernel) + self.head_pred_normals.bias
+            pred = _dense(n, self.head_pred_normals)
             out["pred_normals"] = pred / torch.clamp(
                 torch.linalg.vector_norm(pred, dim=-1, keepdim=True), min=1e-10)
+        if self.use_transient_embedding and train:  # nerfacto_field.py:127-132
+            temb = self.embedding_transient.embedding[camera_indices]
+            t = self.mlp_transient(torch.cat([geo_feat, temb], dim=-1))
+            out["transient_uncertainty"] = nn.functional.softplus(
+                _dense(t, self.head_transient_uncertainty))[..., 0]
+            out["transient_rgb"] = torch.sigmoid(_dense(t, self.head_transient_rgb))
+            out["transient_density"] = trunc_exp(_dense(t, self.head_transient_density))[..., 0]
+        if self.use_semantics:  # nerfacto_field.py:133-135
+            out["semantics"] = _dense(self.mlp_semantics(geo_feat.detach()), self.head_semantics)
         return out
 
     def get_outputs(self, ray_samples: RaySamples, train: bool = False) -> Dict[str, torch.Tensor]:

@@ -32,7 +32,7 @@ from sdfstudio_tpu_torch.core.math import safe_normalize
 from sdfstudio_tpu_torch.core.rays import RaySamples
 from sdfstudio_tpu_torch.ops import density as density_ops
 from sdfstudio_tpu_torch.ops.contraction import contract
-from sdfstudio_tpu_torch.ops.encodings import HashEncoding, NeRFEncoding
+from sdfstudio_tpu_torch.ops.encodings import HashEncoding, NeRFEncoding, TensorVMEncoding
 from sdfstudio_tpu_torch.ops.fused_mlp import fused_mlp
 from sdfstudio_tpu_torch.ops.mlp import (
     DenseLayer,
@@ -51,13 +51,15 @@ class SDFFieldConfig:
     """The sizes and values of ``SDFFieldConfig`` (sdf_field.py:63-108) that
     the port reads, with JAX's defaults. The port implements the options
     the registered methods set and JAX's defaults: the
-    hash-grid (``encoding_type="hash"``, f32 tables) or permutohedral
-    (``"permuto"``) grid feature, on or off (``use_grid_feature``),
+    hash-grid (``encoding_type="hash"``, f32 tables), permutohedral
+    (``"permuto"``) or tri-plane (``"tensorf_vm"``: 3 x 24 features at
+    resolution 128, ``hash_smoothstep`` for its weights) grid feature, on
+    or off (``use_grid_feature``),
     positional encoding (or zeros in its place), geometric init, weight
     norm, the appearance embedding on or off, the ref-NeRF colour options
     (off-axis positional encoding, reflections, n.d, diffuse colour,
     specular tint), and the analytic ``"vjp"`` gradient or the numerical
-    one; other encodings and ``"bfloat16"`` tables raise."""
+    one; the periodic encoding and ``"bfloat16"`` tables raise."""
 
     num_layers: int = 8
     hidden_dim: int = 256
@@ -88,7 +90,7 @@ class SDFFieldConfig:
     base_res: int = 16
     log2_hashmap_size: int = 19
     hash_features_per_level: int = 2
-    encoding_type: str = "hash"  # hash | permuto
+    encoding_type: str = "hash"  # hash | permuto | tensorf_vm
     hash_smoothstep: bool = True
     hash_table_dtype: str = "float32"
     use_numerical_gradients: bool = False
@@ -122,19 +124,25 @@ class SDFField(nn.Module):
         self.use_average_appearance_embedding = use_average_appearance_embedding
         if cfg.hash_table_dtype != "float32":
             raise NotImplementedError(f"hash_table_dtype={cfg.hash_table_dtype!r} is not ported")
-        if cfg.encoding_type not in ("hash", "permuto"):
+        if cfg.encoding_type not in ("hash", "permuto", "tensorf_vm"):
             raise NotImplementedError(f"encoding_type={cfg.encoding_type!r} is not ported")
         grid = dict(num_levels=cfg.num_levels, min_res=cfg.base_res, max_res=cfg.max_res,
                     log2_hashmap_size=cfg.log2_hashmap_size,
                     features_per_level=cfg.hash_features_per_level)
         # both grids give L*F features; without the grid feature there is no table
         self.encoding = None
-        if cfg.use_grid_feature and cfg.encoding_type == "hash":
+        self.grid_dim = cfg.num_levels * cfg.hash_features_per_level
+        if cfg.encoding_type == "tensorf_vm":  # sdf_field.py:152-153, 72 features
+            self.grid_dim = 3 * 24
+            if cfg.use_grid_feature:
+                self.encoding = TensorVMEncoding(128, 24, smoothstep=cfg.hash_smoothstep)
+        elif cfg.use_grid_feature and cfg.encoding_type == "hash":
             self.encoding = HashEncoding(smoothstep=cfg.hash_smoothstep, **grid)
         elif cfg.use_grid_feature:
             self.encoding = PermutoEncoding(**grid)
-        self.encode_range = f"sst/{cfg.encoding_type}_encode"  # the profiler range of the encode
-        self.grid_dim = cfg.num_levels * cfg.hash_features_per_level
+        # the profiler range of the encode
+        self.encode_range = ("sst/tensorvm_encode" if cfg.encoding_type == "tensorf_vm"
+                             else f"sst/{cfg.encoding_type}_encode")
         self.position_encoding = NeRFEncoding(
             3, cfg.position_encoding_max_degree, 0.0, cfg.position_encoding_max_degree - 1, False,
             off_axis=cfg.off_axis,

@@ -1,6 +1,7 @@
 """Density model base (counterpart of ``sdfstudio_tpu/models/base_model.py``):
-the configuration and the machinery that ``nerfacto``, ``phototourism``
-and ``instant-ngp`` share.
+the configuration and the machinery that the density methods share
+(``nerfacto``, ``phototourism``, ``instant-ngp``, ``vanilla-nerf``,
+``mipnerf``, ``dnerf``, ``tensorf`` and ``semantic-nerfw``).
 
 As with the surface models, a model is an ``nn.Module`` whose
 schedule-driven state arrives as a ``sched`` dict computed from ``step``;
@@ -16,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from sdfstudio_tpu_torch.components.colliders import near_far_collider
 from sdfstudio_tpu_torch.core.rays import RayBundle
 from sdfstudio_tpu_torch.core.scene_box import SceneBox
 from sdfstudio_tpu_torch.samplers.spaced import Rng
@@ -23,9 +25,9 @@ from sdfstudio_tpu_torch.samplers.spaced import Rng
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """base_model.py:20-32. The collider and loss-coefficient fields are
-    carried for JAX's config tree; both registered density models set their
-    own collider, and no trainer reads the coefficients."""
+    """base_model.py:20-32: the near / far collider (which ``nerfacto`` and
+    ``instant-ngp`` replace with their own), and the coefficients that
+    ``scale_losses`` puts on the NeRF models' two rgb losses."""
 
     enable_collider: bool = True
     collider_near: float = 2.0
@@ -53,6 +55,17 @@ class Model(nn.Module):
 
     def schedules(self, step: float) -> Dict:
         return {}
+
+    def apply_collider(self, ray_bundle: RayBundle, train: bool = False) -> RayBundle:
+        """Constant near and far planes when ``enable_collider`` (base_model.py:50-55)."""
+        if self.config.enable_collider:
+            return near_far_collider(ray_bundle, self.config.collider_near, self.config.collider_far)
+        return ray_bundle
+
+    def scale_losses(self, loss_dict: Dict) -> Dict:
+        """Each loss times its ``loss_coefficients`` entry, 1 without one (base_model.py:67-69)."""
+        coeffs = dict(self.config.loss_coefficients)
+        return {k: v * coeffs.get(k, 1.0) for k, v in loss_dict.items()}
 
     def get_outputs(self, ray_bundle: RayBundle, sched: Optional[Dict] = None, train: bool = False,
                     rng: Rng = None, model_state=None) -> Dict[str, torch.Tensor]:

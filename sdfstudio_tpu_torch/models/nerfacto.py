@@ -69,7 +69,12 @@ class NerfactoModelConfig(ModelConfig):
 
 
 class NerfactoModel(Model):
-    """nerfacto.py:54-223."""
+    """nerfacto.py:54-223. A subclass with ``keep_field_outputs`` also gets
+    the field's raw outputs and the final ray samples in the outputs
+    (``field_outputs``, ``ray_samples``; nerfacto.py:194-198), which
+    ``semantic-nerfw`` renders its heads from."""
+
+    keep_field_outputs = False
 
     def __init__(self, config: NerfactoModelConfig, scene_box, num_train_data: int):
         super().__init__(config, scene_box, num_train_data)
@@ -165,6 +170,9 @@ class NerfactoModel(Model):
         for i in range(cfg.num_proposal_iterations):
             outputs[f"prop_depth_{i}"] = R.render_depth_median(
                 weights_list[i], ray_samples_list[i].starts, ray_samples_list[i].ends)
+        if self.keep_field_outputs:
+            outputs["field_outputs"] = field_outputs
+            outputs["ray_samples"] = ray_samples
         return outputs
 
     def get_loss_dict(self, outputs: Dict, batch: Dict, sched: Dict,

@@ -109,3 +109,9 @@ def render_semantics(values: torch.Tensor, weights: torch.Tensor) -> torch.Tenso
     """Weighted sum of per-sample vectors (render.py:131-135); normals use it."""
     checks.check_weights_values(weights, values, "render_semantics")
     return torch.sum(weights[..., None] * values, dim=-2)
+
+
+def render_uncertainty(betas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """NeRF-W's weighted sum of per-sample betas, [..., S] -> [..., 1] (render.py:144-147)."""
+    checks.check_sample_axis("render_uncertainty", weights=weights, betas=betas)
+    return torch.sum(weights * betas, dim=-1, keepdim=True)

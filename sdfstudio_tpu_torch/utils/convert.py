@@ -21,7 +21,14 @@ and copies each leaf into the port model's parameter of the same path:
   ``embedding_appearance/embedding``, and the SDF field's
   ``embedding_appearance/embedding``, keep their paths (``layers.j``);
 * the camera optimizer's ``camera_opt/pose_adjustment`` keeps its path
-  (``engine/setup.py`` hangs the module on the model as ``camera_opt``).
+  (``engine/setup.py`` hangs the module on the model as ``camera_opt``);
+* the NeRF models' ``field/coarse`` and ``field/fine`` fields keep their
+  paths, and D-NeRF's ``temporal_distortion/MLP_0/layer_j`` becomes
+  ``temporal_distortion.mlp.layers.j``; TensoRF's ``field/{B, mlp_head,
+  rgb_head}`` and ``encodings/{density,color}_encoding/plane_coef``, and
+  semantic NeRF-W's ``embedding_transient``, ``mlp_transient``,
+  ``head_transient_*``, ``mlp_semantics`` and ``head_semantics``, keep
+  their paths.
 
 It raises on any missing, extra or mis-shaped leaf. The JAX tree's
 ``field_background/dummy`` (the placeholder group of a model without a
@@ -39,7 +46,10 @@ the same state (``add_decayed_weights`` keeps none), and so does an
 ``adam`` group with a ``weight_decay`` (the camera optimizer's), whose
 chain nests Adam's after the decay, ``(EmptyState, (ScaleByAdamState,
 ScaleByScheduleState))``; the chain's kind (the decay after Adam's state
-is ``adamw``) must be the group's. The optax objects are
+is ``adamw``) must be the group's. ``radam`` keeps Adam's state in Adam's
+chain, ``(ScaleByAdamState, ScaleByScheduleState)``, and loads as it does.
+A JAX group that holds no parameters (``vanilla-nerf``'s
+``temporal_distortion``) has no port group and is not read. The optax objects are
 read by their attributes, so this module imports nothing of JAX.
 
 ``model_state_from_jax(tree)`` takes JAX's ``model_state`` (an
@@ -144,7 +154,7 @@ def opt_state_from_jax(optimizers: Mapping, opt_state) -> None:
             raise ValueError(f"opt_state_from_jax: group {group} schedule counts {others} != Adam count {count}")
         at = chain.index(adam[0])
         kind = "adamw" if any(type(s).__name__ == "EmptyState" for s in chain[at:]) else "adam"
-        if kind != opt.kind:
+        if kind != ("adam" if opt.kind == "radam" else opt.kind):
             raise ValueError(f"opt_state_from_jax: group {group} holds {kind} state, the port's "
                              f"group is {opt.kind}")
         mu = _map_tree(adam[0].mu[group], f"{group}.", opt.names)

@@ -398,7 +398,7 @@ def test_registered_tree_matches_jax(method):
     else:
         assert port["field.glin0.kernel"][0] == 371 and port["field.clin0.kernel"][0] == 316
         assert port["field.diffuse_color_pred.kernel"] == (256, 3)
-    assert len(method_configs) == 25
+    assert len(method_configs) == 30
 
 
 def test_mipnerf360_argv_and_two_steps(tmp_path):

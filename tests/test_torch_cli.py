@@ -91,7 +91,9 @@ def _jax_tree(argv):
 
 
 # the density methods' trees (no SDF field) are held in tests/test_torch_density_methods.py
-DENSITY = ("instant-ngp", "nerfacto", "phototourism")
+# and tests/test_torch_nerf_methods.py
+DENSITY = ("instant-ngp", "nerfacto", "phototourism", "vanilla-nerf", "dnerf", "mipnerf", "tensorf",
+           "semantic-nerfw")
 
 
 @pytest.mark.parametrize("method", sorted(m for m in method_configs if m not in DENSITY))

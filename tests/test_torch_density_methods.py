@@ -100,7 +100,7 @@ def test_registered_entry_matches_jax(method):
     with torch.device("meta"):
         tmodel = tcfg.model_class(tcfg.model, TSceneBox(aabb=AABB), NUM_IMAGES)
     assert {n: tuple(p.shape) for n, p in tmodel.named_parameters()} == shapes
-    assert len(method_configs) == 25
+    assert len(method_configs) == 30
 
 
 @pytest.mark.parametrize("method,parser", [("instant-ngp", "blender-data"), ("nerfacto", "blender-data"),

@@ -78,6 +78,12 @@ def _case(dims, n, device, seed=0, margin=False):
         ([10, 16, 1], 524288),  # a neus-facto hash proposal net of a train step
         ([3, 9, 130, 8], 65),  # ragged rows, a 9-wide tiled layer, an 8-wide head
         ([17, 257, 5, 300, 1], 1),  # a narrow hidden layer between tiled ones
+        # the NeRF baselines' chains at a train step's rows
+        ([283, 128, 128], 196608),  # vanilla-nerf's / mipnerf's mlp_head (relu out)
+        ([84, 256, 256, 256, 3], 65536),  # dnerf's temporal distortion
+        ([150, 128, 128], 51200),  # tensorf's mlp_head (relu out)
+        ([31, 64, 64], 196608),  # semantic-nerfw's transient MLP
+        ([15, 64, 64], 196608),  # semantic-nerfw's semantic MLP
     ],
 )
 @pytest.mark.parametrize("act,out_act", _ACTS)
@@ -124,6 +130,12 @@ _BWD_CASES = [
     ([51, 128, 128, 1], 196608, "relu", "none", False),  # proposal 1
     ([321, 256, 256, 3], 98304, "relu", "none", True),  # color
     ([10, 16, 1], 524288, "relu", "none", False),  # neus-facto's hash proposal 0
+    # the NeRF baselines' chains with their train steps' activations and dx need
+    ([283, 128, 128], 196608, "relu", "relu", True),  # vanilla-nerf's mlp_head
+    ([84, 256, 256, 256, 3], 65536, "relu", "none", False),  # dnerf's temporal distortion
+    ([150, 128, 128], 51200, "relu", "relu", True),  # tensorf's mlp_head
+    ([31, 64, 64], 196608, "relu", "none", True),  # semantic-nerfw's transient MLP
+    ([15, 64, 64], 196608, "relu", "none", False),  # semantic-nerfw's semantic MLP
 ] + [
     (dims, n, act, out_act, need_dx)
     for dims, n in [

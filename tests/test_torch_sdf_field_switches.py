@@ -131,15 +131,18 @@ def test_default_field_trains_through_the_zero_feature(default_fields):
 def test_appearance_embedding_raises():
     """``use_appearance_embedding=True`` builds since the embedding was
     ported (its rows are held against JAX in
-    ``tests/test_torch_grid_background.py``); what still raises are the grid
-    background's heads that only ``semantic-nerfw`` sets, each naming it;
-    the predicted-normal head (nerfacto's ``predict_normals``) builds."""
+    ``tests/test_torch_grid_background.py``); the grid background's heads
+    that only ``semantic-nerfw`` sets build since that method was ported
+    (held against JAX in ``tests/test_torch_nerf_methods.py``), as does the
+    predicted-normal head (nerfacto's ``predict_normals``); the periodic
+    encoding still raises."""
     from sdfstudio_tpu_torch.fields.nerfacto_field import NerfactoField
 
     field = SDFField(dataclasses.replace(SDFFieldConfig(), use_appearance_embedding=True),
                      num_images=3)
     assert field.embedding_appearance.embedding.shape == (3, 32)
-    for flag in ("use_transient_embedding", "use_semantics"):
-        with pytest.raises(NotImplementedError, match="semantic-nerfw"):
-            NerfactoField(**{flag: True})
+    assert NerfactoField(use_transient_embedding=True, num_images=3).embedding_transient.embedding.shape == (3, 16)
+    assert NerfactoField(use_semantics=True).head_semantics.kernel.shape == (64, 100)
+    with pytest.raises(NotImplementedError, match="periodic"):
+        SDFField(dataclasses.replace(SDFFieldConfig(), encoding_type="periodic"))
     assert NerfactoField(use_pred_normals=True).head_pred_normals.kernel.shape == (64, 3)
