@@ -131,7 +131,7 @@ Phases, each printing its own line with wall-clock seconds:
    with JAX's grammar: ``scripts/train.py::main`` with ``--experiment-name``,
    ``--output-dir``, ``--timestamp``, ``--vis none``, 40 steps, an eval
    image every 20 steps, the final evaluation (the first eval view, the
-   128^3 mesh) and ``sdfstudio-data --data .parity/dtu_like
+   64^3 mesh) and ``sdfstudio-data --data .parity/dtu_like
    --skip-every-for-val-split 25``; the run's layout (``config.yml``, the
    step directory with ``step.txt``, the metrics, the mesh), the step-20
    eval image by JAX's index rule, the ms a step over steps 12-39 (the eval
@@ -177,7 +177,7 @@ Phases, each printing its own line with wall-clock seconds:
    shell) and ``surface[neus-acc]`` on the DTU-like scene (its grid
    refreshed every 16 steps) run 40 steps of 2048 rays through the train
    command (``grid_phase``): exact launches in the steps and in the final
-   eval (2 views, the 128^3 mesh through the heritage or DTU-like judge),
+   eval (2 views, the 64^3 mesh through the heritage or DTU-like judge),
    the kernel step against the plain step (1e-4), both chains alone, the
    background's F = 2 hash call (``hash_case``), the refresh timed and one
    traced step;
@@ -188,7 +188,7 @@ Phases, each printing its own line with wall-clock seconds:
    registered rays (ms a step over steps 6-13; ``bakedsdf-mlp`` at the
    largest power of two up to 4096 that fits, the cut printed), ``eval.py``
    on the one eval view and
-   ``extract_mesh.py`` at 128^3 (the mesh empty exactly when the SDF keeps
+   ``extract_mesh.py`` at 64^3 (the mesh empty exactly when the SDF keeps
    one sign on the grid), the kernel step against the plain step on the
    kernel step's resamplings (1e-4; ``bakedangelo`` by ``angelo_tols``) and
    against the plain step's own resamplings where that is well posed,
@@ -228,13 +228,60 @@ Phases, each printing its own line with wall-clock seconds:
    free comparison where well posed, launches exact by kernel and by chain,
    every chain alone (``chain_checks``), ``tensorf``'s tri-plane encodes
    timed against their bytes bounds (``tensorvm_cases``), one traced step;
-18. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
+18. capture (``capture[<name>]``, ``capture_phase``): real-capture layouts
+   of the sphere, written on a host thread from the smoke's start
+   (``write_capture_scenes``), through JAX's command line at the registered
+   rays and full width: ``nerfacto nerfstudio-data`` (OPENCV distortion,
+   views of 400 x 300 and 480 x 360 padded into one stack, the subset image
+   cache at half the views, swapped every 4 steps), ``instant-ngp
+   instant-ngp-data`` (distortion, the dynamic batch), ``monosdf
+   monosdf-data --include-mono-prior True`` on the cue scene rewritten in
+   MonoSDF's layout, and ``nerfacto record3d-data``: 12 steps (ms a step,
+   rays/s, peak memory, the padded stack's bytes, the subset's swaps and
+   global camera ids, no draw in the padding), the undistortion alone and
+   in a traced step (``sst/undistort``) against its bound, the kernel step
+   against the plain step, every chain alone, exact launches in the steps
+   and in ``eval.py`` (each eval view at its own size), and before them
+   the rays of the three camera models with distortion, card against CPU
+   (``camera_models_case``);
+19. the ``kernels`` JSON line (twelve kernels: the hash-grid four again at
    F = 8; the fused-MLP entries carry the surface chains', p4's and phases
-   14, 15, 16 and 17's rows, the hash entries the cli, grid, baked, density
-   and nerf phases' launches, the F = 4 captured call, the background's
+   14 to 18's rows, the hash entries the cli, grid, baked, density, nerf
+   and capture phases' launches, the F = 4 captured call, the background's
    F = 2 call, ``bakedangelo``'s F = 8 call and ``nerfacto``'s gradient in
    ``x``; the cue phases' launches), the ``nvidia-smi`` line, and the
    result line.
+
+``cli[neus-facto-bigmlp]`` holds its kernel step to the plain step with the
+kernel step's discrete choices carried over (``discrete_choices``): an rgb
+L1 residual's sign, or a final sample's side of the merge sphere, where
+both paths' values lie within rounding of the choice's boundary. Two
+correct float32 paths part there by ~1e-3 of the field's gradient (one
+sign flip in 60 batches on an NVIDIA H100, ``--probe-bigmlp``); the free comparison is
+reported with its flips.
+
+``python3 chip_smoke.py --probe-bigmlp N [--probe-out FILE]`` runs only
+``bigmlp_probe``: where the bigmlp phase's kernel and plain steps part, over
+N batches from its trained state.
+
+The BakedSDF, occupancy-grid and ``surface[neus-facto-angelo]`` phases (an
+rgb L1 loss, a background merge) carry the same discrete choices: on an
+NVIDIA H100 one ``baked[bakedsdf]`` run parted its field gradient by
+1.03e-4 on the kernel step's resamplings (six others ~6.2e-7), and one
+``heritage[neusW]`` run its background's by 5.06e-4 (thirteen others
+~2.4e-7).
+
+The phases with a camera optimizer (``density[nerfacto]``,
+``density[phototourism]``, ``capture[*]`` on the proposal sampler) hold the
+step on the kernel step's resamplings with the kernel step's relu sides
+carried over (``relu_choices``): a hidden unit whose pre-activation lies
+within the two paths' rounding of 0 is on in one and off in the other, and
+one such unit of a proposal net moved the pose table's gradient, whose
+norm is ~2e-4, by up to 2.7e-4 of itself on an NVIDIA H100; a
+float64-accumulated plain path parts from cuBLAS's by as much. The step
+without the carry is reported with the flips.
+``python3 chip_smoke.py --probe-density N [--probe-out FILE]`` runs only
+``density_probe``: where ``density[nerfacto]``'s steps part, over N batches.
 
 ``CUBLAS_WORKSPACE_CONFIG`` is set to ``:4096:8`` before the first CUDA
 call (unless the caller set it), so that cuBLAS accepts the deterministic
@@ -296,7 +343,7 @@ EVAL_CHUNK = 8192  # final_eval.py:80
 # 3.8e-3 in accumulation and 1.7e-2 in normal on 4-18 of 8192 rays (NVIDIA
 # H100 80GB HBM3, 700 W); the fused forward itself is held per call.
 RENDER_QUANTILE = 0.999
-PLAIN_RAYS = 48 * IMAGE  # a method's view rendered again by the plain versions: its 48 middle rows
+PLAIN_RAYS = 32 * IMAGE  # a method's view rendered again by the plain versions: its 32 middle rows
 TRACED_CHUNKS = 6  # the first chunks of a view rendered under the profiler
 RESUME_STEPS = 4  # steps before the save, and after the load
 TRAIN_RAYS = 2048  # the parity protocol's rays per batch (parity.py NUM_RAYS)
@@ -363,6 +410,7 @@ HERITAGE_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".pari
 DENSITY_METHODS = ("instant-ngp", "nerfacto", "phototourism")
 DENSITY_STEPS = {"instant-ngp": 30, "nerfacto": 20, "phototourism": 20}
 DENSITY_TIMED = 10  # steps 10 to the last timed
+DENSITY_PROBE_FULL = 120  # --probe-density: the batches whose paths are also compared in full
 NGP_UPDATE_EVERY = 5  # instant-ngp's --trainer.dynamic-update-every and --trainer.steps-per-log
 DENSITY_CHAINS = {"10-16-1": "proposal", "32-64-16": "base"}
 GRAD_X_TOL = 1e-5  # the hash node's gradient in x against the plain encode's under autograd
@@ -385,6 +433,37 @@ _NERF_SCENES = {}  # the scenes' directory and the writer's thread, removed at e
 # (f32_conditioning): D-NeRF's distortion gradient is ill-conditioned in float32 in either
 # package (tests/test_torch_nerf_methods.py, F32_ILL_CONDITIONED)
 NERF_F32_CONDITIONED = ("dnerf",)
+# phase 18: real-capture layouts, each a phase of CAPTURE_STEPS steps at the method's registered
+# rays: (method, dataparser, scene, flags before the dataparser, the dataparser's flags)
+CAPTURE_STEPS = 12
+CAPTURE_TIMED = 4  # steps 4-11 timed
+CAPTURE_VIEWS = 8  # the nerfstudio scene: even views CAPTURE_SIZES[0], odd views [1] (W, H)
+CAPTURE_SIZES = ((400, 300), (480, 360))
+CAPTURE_SPLIT = "0.875"  # --train-split-percentage: views 0-5 and 7 train, view 6 (400 x 300) eval
+CAPTURE_SUBSET = CAPTURE_VIEWS // 2  # --pipeline.datamanager.train-num-images-to-sample-from
+CAPTURE_REPEAT = 4  # --pipeline.datamanager.train-num-times-to-repeat-images: swaps after 4, 8, 12
+NGP_CAPTURE = (4, 320, 240)  # views, W, H: every view is in both splits
+RECORD3D_CAPTURE = (12, 192, 144)  # frames, W, H; eval every 8th (frames 0 and 8)
+CAPTURE_PHASES = {
+    "nerfacto": ("nerfacto", "nerfstudio-data", "nerfstudio",
+                 ["--pipeline.datamanager.train-num-images-to-sample-from", str(CAPTURE_SUBSET),
+                  "--pipeline.datamanager.train-num-times-to-repeat-images", str(CAPTURE_REPEAT)],
+                 ["--train-split-percentage", CAPTURE_SPLIT]),
+    "instant-ngp": ("instant-ngp", "instant-ngp-data", "ngp",
+                    ["--trainer.steps-per-log", str(NGP_UPDATE_EVERY),
+                     "--trainer.dynamic-update-every", str(NGP_UPDATE_EVERY)], []),
+    "monosdf": ("monosdf", "monosdf-data", "monosdf", ["--pipeline.model.sdf-field.inside-outside",
+                                                        "False"],
+                ["--include-mono-prior", "True", "--center-crop-type", "no_crop",
+                 "--skip-every-for-val-split", "49"]),
+    "record3d": ("nerfacto", "record3d-data", "record3d", [], []),
+}
+CAPTURE_CHAINS = {"10-16-1": "proposal", "32-64-16": "base", "321-256-256-256-256-3": "color",
+                  "283-128-128": "background_head"}
+CAPTURE_BUDGET_S = 75.0  # the four phases together (reported against, not a check)
+RAYS_TOL = 1e-5  # the card's rays of the three camera models against the CPU's, absolute
+UNDISTORT_FLOP = 60  # per coordinate and Newton step: the residual, its jacobian and the update
+_CAPTURE_SCENES = {}  # the scenes' directory and the writer's thread, removed at exit
 # phase 11: Neuralangelo at its registered 512 rays a step. A step's encodes:
 # one a round of the NeuS sampler (4 rounds, 64 + 3 x 16 points a ray,
 # without a gradient) and one over the field's centre and six taps (7 x 512
@@ -409,8 +488,8 @@ ANGELO_DELTA0 = 1.0 / 32
 # phase 12: the remaining neus-facto presets through JAX's command line
 CLI_PRESETS = ("neus-facto-tpu", "neus-facto-tpu-p4", "neus-facto-bigmlp")
 CLI_EVAL_STEP = 20  # --trainer.steps-per-eval-image
-CLI_EVAL_SPLIT = 25  # --skip-every-for-val-split: 2 eval views (views 0, 25)
-CLI_MESH_RES = 128  # --trainer.final-eval-resolution, extract_mesh.py --resolution
+CLI_EVAL_SPLIT = 49  # --skip-every-for-val-split: 1 eval view (view 0)
+CLI_MESH_RES = 64  # --trainer.final-eval-resolution, extract_mesh.py --resolution
 CLI_FINAL_IMAGES = 1  # --trainer.final-eval-max-images
 # neus-facto-bigmlp is JAX's default field, whose init faces inwards (a camera
 # inside the scene). On the object-centred parity scene a 40-step run from that
@@ -1402,10 +1481,262 @@ def samples_parted(k_rec: list, p_rec: list, merge_radius: Optional[float], mode
     return out
 
 
+# two correct float32 paths may part at a discrete choice where a value lies
+# within their rounding of it: an rgb residual's sign (the L1 loss's
+# gradient is sign(r)) or a final sample's side of the background merge's
+# unit sphere (a mask). Each is carried from the kernel step to the plain
+# step only where both paths' values lie within these distances of the
+# choice's boundary; a real error moves the residuals or the samples further.
+L1_ROUNDING = 1e-5  # |r| in rgb units, on both paths
+SIDE_ROUNDING = 1e-5  # | |x| - 1 | in the scene's units, on both paths
+
+
+@contextlib.contextmanager
+def discrete_choices(model, record: list, carry: Optional[list] = None):
+    """Record one step's discrete choices, in call order, into ``record``:
+    each rgb L1 loss's residuals (``("l1", r)``, ``components/losses.py::
+    l1_loss``) and each background merge's sides (``("side", inside, | |x|
+    - 1 |)``, ``model.get_foreground_mask``). With ``carry`` (the kernel
+    step's record) a residual whose sign differs from the carried one, both
+    within ``L1_ROUNDING`` of 0, takes the carried sign (its loss term
+    ``r * sign(r_carried)``: the same value to within the rounding, the
+    carried gradient), and a sample whose side differs, both within
+    ``SIDE_ROUNDING`` of the sphere, takes the carried side. What is
+    recorded is the step's own choice, before any carry."""
+    from sdfstudio_tpu_torch.components import losses
+
+    real_l1, calls = losses.l1_loss, iter(range(1 << 30))
+    real_mask = model.get_foreground_mask if hasattr(model, "get_foreground_mask") else None
+
+    def carried(kind: str):
+        if carry is None:
+            return None
+        i = next(calls)
+        check(i < len(carry) and carry[i][0] == kind,
+              f"the carried step's choice {i} is not a {kind} choice")
+        return carry[i]
+
+    def l1_loss(pred, target):
+        r = pred - target
+        record.append(("l1", r.detach()))
+        k = carried("l1")
+        if k is None:
+            return real_l1(pred, target)
+        kr = k[1]
+        flip = ((torch.sign(r) != torch.sign(kr)) & (r.abs() <= L1_ROUNDING)
+                & (kr.abs() <= L1_ROUNDING))
+        return torch.mean(torch.where(flip, r * torch.sign(kr), r.abs()))
+
+    def get_foreground_mask(ray_samples):
+        mask = real_mask(ray_samples)
+        dist = (torch.linalg.vector_norm(ray_samples.get_start_positions(), dim=-1) - 1.0).abs()
+        record.append(("side", mask.detach(), dist.detach()))
+        k = carried("side")
+        if k is None:
+            return mask
+        flip = (mask != k[1]) & (dist <= SIDE_ROUNDING) & (k[2] <= SIDE_ROUNDING)
+        return torch.where(flip, k[1], mask)
+
+    losses.l1_loss = l1_loss
+    if real_mask is not None:
+        model.get_foreground_mask = get_foreground_mask
+    try:
+        yield
+    finally:
+        losses.l1_loss = real_l1
+        if real_mask is not None:
+            del model.get_foreground_mask
+
+
+def choices_parted(k_rec: list, p_rec: list) -> dict:
+    """Where two steps' discrete choices (``discrete_choices``) part: rgb
+    residuals of opposite signs and samples on opposite sides of the merge
+    sphere, all of them and those within the rounding distances (which
+    ``discrete_choices`` carries), with the largest residual or distance at
+    a flip."""
+    check([c[0] for c in k_rec] == [c[0] for c in p_rec],
+          f"the steps' choices differ in kind: {[c[0] for c in k_rec]}, {[c[0] for c in p_rec]}")
+    out = {"l1_sign_flips": 0, "l1_flips_within_rounding": 0, "l1_flip_max_abs_residual": 0.0,
+           "side_flips": 0, "side_flips_within_rounding": 0, "side_flip_max_distance": 0.0}
+    for k, p in zip(k_rec, p_rec):
+        if k[0] == "l1":
+            flip = torch.sign(k[1]) != torch.sign(p[1])
+            near = flip & (k[1].abs() <= L1_ROUNDING) & (p[1].abs() <= L1_ROUNDING)
+            size = torch.maximum(k[1].abs(), p[1].abs())[flip]
+            key = "l1"
+        else:
+            flip = k[1] != p[1]
+            near = flip & (k[2] <= SIDE_ROUNDING) & (p[2] <= SIDE_ROUNDING)
+            size = torch.maximum(k[2], p[2])[flip]
+            key = "side"
+        out[f"{key}_sign_flips" if key == "l1" else "side_flips"] += int(flip.sum())
+        out[f"{key}_flips_within_rounding"] += int(near.sum())
+        if size.numel():
+            m = "l1_flip_max_abs_residual" if key == "l1" else "side_flip_max_distance"
+            out[m] = max(out[m], float(size.max()))
+    return out
+
+
+# a relu's side is a discrete choice too: a hidden unit whose pre-activation lies within the
+# two paths' rounding of 0 (the kernel's 3xTF32 products or its exact k-ordered FMA chain,
+# cuBLAS's own order) may be on or off in either, and its share of the gradient is all or
+# nothing. One such unit of a proposal net moved a camera row by ~1e-4 of the camera
+# optimizer's gradient (--probe-density). The distance allowed is each path's rounding of
+# every term of the sum (RELU_ROUNDING of |x| |w|, and of |b|) plus the inputs' own difference
+# through |w|; a real error moves a pre-activation further.
+RELU_ROUNDING = 2.0 ** -20
+
+
+def relu_band(x_a: torch.Tensor, x_b: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How far apart two float32 paths may put the pre-activations ``x @ w +
+    b`` of the same units (``RELU_ROUNDING``): [rows, units]."""
+    aw = w.abs()
+    return (x_a - x_b).abs() @ aw + RELU_ROUNDING * (w.shape[0] + 1) * (x_b.abs() @ aw + b.abs())
+
+
+@contextlib.contextmanager
+def relu_choices(fm, record: list, carry: Optional[list] = None):
+    """Record one step's relu choices, in call order, into ``record``: each
+    fused-MLP call's input, weights and (once its backward ran) cotangent,
+    and each plain MLP's (``ops/mlp.py::MLP.forward_plain``) relu layers'
+    inputs and pre-activations. With ``carry`` (the kernel step's record) a
+    relu unit whose side differs from the kernel step's, both pre-activations
+    within ``relu_band`` of 0, takes the kernel step's side, and what is
+    recorded is each call's count of such flips. A fused chain's side is the
+    backward kernel's own: the rows with a unit within the band are run
+    through ``fm.fused_mlp_bwd`` one at a time on the kernel step's input and
+    cotangent, where a unit's ``db`` is 0 exactly when it is off (or takes no
+    gradient, and then its side does not matter), and its pre-activation is
+    the forward kernel's on the chain up to it."""
+    from sdfstudio_tpu_torch.ops import mlp
+
+    prev_chain, prev_plain = mlp.fused_mlp, mlp.MLP.forward_plain
+    kernel = iter(carry or [])
+
+    def kernel_call(kind: str, dims: tuple) -> dict:
+        k = next(kernel, None)
+        check(k is not None and k["kind"] == kind and k["dims"] == dims,
+              f"the carried step's relu call is not a {kind} of {dims}")
+        return k
+
+    def flipped(st: dict, flip: torch.Tensor, pre_a: torch.Tensor, pre_b: torch.Tensor) -> None:
+        if bool(flip.any()):
+            st["flips"] += int(flip.sum())
+            st["max_abs_pre"] = max(st["max_abs_pre"],
+                                    float(torch.maximum(pre_a.abs(), pre_b.abs())[flip].max()))
+
+    def recorded_chain(x, weights, biases, activation="relu", out_activation="none"):
+        dims = (x.shape[-1], *(w.shape[1] for w in weights))
+        rec = {"kind": "chain", "dims": dims, "x": x.detach().reshape(-1, dims[0]).contiguous().clone(),
+               "ws": [w.detach() for w in weights], "bs": [b.detach() for b in biases]}
+        record.append(rec)
+        y = prev_chain(x, weights, biases, activation, out_activation)
+        if y.requires_grad:
+            y.register_hook(lambda g: rec.__setitem__("g", g.detach().reshape(-1, dims[-1]).contiguous()))
+        return y
+
+    def carried_chain(x, weights, biases, activation="relu", out_activation="none"):
+        dims = (x.shape[-1], *(w.shape[1] for w in weights))
+        k, n = kernel_call("chain", dims), len(weights)
+        st = {"kind": "chain", "dims": dims, "rows_queried": 0, "flips": 0, "max_abs_pre": 0.0}
+        record.append(st)
+        ws, bs, g, sides = k["ws"], k["bs"], k.get("g"), {}
+
+        def kernel_sides(r: int) -> list:
+            """Row ``r``'s relu sides in the backward kernel, and where they matter."""
+            if r not in sides:
+                st["rows_queried"] += 1
+                _, _, dbs = fm.fused_mlp_bwd(k["x"][r:r + 1], ws, bs, g[r:r + 1], activation,
+                                             out_activation, need_dx=False)
+                sides[r] = [(dbs[i] != 0, (dbs[i + 1] @ ws[i + 1].T != 0) if i < n - 1 else g[r] != 0)
+                            for i in range(n)]
+            return sides[r]
+
+        if g is None or "relu" not in (activation, out_activation):  # no relu takes a gradient
+            return prev_chain(x, weights, biases, activation, out_activation)
+        h, kin = x.reshape(-1, dims[0]), k["x"]
+        for i, (w, b) in enumerate(zip(weights, biases)):
+            pre = torch.matmul(h, w) + b
+            act = activation if i < n - 1 else out_activation
+            with torch.no_grad():  # the forward kernel's pre-activation and its layer's output
+                pre_k = fm.fused_mlp(k["x"], ws[:i + 1], bs[:i + 1], activation, "none")
+                kin_next = fm._act(pre_k, act)
+            if act != "relu":
+                h, kin = fm._act(pre, act), kin_next
+                continue
+            with torch.no_grad():
+                band = relu_band(kin, h.detach(), w.detach(), b.detach())
+                p = pre.detach()
+                near = (p.abs() <= band) & (pre_k.abs() <= band)
+                mask = p > 0
+                for r in torch.nonzero(near.any(dim=-1)).flatten().tolist():
+                    side, known = kernel_sides(r)[i]
+                    flip = near[r] & known & (side != mask[r])
+                    flipped(st, flip, p[r], pre_k[r])
+                    mask[r] = torch.where(flip, side, mask[r])
+            h, kin = pre * mask.to(pre.dtype), kin_next
+        return h.reshape(*x.shape[:-1], dims[-1])
+
+    def plain_mlp(self, x):
+        """``MLP.forward_plain`` step by step, its relu layers recorded or carried."""
+        dims = tuple(tuple(layer.kernel.shape) for layer in self.layers)
+        if carry is None:
+            layers = []
+            record.append({"kind": "mlp", "dims": dims, "layers": layers})
+        else:
+            k, j = kernel_call("mlp", dims), 0
+            st = {"kind": "mlp", "dims": dims, "rows_queried": 0, "flips": 0, "max_abs_pre": 0.0}
+            record.append(st)
+        inputs = h = x
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            if i in self.skips:
+                h = torch.cat([inputs, h], dim=-1)
+            pre = torch.matmul(h, layer.kernel) + layer.bias
+            if i == n - 1:
+                h = torch.sigmoid(pre) if self.out_activation == "sigmoid" else fm._act(pre, self.out_activation)
+            elif self.activation != "relu":
+                h = fm._act(pre, self.activation)
+            elif carry is None:
+                layers.append((h.detach(), pre.detach()))
+                h = torch.relu(pre)
+            else:
+                with torch.no_grad():
+                    h_k, pre_k = k["layers"][j]
+                    j += 1
+                    p = pre.detach()
+                    band = relu_band(h_k, h.detach(), layer.kernel.detach(), layer.bias.detach())
+                    flip = (p.abs() <= band) & (pre_k.abs() <= band) & ((p > 0) != (pre_k > 0))
+                    flipped(st, flip, p, pre_k)
+                    mask = torch.where(flip, pre_k > 0, p > 0)
+                h = pre * mask.to(pre.dtype)
+        return h
+
+    mlp.MLP.forward_plain = plain_mlp
+    try:
+        with swap_fused_mlp(recorded_chain if carry is None else carried_chain):
+            yield
+    finally:
+        mlp.MLP.forward_plain = prev_plain
+
+
+def relu_parted(record: list) -> dict:
+    """A carried step's relu flips (``relu_choices``): by fused chain and by
+    plain MLP, the rows whose backward-kernel sides were read, and the
+    largest |pre-activation| at a flip."""
+    out = {"chain_flips": 0, "mlp_flips": 0, "rows_queried": 0, "max_abs_pre": 0.0}
+    for st in record:
+        out[f"{st['kind']}_flips"] += st["flips"]
+        out["rows_queried"] += st["rows_queried"]
+        out["max_abs_pre"] = max(out["max_abs_pre"], st["max_abs_pre"])
+    return out
+
+
 def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=STEP_LOSS_TOL,
                   grad_tol: float = STEP_GRAD_TOL, shared_samples: bool = False,
                   merge_radius: Optional[float] = None, only_well_posed: bool = False,
-                  model=None, group_tols: Optional[dict] = None) -> dict:
+                  model=None, group_tols: Optional[dict] = None,
+                  carry_choices: bool = False, carry_relu: bool = False) -> dict:
     """One step twice from the same state and batch, its launches not
     counted: with the kernels (their fused-MLP and hash-grid calls
     captured), then with their plain versions (the fused MLP's and, with
@@ -1428,24 +1759,59 @@ def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=ST
     samples that differ, to the gradient, by more than the tolerance (or
     the background merge's discrete choice differs), and that comparison is
     reported, not held. ``group_tols`` gives a group a gradient tolerance of
-    its own in place of ``grad_tol`` (``f32_conditioning``)."""
+    its own in place of ``grad_tol`` (``f32_conditioning``).
+
+    With ``carry_choices`` the steps' discrete choices are recorded
+    (``discrete_choices``: the rgb L1 signs and the merge's sides of the
+    ``model``): the step on the kernel step's resamplings is held with the
+    kernel step's choices carried over, and where the plain step's own
+    choices part from the kernel step's (``choices_parted``), the plain
+    step with the kernel step's choices carried over is held in place of
+    the free one, which is then reported with its count of flips. The step
+    on the kernel step's resamplings without the carry is reported beside
+    them.
+
+    With ``carry_relu`` (and ``shared_samples``) the step on the kernel
+    step's resamplings is held with the kernel step's relu sides carried
+    over too (``relu_choices``): there the two paths compute every
+    pre-activation from the same samples, and a unit within their rounding
+    of 0 is the same discrete choice. Its flips (``relu_parted``) and the
+    step without any carry are reported."""
     from sdfstudio_tpu_torch.scripts.benchmarking.hash_grid_designs import capture_hash_calls
 
     calls, hash_calls, k_rec, p_rec = [], [], [], []
+    k_ch, p_ch, s_ch, k_relu, s_relu = [], [], [], [], []
     record = pdf_samples if shared_samples else (lambda rec: contextlib.nullcontext())
+    carry_relu = carry_relu and shared_samples
+
+    def choices(rec, carry=None):
+        return discrete_choices(model, rec, carry) if carry_choices else contextlib.nullcontext()
+
+    def relus(rec, carry=None):
+        return relu_choices(fm, rec, carry) if carry_relu else contextlib.nullcontext()
 
     def plain():
         return _both_plain(fm) if plain_hash else swap_fused_mlp(fm.fused_mlp_plain)
 
     with uncounted(fm):
-        with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls), record(k_rec):
+        with capture_fused_mlp_calls(calls), capture_hash_calls(hash_calls), record(k_rec), \
+                choices(k_ch), relus(k_relu):
             k_loss, k_grads, *extra = one_step()
-        with plain(), record(p_rec):
+        with plain(), record(p_rec), choices(p_ch):
             p_loss, p_grads, *_ = one_step()
-        shared = None
+        shared = shared_free = carried = None
         if shared_samples:
-            with plain(), pdf_samples(k_rec, replay=True):
+            with plain(), pdf_samples(k_rec, replay=True), choices(s_ch, carry=k_ch), \
+                    relus(s_relu, carry=k_relu):
                 shared = one_step()[:2]
+        del k_relu
+        flips = choices_parted(k_ch, p_ch) if carry_choices else None
+        if (carry_choices or carry_relu) and shared_samples:  # reported: the same samples, no carry
+            with plain(), pdf_samples(k_rec, replay=True):
+                shared_free = one_step()[:2]
+        if carry_choices and (flips["l1_sign_flips"] or flips["side_flips"]):
+            with plain(), choices([], carry=k_ch):
+                carried = one_step()[:2]
         torch.cuda.synchronize()
     tol_of = loss_tol if callable(loss_tol) else (lambda k: loss_tol)
     grad_norm = {g: float(torch.linalg.vector_norm(v)) for g, v in k_grads.items()}
@@ -1483,9 +1849,32 @@ def step_vs_plain(fm, phase: str, one_step, plain_hash: bool = True, loss_tol=ST
                           f"{'held' if free_held else 'NOT held'}; "
                           f"on the kernel step's resamplings: loss rel err {out['shared_loss_err']}, "
                           f"gradient rel err {out['shared_grad_err']}"))
+    if carry_choices:
+        out["choices"] = {"free": flips, "shared": choices_parted(k_ch, s_ch) if s_ch else None}
+    if carry_relu:
+        out["relu_flips"] = relu_parted(s_relu)
+    if shared_free is not None:
+        out["shared_uncarried_loss_err"], out["shared_uncarried_grad_err"] = errors(*shared_free)
+    if carried is not None:
+        out["carried_loss_err"], out["carried_grad_err"] = errors(*carried)
+    if carry_choices or carry_relu:
+        log(phase, "; ".join(
+            ([f"discrete choices parted {json.dumps(out['choices'])}"] if carry_choices else [])
+            + ([f"relu sides carried on the kernel step's resamplings {json.dumps(out['relu_flips'])}"]
+               if carry_relu else [])
+            + ([] if shared_free is None else
+               [f"on the kernel step's resamplings without the carry: gradient rel err "
+                f"{out['shared_uncarried_grad_err']}"])
+            + ([] if carried is None else
+               [f"the plain step with the kernel step's choices carried over: loss rel err "
+                f"{out['carried_loss_err']}, gradient rel err {out['carried_grad_err']} (held in "
+                f"place of the free step)"])))
     if shared is not None:
         held("plain step on its resamplings", out["shared_loss_err"], out["shared_grad_err"])
-    if free_held:
+    if free_held and carried is not None:
+        held("plain step with the kernel step's choices carried over", out["carried_loss_err"],
+             out["carried_grad_err"])
+    elif free_held:
         held("plain step", loss_err, grad_err)
     return out
 
@@ -2274,7 +2663,7 @@ def cli_phase(fm, smi: str, method: str) -> dict:
     """A remaining ``neus-facto`` preset through JAX's command line at full
     width on the committed scene: ``scripts/train.py::main`` with JAX's
     grammar (40 steps, an eval image every 20, the final evaluation of 3
-    views and the 128^3 mesh, the eval split every 8th view); the run's
+    views and the 64^3 mesh, the eval split every 8th view); the run's
     layout; the eval image of step 20 by JAX's index rule; the ms a step over
     steps 12-39 (the eval image's time taken out); launches by kernel and by
     chain, exact, in the training steps (from one captured step's calls),
@@ -2421,18 +2810,25 @@ def cli_phase(fm, smi: str, method: str) -> dict:
 
     # bigmlp's NeRF background takes the samples beyond the unit sphere
     merge = 1.0 if model.field_background is not None else None
-    step = step_vs_plain(fm, phase, one_step, shared_samples=True, merge_radius=merge, model=model)
+    # bigmlp's L1 signs and merge sides are carried from the kernel step (discrete_choices)
+    carry = merge is not None
+    step = step_vs_plain(fm, phase, one_step, shared_samples=True, merge_radius=merge, model=model,
+                         carry_choices=carry)
     calls, hash_calls = step["calls"], step["hash_calls"]
     loss_err, grad_err = step["loss_err"], step["grad_err"]
-    parted = [{"seed": 777, "grad_err": grad_err, "shared_grad_err": step["shared_grad_err"],
-               **step["parted"]}]
+
+    def batch_record(seed, r):
+        return {"seed": seed, "grad_err": r["grad_err"], "shared_grad_err": r["shared_grad_err"],
+                **{k: r[k] for k in ("choices", "carried_grad_err", "shared_uncarried_grad_err")
+                   if k in r}, **r["parted"]}
+
+    parted = [batch_record(777, step)]
     if merge is not None:
         # more batches from the same state: where the kernel and plain steps part (ROADMAP queue 3)
         for seed in DIVERGENCE_SEEDS:
             r = step_vs_plain(fm, f"{phase} batch {seed}", lambda: one_step(seed), shared_samples=True,
-                              merge_radius=merge, model=model)
-            parted.append({"seed": seed, "grad_err": r["grad_err"],
-                           "shared_grad_err": r["shared_grad_err"], **r["parted"]})
+                              merge_radius=merge, model=model, carry_choices=True)
+            parted.append(batch_record(seed, r))
             del r
         log(phase, f"kernel vs plain steps by batch, with the final samples that changed side of the "
             f"unit sphere: {json.dumps(parted)}")
@@ -2755,7 +3151,7 @@ def grid_phase(fm, smi: str, method: str) -> dict:
     net, the background's chain and, for the grid background, the F = 2
     hash grid, swapped for their plain versions); launches by kernel and by
     chain exact in the steps (a captured step's calls times the steps) and
-    the final evaluation (1 view, the 128^3 mesh through the heritage or
+    the final evaluation (1 view, the 64^3 mesh through the heritage or
     DTU-like judge); both chains alone (``chain_checks``); the background's
     F = 2 hash call (``hash_case``, ``neusW`` only); one traced step.
     Returns what the ``kernels`` line reports."""
@@ -2893,7 +3289,7 @@ def grid_phase(fm, smi: str, method: str) -> dict:
                                          model_state=step_state)
         return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
 
-    step = step_vs_plain(fm, phase, one_step)
+    step = step_vs_plain(fm, phase, one_step, model=model, carry_choices=True)
     calls, hash_calls = step["calls"], step["hash_calls"]
     loss_err, grad_err = step["loss_err"], step["grad_err"]
     del step, step_state
@@ -3003,7 +3399,8 @@ def facto_angelo_phase(fm, smi: str) -> dict:
     log(phase, f"the kernel step vs the plain step at step {trainer.step}: delta {delta:.6g}, "
         f"tol {tol1:.3g} / {tol2:.3g} (the curvature loss and the gradients)")
     step = step_vs_plain(fm, phase, one_step, loss_tol=lambda k: tol2 if k == "curvature_loss" else tol1,
-                         grad_tol=tol2, shared_samples=True, merge_radius=1.0, model=model)
+                         grad_tol=tol2, shared_samples=True, merge_radius=1.0, model=model,
+                         carry_choices=True)
     calls, hash_calls = step["calls"], step["hash_calls"]
     loss_err, grad_err = step["loss_err"], step["grad_err"]
     del step
@@ -3082,7 +3479,7 @@ def baked_phase(fm, smi: str, method: str) -> dict:
     resamplings (``step_vs_plain``; ``bakedangelo``'s tolerances scaled by
     delta, ``angelo_tols``); launches by kernel and by chain exact in the
     steps (every step trains the proposal nets, as in JAX), ``eval.py``'s
-    view and ``extract_mesh.py``'s 128^3 grid; every chain of the step
+    view and ``extract_mesh.py``'s 64^3 grid; every chain of the step
     alone (``chain_checks``); one traced step; the peak device memory; the
     train view rendered with and without the kernels; finite PSNR and SSIM
     and a non-empty mesh (no Chamfer: the heritage judge works in the
@@ -3207,7 +3604,7 @@ def baked_phase(fm, smi: str, method: str) -> dict:
 
     merge = 1.0 if model.field_background is not None else None
     step = step_vs_plain(fm, phase, one_step, shared_samples=True, merge_radius=merge,
-                         only_well_posed=True, model=model, **tols)
+                         only_well_posed=True, model=model, carry_choices=True, **tols)
     calls, hash_calls = step["calls"], step["hash_calls"]
     errs = {k: step[k] for k in ("loss_err", "grad_err", "shared_loss_err", "shared_grad_err",
                                  "parted", "well_posed", "free_held")}
@@ -3495,7 +3892,7 @@ def density_phase(fm, smi: str, method: str) -> dict:
         return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
 
     step = step_vs_plain(fm, phase, one_step, shared_samples=not ngp, only_well_posed=not ngp,
-                         model=None if ngp else model)
+                         model=None if ngp else model, carry_relu=True)
     calls, hash_calls = step["calls"], step["hash_calls"]
     errs = {k: step.get(k) for k in ("loss_err", "grad_err", "shared_loss_err", "shared_grad_err",
                                      "parted")}
@@ -3905,6 +4302,332 @@ def nerf_phase(fm, smi: str, method: str, scenes: dict) -> dict:
             "ranges": profile["ranges"], "peak_memory_gib": peak_gib}
 
 
+def write_capture_scenes() -> None:
+    """Start writing phase 18's scenes into a temporary directory on a host
+    thread while the card runs the earlier phases (``data/synthetic.py``):
+    the sphere in nerfstudio's layout (OPENCV distortion, views of two
+    sizes), in instant-ngp's (distortion) and in Record3D's. The MonoSDF
+    layout of the cue scene is written when phase 18 starts
+    (``finish_capture_scenes``)."""
+    from sdfstudio_tpu_torch.data import synthetic
+
+    out = Path(tempfile.mkdtemp(prefix="sst_capture_scenes_"))
+
+    def write() -> dict:
+        t = time.perf_counter()
+        dirs = {"nerfstudio": synthetic.generate_nerfstudio_sphere_dataset(
+                    out / "nerfstudio", num_images=CAPTURE_VIEWS, sizes=CAPTURE_SIZES),
+                "ngp": synthetic.generate_ngp_sphere_dataset(
+                    out / "ngp", num_images=NGP_CAPTURE[0], width=NGP_CAPTURE[1],
+                    height=NGP_CAPTURE[2]),
+                "record3d": synthetic.generate_record3d_sphere_dataset(
+                    out / "record3d", num_images=RECORD3D_CAPTURE[0], width=RECORD3D_CAPTURE[1],
+                    height=RECORD3D_CAPTURE[2])}
+        return {"seconds": time.perf_counter() - t, **{k: str(v) for k, v in dirs.items()}}
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    _CAPTURE_SCENES.update(dir=out, pool=pool, future=pool.submit(write))
+
+
+def finish_capture_scenes(cue_scene: str) -> dict:
+    from sdfstudio_tpu_torch.data import synthetic
+
+    info = _CAPTURE_SCENES["future"].result(timeout=600)
+    info["monosdf"] = str(synthetic.write_monosdf_layout(Path(cue_scene), _CAPTURE_SCENES["dir"] / "monosdf"))
+    log("capture", f"scenes written beside the card's work: {json.dumps(info)}")
+    return info
+
+
+def remove_capture_scenes() -> None:
+    if "pool" in _CAPTURE_SCENES:
+        _CAPTURE_SCENES["pool"].shutdown(wait=True)
+        shutil.rmtree(_CAPTURE_SCENES["dir"], ignore_errors=True)
+
+
+def camera_models_case(smi: str, device: str = "cuda") -> dict:
+    """The rays of perspective, fisheye and equirectangular cameras with
+    OpenCV distortion generated on the card and on the CPU from the same
+    cameras and pixels (``Cameras.generate_rays``): origins, directions,
+    pixel areas and direction norms held to ``RAYS_TOL``."""
+    from sdfstudio_tpu_torch.cameras.camera_utils import get_distortion_params
+    from sdfstudio_tpu_torch.cameras.cameras import Cameras, CameraType
+
+    g = np.random.default_rng(21)
+    n, R = 6, 65536
+    c2w = np.concatenate([np.linalg.qr(g.normal(size=(n, 3, 3)))[0], g.normal(size=(n, 3, 1))], -1)
+    dist = np.stack([get_distortion_params(k1=g.uniform(-0.3, 0.3), k2=g.uniform(-0.1, 0.1), k3=0.01,
+                                           k4=-0.005, p1=g.uniform(-0.01, 0.01),
+                                           p2=g.uniform(-0.01, 0.01)) for _ in range(n)])
+    ctype = np.array([CameraType.PERSPECTIVE, CameraType.FISHEYE, CameraType.EQUIRECTANGULAR] * 2)
+    fx = g.uniform(300, 400, n)
+    idx = torch.as_tensor(g.integers(0, n, R))
+    coords = torch.as_tensor(np.stack([g.uniform(0, 300, R), g.uniform(0, 400, R)], -1), dtype=torch.float32)
+    rays = {}
+    for dev in (device, "cpu"):
+        cams = Cameras.create(c2w, fx, 1.1 * fx, 200.0, 150.0, 400, 300, camera_type=ctype,
+                              distortion_params=dist, device=dev)
+        rays[dev] = cams.generate_rays(idx.to(dev), coords.to(dev))
+    errs = {k: float((getattr(rays[device], k).cpu() - getattr(rays["cpu"], k)).abs().max())
+            for k in ("origins", "directions", "pixel_area", "directions_norm")}
+    log("capture", f"rays of the three camera models with distortion, card vs CPU, max |diff| "
+        f"{json.dumps(errs)} (tol {RAYS_TOL}) over {R} rays ({smi})")
+    check(all(e <= RAYS_TOL for e in errs.values()), f"camera models: the card's rays differ {errs}")
+    return {"rays": R, "max_abs_err": errs}
+
+
+def undistort_case(cams, ray_indices) -> dict:
+    """The Newton undistortion (``camera_utils.radial_and_tangential_undistort``,
+    plain PyTorch, range ``sst/undistort``) alone on a batch's base and
+    offset coordinates [3, R, 2], timed with CUDA events, beside its bound:
+    the coordinates and the rays' parameters read once and the result
+    written once, or ``UNDISTORT_FLOP`` operations a coordinate and step in
+    FP32, whichever is longer."""
+    from sdfstudio_tpu_torch.cameras.camera_utils import radial_and_tangential_undistort
+
+    idx = ray_indices[:, 0]
+    y, x = ray_indices[:, 1].to(torch.float32) + 0.5, ray_indices[:, 2].to(torch.float32) + 0.5
+    fx, fy, cx, cy = cams.fx[idx], cams.fy[idx], cams.cx[idx], cams.cy[idx]
+    cs = torch.stack([torch.stack([(x - cx) / fx, -(y - cy) / fy], -1),
+                      torch.stack([(x - cx + 1) / fx, -(y - cy) / fy], -1),
+                      torch.stack([(x - cx) / fx, -(y - cy + 1) / fy], -1)], 0)
+    dist = cams.distortion_params[idx][None]
+    R = idx.shape[0]
+    ms = cuda_time_ms(lambda: radial_and_tangential_undistort(cs, dist), reps=20)
+    nbytes = 4.0 * (3 * R * 2 + R * 6 + 3 * R * 2)
+    flop = float(UNDISTORT_FLOP * 10 * 3 * R)
+    bound, by = max(nbytes / HBM_RATE, flop / 67e12) * 1e3, ("bytes" if nbytes / HBM_RATE >= flop / 67e12
+                                                             else "operations")
+    return {"rays": R, "ms": ms, "bytes": nbytes, "flop": flop, "bound_ms": bound, "bound_by": by}
+
+
+def capture_phase(fm, smi: str, name: str, scenes: dict) -> dict:
+    """A real-capture layout (``capture[<name>]``) through JAX's command line
+    at the method's registered values and full width, from seed 0:
+    ``nerfacto nerfstudio-data`` on the nerfstudio-layout sphere (OPENCV
+    distortion, views of 400 x 300 and 480 x 360 padded into one stack, the
+    SO3xR3 camera optimizer, the subset image cache at half the views,
+    swapped every ``CAPTURE_REPEAT`` steps), ``instant-ngp instant-ngp-data``
+    (distortion, its dynamic batch), ``monosdf monosdf-data
+    --include-mono-prior True`` on the cue scene in MonoSDF's layout (no
+    crop) and ``nerfacto record3d-data``. ``CAPTURE_STEPS`` steps: ms a step
+    over steps ``CAPTURE_TIMED`` on, rays/s, peak memory, the padded stack's
+    bytes; the undistortion's time alone (``undistort_case``) and in a
+    traced step (``sst/undistort``); one kernel step against one plain step
+    (``step_vs_plain``; on shared resamplings for the proposal methods);
+    every chain alone (``chain_checks``); launches exact by kernel and by
+    chain in the train steps and in ``eval.py``, which renders each eval
+    view at its own size (nerfacto's at 400 x 300, below the stack's 480 x
+    360). The subset cache: its swaps, their host time, global camera ids
+    (the camera optimizer's moved rows are the cameras of the subsets the
+    steps drew from), no draw in the padding."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics, to_bucket
+    from sdfstudio_tpu_torch.models.neuralreconW import REFRESH_CHUNK
+    from sdfstudio_tpu_torch.scripts import eval as eval_script
+    from sdfstudio_tpu_torch.scripts import train as train_script
+
+    phase = f"capture[{name}]"
+    method, parser, scene_key, extra, pflags = CAPTURE_PHASES[name]
+    ngp, surface = method == "instant-ngp", method == "monosdf"
+    setup = train_script.setup_lib.setup_trainer
+    made, marks, vecs, buckets, swaps, subsets = [], {}, [], [], [], []
+    t_phase = time.perf_counter()
+
+    def keep(*args, **kw):
+        """The trainer ``main`` builds: steps ``CAPTURE_TIMED`` and the last
+        marked, each step's bucket and metrics and the subset it drew from
+        kept, each swap of the subset timed."""
+        t = setup(*args, **kw)
+        step, dm_, resample = t.train_step, t.datamanager, t.datamanager.maybe_resample
+
+        def marked_step():
+            if t.step == CAPTURE_TIMED:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            buckets.append(t.num_rays_per_batch())
+            if dm_.subset_mode:
+                subsets.append(dm_.train_data["_global_ids"])
+            vecs.append(step())
+            if t.step == CAPTURE_STEPS:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return vecs[-1]
+
+        def timed_resample(s_):
+            before = dm_.train_data.get("_global_ids")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resample(s_)
+            torch.cuda.synchronize()
+            if dm_.train_data.get("_global_ids") is not before:
+                swaps.append({"step": s_, "ms": (time.perf_counter() - t0) * 1e3,
+                              "ids": dm_.train_data["_global_ids"].tolist()})
+
+        t.train_step, dm_.maybe_resample = marked_step, timed_resample
+        made.append(t)
+        return t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [method, *extra, "--experiment-name", "smoke", "--output-dir", tmp, "--timestamp", "t",
+                "--vis", "none", "--trainer.max-num-iterations", str(CAPTURE_STEPS),
+                "--trainer.steps-per-eval-image", "0", parser, "--data", scenes[scene_key], *pflags]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        fm.reset_launch_counts()
+        train_script.setup_lib.setup_trainer = keep
+        t = time.perf_counter()
+        try:
+            check(train_script.main(argv) == 0, f"{phase}: the train command failed")
+        finally:
+            train_script.setup_lib.setup_trainer = setup
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        train_total, train_widths = _counts(fm), width_counts(fm)
+        trainer = made[0]
+        dm, model = trainer.datamanager, trainer.model
+        check(trainer.step == CAPTURE_STEPS and len(vecs) == CAPTURE_STEPS, f"{phase}: step {trainer.step}")
+        step_ms = (marks["t1"] - marks["t0"]) * 1e3 / (CAPTURE_STEPS - CAPTURE_TIMED)
+        rays_per_s = sum(buckets[CAPTURE_TIMED:]) / (marks["t1"] - marks["t0"])
+        rows = [dict(zip(trainer.metric_keys, v.tolist())) for v in vecs]
+        check(all(math.isfinite(r["loss"]) for r in rows), f"{phase}: losses {[r['loss'] for r in rows]}")
+        cams = dm.train_cameras
+        n_imgs = dm.num_train_images
+        full = dm._host_train_data if dm.subset_mode else dm.train_data
+        stack = {"images": n_imgs, "padded_hw": [dm.image_height, dm.image_width],
+                 "sizes": sorted({(int(h), int(w)) for h, w in zip(cams.height.tolist(),
+                                                                   cams.width.tolist())}),
+                 # N x max H x max W of every channel: on the host with the subset cache
+                 "bytes": int(sum(v.nbytes if isinstance(v, np.ndarray) else v.numel() * v.element_size()
+                                  for k, v in full.items() if k != "_global_ids")),
+                 "device_bytes": int(sum(v.numel() * v.element_size() for v in dm.train_data.values())),
+                 "variable_res": dm.variable_res, "distorted": cams.distorted}
+        extra_rec = {"stack": stack}
+        # draws stay inside each image's own extent (the padding is never read)
+        g = torch.Generator(device=dm.device).manual_seed(5)
+        idx, _ = dm.sample_train_batch(g, num_rays=1 << 16)
+        inside = bool(((idx[:, 1] < dm.image_heights[idx[:, 0]]) & (idx[:, 2] < dm.image_widths[idx[:, 0]])).all())
+        check(inside, f"{phase}: a draw fell in an image's padding")
+        if name == "nerfacto":
+            check(dm.subset_mode and dm.variable_res and cams.distorted and len(stack["sizes"]) == 2,
+                  f"{phase}: the stack {stack}, subset mode {dm.subset_mode}")
+            check([s_["step"] for s_ in swaps] == list(range(CAPTURE_REPEAT, CAPTURE_STEPS + 1, CAPTURE_REPEAT))
+                  and all(len(s_["ids"]) == CAPTURE_SUBSET for s_ in swaps),
+                  f"{phase}: subset swaps {swaps}")
+            drawn = sorted({int(i) for ids in subsets for i in ids.tolist()})
+            pose = model.camera_opt.pose_adjustment.detach()
+            moved = sorted(int(i) for i in torch.nonzero(pose.abs().amax(dim=1) > 0).reshape(-1).tolist())
+            check(moved == drawn, f"{phase}: the camera optimizer moved rows {moved}, the subsets held {drawn}")
+            extra_rec["subset"] = {"swaps": swaps, "cameras_drawn": drawn, "rows_moved": moved,
+                                   "subset_bytes": stack["device_bytes"]}
+        if ngp:
+            extra_rec["buckets"] = buckets
+            check(buckets[0] == to_bucket(trainer.config.target_num_samples
+                                          // model.config.max_num_samples_per_ray), f"{phase}: buckets {buckets}")
+        run = Path(tmp) / "smoke" / method / "t"
+        c0, t = _counts(fm), time.perf_counter()
+        check(eval_script.main(["--load-config", str(run / "config.yml"),
+                                "--output-path", f"{tmp}/eval.json"]) == 0, f"{phase}: eval.py failed")
+        torch.cuda.synchronize()
+        eval_s, eval_launches = time.perf_counter() - t, _minus(_counts(fm), c0)
+        ev = json.loads((Path(tmp) / "eval.json").read_text())
+        check(ev["num_images"] == dm.num_eval_images
+              and all(math.isfinite(ev["results"][k]) for k in ("psnr", "ssim")),
+              f"{phase}: eval.py wrote {ev}")
+    ecams = dm.eval_cameras if dm.eval_cameras is not None else dm.train_cameras
+    eval_sizes = [(int(ecams.height[i]), int(ecams.width[i])) for i in range(dm.num_eval_images)]
+    if name == "nerfacto":
+        check(eval_sizes == [CAPTURE_SIZES[0][::-1]] and tuple(stack["padded_hw"]) == CAPTURE_SIZES[1][::-1],
+              f"{phase}: eval views {eval_sizes} against the stack's {stack['padded_hw']}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(phase, f"main: {main_s:.1f} s; {CAPTURE_STEPS} steps (rays {sorted(set(buckets))}), steps "
+        f"{CAPTURE_TIMED}-{CAPTURE_STEPS - 1}: {step_ms:.2f} ms a step, {rays_per_s:.0f} rays/s; peak "
+        f"memory {peak_gib:.2f} GiB ({smi}); stack {json.dumps(stack)}; eval.py {eval_s:.1f} s over "
+        f"views {eval_sizes} {json.dumps(ev['results'])}; losses first {rows[0]['loss']:.5f} last "
+        f"{rows[-1]['loss']:.5f}" + (f"; subset {json.dumps(extra_rec['subset'])}"
+                                     if "subset" in extra_rec else ""))
+
+    undistort = None
+    if cams.distorted:
+        g = torch.Generator(device=dm.device).manual_seed(777)
+        idx, _ = dm.sample_train_batch(g, num_rays=trainer.num_rays_per_batch())
+        undistort = undistort_case(cams, idx)
+
+    # one step twice from the same state and batch (and once on the kernel step's resamplings)
+    sched = model.schedules(trainer.step)
+
+    def one_step():
+        g_ = torch.Generator(device=dm.device).manual_seed(777)
+        i, b = dm.sample_train_batch(g_, num_rays=trainer.num_rays_per_batch())
+        total_, ld, _ = loss_and_metrics(model, dm.generate_rays(i), b, sched, g_,
+                                         model_state=trainer.model_state)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total_)
+
+    proposals = bool(getattr(model, "proposal_networks", None))
+    step = step_vs_plain(fm, phase, one_step, plain_hash=not surface, shared_samples=proposals,
+                         only_well_posed=proposals, model=model if proposals else None, carry_relu=True)
+    calls, hash_calls = step["calls"], step["hash_calls"]
+    errs = {k: step.get(k) for k in ("loss_err", "grad_err", "shared_loss_err", "shared_grad_err",
+                                     "parted")}
+    check(surface or ngp or step["grad_norm"]["camera_opt"] > 0, f"{phase}: no gradient in the pose table")
+    del step
+    widths = [_chain_key(c) for c in calls]
+    want = {"nerfacto": ["10-16-1", "10-16-1", "32-64-16"], "instant-ngp": ["32-64-16"],
+            "monosdf": ["321-256-256-256-256-3", "283-128-128"]}[method]
+    check(widths == want and all("g" in c for c in calls),
+          f"{phase}: captured chains {widths}, each with a backward")
+    check([r["F"] for r in hash_calls] == ([] if surface else [2] * len(widths)),
+          f"{phase}: captured hash calls {[(r['F'], r['x'].shape[0]) for r in hash_calls]}")
+
+    # exact launches: proposal backwards on update steps, refresh chunks, each eval view's chunks
+    n_update = sum(bool(model.schedules(s_).get("train_proposal", True)) for s_ in range(CAPTURE_STEPS))
+    proposal_specs = [net.encoding.spec for net in getattr(model, "proposal_networks", [])]
+    refreshes = len(range(0, CAPTURE_STEPS, model.model_state_update_every)) if ngp else 0
+    refresh_chunks = refreshes * math.ceil(model.config.grid_resolution ** 3 / REFRESH_CHUNK) if ngp else 0
+    train_want = expected_launches(calls, hash_calls, CAPTURE_STEPS, n_update, refresh_chunks,
+                                   proposal_chains={(10, 16, 1)}, proposal_specs=proposal_specs)
+    chunk = model.config.eval_num_rays_per_chunk
+    eval_chunks = sum(math.ceil(h * w / chunk) for h, w in eval_sizes)
+    launches = {
+        "train": launches_held(phase, "train", train_total, train_want),
+        "eval_py": launches_held(phase, "eval.py", eval_launches,
+                                 expected_launches(calls, hash_calls, 0, 0, eval_chunks)),
+    }
+    check(set(train_widths) <= {"hash_encode_fwd[F=2]", "hash_encode_bwd[F=2]"},
+          f"{phase}: hash launches by width {train_widths}")
+    log(phase, f"launches, exact: {json.dumps(launches)}; proposal update steps {n_update} of "
+        f"{CAPTURE_STEPS}; refresh chunks {refresh_chunks}; eval chunks {eval_chunks}")
+    names = [CAPTURE_CHAINS[w] for w in widths]
+    if names.count("proposal") == 2:
+        names[:2] = ["proposal_0", "proposal_1"]
+    chains = chain_checks(fm, calls, names, phase, name)
+    del calls, hash_calls
+    torch.cuda.empty_cache()
+    with uncounted(fm):
+        profile = traced_step(trainer)
+    log(phase.replace("[", "_profile["), json.dumps({"train_step": profile}))
+    in_step = profile["ranges"].get("sst/undistort")
+    check(not cams.distorted or in_step is not None,
+          f"{phase}: no sst/undistort range in the traced step: {sorted(profile['ranges'])}")
+    if undistort is not None:
+        undistort["in_step"] = in_step
+        log(phase, f"undistortion alone on {undistort['rays']} rays x 3 coordinates: "
+            f"{undistort['ms']:.4f} ms (bound {undistort['bound_ms']:.5f} ms, {undistort['bound_by']}); "
+            f"in the traced step {json.dumps(in_step)} ({smi})")
+    phase_s = time.perf_counter() - t_phase
+    del trainer, model, made, dm
+    torch.cuda.empty_cache()
+    return {"method": method, "parser": parser, "steps": CAPTURE_STEPS, "rays": sorted(set(buckets)),
+            "step_ms": step_ms, "rays_per_s": rays_per_s, "main_s": main_s, "eval_py_s": eval_s,
+            "eval_py": ev["results"], "eval_views": eval_sizes, "launches": launches,
+            "train_launches": train_total[0], "eval_launches": eval_launches[0],
+            "hash_launches_by_width": train_widths, "chains": chains, "undistort": undistort,
+            **extra_rec, **{f"step_{k}": v for k, v in errs.items()},
+            "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+            "train_step_idle_share": profile["device_idle_share"],
+            "traced_step_ms": profile["traced_wall_ms"], "device_busy_ms": profile["device_busy_ms"],
+            "ranges": profile["ranges"], "peak_memory_gib": peak_gib, "phase_s": phase_s}
+
+
 def _counts_sum(parts: list) -> tuple:
     kernels, chains = {}, {}
     for k, c in parts:
@@ -3913,6 +4636,334 @@ def _counts_sum(parts: list) -> tuple:
         for name, n in c.items():
             chains[name] = chains.get(name, 0) + n
     return kernels, chains
+
+
+def bigmlp_probe(fm, smi: str, batches: int, out_path: Optional[str] = None) -> dict:
+    """Where ``cli[neus-facto-bigmlp]``'s kernel and plain steps part, over
+    ``batches`` batches (seeds 2000 on) from the phase's trained state:
+    ``neus-facto-bigmlp`` through JAX's command line as the phase runs it
+    (its 40 steps; no eval images, final eval or mesh), then for each batch
+    ``step_vs_plain(carry_choices=True)``: the final samples that changed
+    side of the merge sphere and the resamplings' displacement
+    (``samples_parted``), the rgb residuals whose signs differ
+    (``choices_parted``), and the gradient errors of the free step, of the
+    free step with the kernel step's choices carried over, and of the step
+    on the kernel step's resamplings with and without the carry. A batch
+    the check does not hold is recorded with its message, not raised.
+    ``python3 chip_smoke.py --probe-bigmlp N [--probe-out FILE]``."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.scripts import train as train_script
+
+    method, setup, made = "neus-facto-bigmlp", train_script.setup_lib.setup_trainer, []
+
+    def keep(*args, **kw):
+        made.append(setup(*args, **kw))
+        return made[-1]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [method, *CLI_EXTRA[method], "--experiment-name", "probe", "--output-dir", tmp,
+                "--timestamp", "t", "--vis", "none", "--trainer.max-num-iterations", str(TRAIN_STEPS),
+                "--trainer.steps-per-eval-image", "0", "sdfstudio-data", "--data", SCENE,
+                "--skip-every-for-val-split", str(CLI_EVAL_SPLIT)]
+        train_script.setup_lib.setup_trainer = keep
+        try:
+            check(train_script.main(argv) == 0, "the probe's train command failed")
+        finally:
+            train_script.setup_lib.setup_trainer = setup
+    trainer = made[0]
+    dm, model = trainer.datamanager, trainer.model
+    sched = model.schedules(trainer.step)
+    train_s = time.perf_counter() - t0
+
+    def one_step(seed: int):
+        gen = torch.Generator(device=dm.device).manual_seed(seed)
+        idx, batch = dm.sample_train_batch(gen)
+        total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
+
+    def worst(errs):
+        return None if errs is None else max(errs.values())
+
+    rows = []
+    for b in range(batches):
+        seed = 2000 + b
+        try:
+            r, held, msg = step_vs_plain(fm, f"probe batch {seed}", lambda: one_step(seed),
+                                         shared_samples=True, merge_radius=1.0, model=model,
+                                         carry_choices=True), True, None
+        except AssertionError as e:
+            r, held, msg = None, False, str(e)
+        if r is None:  # the failed comparison again, reported without the check
+            rows.append({"seed": seed, "held": False, "message": msg})
+            continue
+        ch = r["choices"]
+        rows.append({"seed": seed, "held": held, "side_flips": r["parted"]["side_flips"],
+                     "cells_max_abs_diff": r["parted"]["cells_max_abs_diff"],
+                     "l1_sign_flips_free": ch["free"]["l1_sign_flips"],
+                     "l1_flips_within_rounding_free": ch["free"]["l1_flips_within_rounding"],
+                     "l1_sign_flips_shared": ch["shared"]["l1_sign_flips"],
+                     "side_flips_within_rounding": ch["free"]["side_flips_within_rounding"],
+                     "free_grad_err": worst(r["grad_err"]),
+                     "carried_grad_err": worst(r.get("carried_grad_err")),
+                     "shared_grad_err": worst(r["shared_grad_err"]),
+                     "shared_uncarried_grad_err": worst(r.get("shared_uncarried_grad_err")),
+                     "field_free_grad_err": r["grad_err"].get("field"),
+                     "choices": ch})
+        del r
+    ok = [x for x in rows if x["held"]]
+
+    def count(pred):
+        return sum(1 for x in ok if pred(x))
+
+    summary = {
+        "batches": batches, "held": len(ok), "not_held": [x for x in rows if not x["held"]],
+        "train_s": train_s, "smi": smi,
+        "free_over_tol": count(lambda x: x["free_grad_err"] > STEP_GRAD_TOL),
+        "free_over_tol_with_l1_flip": count(lambda x: x["free_grad_err"] > STEP_GRAD_TOL
+                                            and x["l1_sign_flips_free"] > 0),
+        "free_over_tol_with_side_flip": count(lambda x: x["free_grad_err"] > STEP_GRAD_TOL
+                                              and x["side_flips"] > 0),
+        "shared_uncarried_over_tol": count(lambda x: (x["shared_uncarried_grad_err"] or 0) > STEP_GRAD_TOL),
+        "shared_uncarried_over_tol_with_l1_flip": count(
+            lambda x: (x["shared_uncarried_grad_err"] or 0) > STEP_GRAD_TOL and x["l1_sign_flips_shared"] > 0),
+        "batches_with_l1_flip_free": count(lambda x: x["l1_sign_flips_free"] > 0),
+        "batches_with_l1_flip_shared": count(lambda x: x["l1_sign_flips_shared"] > 0),
+        "batches_with_side_flip": count(lambda x: x["side_flips"] > 0),
+        "l1_flips_free_total": sum(x["l1_sign_flips_free"] for x in ok),
+        "l1_flips_free_beyond_rounding": sum(x["l1_sign_flips_free"] - x["l1_flips_within_rounding_free"]
+                                             for x in ok),
+        "side_flips_total": sum(x["side_flips"] for x in ok),
+        "max_free_grad_err": max((x["free_grad_err"] for x in ok), default=None),
+        "max_carried_or_free_grad_err": max(((x["carried_grad_err"] or x["free_grad_err"]) for x in ok),
+                                            default=None),
+        "max_shared_grad_err": max((x["shared_grad_err"] for x in ok), default=None),
+        "max_shared_uncarried_grad_err": max((x["shared_uncarried_grad_err"] or 0 for x in ok),
+                                             default=None),
+        "max_cells_displacement": max((max(x["cells_max_abs_diff"]) for x in ok), default=None),
+    }
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps({"summary": summary, "batches": rows}, default=str))
+    log("bigmlp_probe", json.dumps(summary, default=str))
+    return summary
+
+
+def _relu_sides_parted(pre_a: torch.Tensor, pre_b: torch.Tensor) -> dict:
+    """Where two paths' pre-activations of one relu layer lie on opposite
+    sides of 0: how many, and the largest |pre-activation| at a flip."""
+    flip = (pre_a > 0) != (pre_b > 0)
+    size = torch.maximum(pre_a.abs(), pre_b.abs())[flip]
+    return {"flips": int(flip.sum()), "max_abs_pre": float(size.max()) if size.numel() else 0.0}
+
+
+def density_probe(fm, smi: str, batches: int, out_path: Optional[str] = None) -> dict:
+    """Where ``density[nerfacto]``'s kernel step and the plain step on its
+    resamplings part, over ``batches`` batches (the phase's seed 777, then
+    seeds 3000 on) from the phase's trained state: ``nerfacto`` through
+    ``sdfstudio-data`` as the phase runs it (its 20 steps; no eval or
+    mesh), then for each batch the phase's check (``step_vs_plain(
+    carry_relu=True)``: the step on the kernel step's resamplings with and
+    without the relu sides carried over, and the flips), and for the first
+    ``DENSITY_PROBE_FULL``, all on the kernel step's resamplings: the
+    kernel step twice and the plain step twice (each path against itself),
+    the plain step with the fused chains, and then also the colour head,
+    computed in float64 and rounded to float32 at each layer (another
+    correct float32 path), each group's gradient error against the kernel
+    step and the plain step; the relu sides that part between the paths
+    (the chains' first layer as the forward kernel computes it on its
+    captured input against the plain product on the plain step's, the
+    head's layers on each path's own input); and where the camera table's
+    error lies (the largest camera row's share of it).
+    ``python3 chip_smoke.py --probe-density N [--probe-out FILE]``."""
+    from sdfstudio_tpu_torch.engine.trainer import loss_and_metrics
+    from sdfstudio_tpu_torch.scripts import train as train_script
+
+    method, setup, made = "nerfacto", train_script.setup_lib.setup_trainer, []
+
+    def keep(*args, **kw):
+        made.append(setup(*args, **kw))
+        return made[-1]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [method, "--experiment-name", "probe", "--output-dir", tmp, "--timestamp", "t",
+                "--vis", "none", "--trainer.max-num-iterations", str(DENSITY_STEPS[method]),
+                "--trainer.steps-per-eval-image", "0", "sdfstudio-data", "--data", SCENE,
+                "--skip-every-for-val-split", str(CLI_EVAL_SPLIT)]
+        train_script.setup_lib.setup_trainer = keep
+        try:
+            check(train_script.main(argv) == 0, "the probe's train command failed")
+        finally:
+            train_script.setup_lib.setup_trainer = setup
+    trainer = made[0]
+    dm, model = trainer.datamanager, trainer.model
+    head = model.field.mlp_head
+    sched = model.schedules(trainer.step)
+    train_s = time.perf_counter() - t0
+
+    def one_step(seed: int):
+        gen = torch.Generator(device=dm.device).manual_seed(seed)
+        idx, batch = dm.sample_train_batch(gen, num_rays=trainer.num_rays_per_batch())
+        total, ld, _ = loss_and_metrics(model, dm.generate_rays(idx), batch, sched, gen,
+                                        model_state=trainer.model_state)
+        return {k: float(v.detach()) for k, v in ld.items()}, grads_of(trainer, total)
+
+    def rounded_chain(x, weights, biases, activation="relu", out_activation="none"):
+        h, n = x, len(weights)
+        for i, (w, b) in enumerate(zip(weights, biases)):
+            h = (torch.matmul(h.double(), w.double()) + b.double()).float()
+            h = fm._act(h, activation if i < n - 1 else out_activation)
+        return h
+
+    def rounded_head(x):
+        h, n = x, len(head.layers)
+        for i, layer in enumerate(head.layers):
+            h = (torch.matmul(h.double(), layer.kernel.double()) + layer.bias.double()).float()
+            h = fm._act(h, head.activation) if i < n - 1 else torch.sigmoid(h)
+        return h
+
+    @contextlib.contextmanager
+    def head_inputs(rec):
+        hook = head.register_forward_hook(lambda mod, inp, out: rec.append(inp[0].detach().clone()))
+        try:
+            yield
+        finally:
+            hook.remove()
+
+    @contextlib.contextmanager
+    def plain_calls(rec):
+        def recording(x, weights, biases, activation="relu", out_activation="none"):
+            rec.append({"x": x.detach().clone(), "ws": [w.detach() for w in weights],
+                        "bs": [b.detach() for b in biases]})
+            return fm.fused_mlp_plain(x, weights, biases, activation, out_activation)
+
+        with swap_fused_mlp(recording):
+            yield
+
+    def head_pres(x):
+        pres, h = [], x
+        for layer in list(head.layers)[:-1]:
+            pre = torch.matmul(h, layer.kernel.detach()) + layer.bias.detach()
+            pres.append(pre)
+            h = torch.relu(pre)
+        return pres
+
+    def errs(a, b):
+        return {g: rel_fro(a[g], b[g]) for g in b}
+
+    n_cams = model.camera_opt.pose_adjustment.shape[0]
+
+    def density_probe_batch(seed: int) -> dict:
+        """One batch's paths against each other on the kernel step's resamplings."""
+        k_rec, k_calls, p_calls, k_head, p_head = [], [], [], [], []
+
+        def shared_step():
+            with pdf_samples(k_rec, replay=True):
+                return one_step(seed)
+
+        with uncounted(fm):
+            with capture_fused_mlp_calls(k_calls), pdf_samples(k_rec), head_inputs(k_head):
+                k_loss, k = one_step(seed)
+            _, k2 = shared_step()
+            with _both_plain(fm):
+                with plain_calls(p_calls), head_inputs(p_head):
+                    s_loss, s = shared_step()
+                _, s2 = shared_step()
+                with swap_fused_mlp(rounded_chain):
+                    _, r = shared_step()
+                    head.forward_plain = rounded_head
+                    try:
+                        _, r2 = shared_step()
+                    finally:
+                        del head.forward_plain
+            with torch.no_grad():
+                chains = []
+                for kc, pc in zip(k_calls, p_calls):
+                    xk = kc["x"].reshape(-1, kc["x"].shape[-1])
+                    xp = pc["x"].reshape(-1, pc["x"].shape[-1])
+                    pre_p = torch.matmul(xp, pc["ws"][0]) + pc["bs"][0]
+                    pre_k = fm.fused_mlp(xk, kc["ws"][:1], kc["bs"][:1], "relu", "none")
+                    chains.append({"dims": _chain_key(kc), "x_max_abs_diff": float((xk - xp).abs().max()),
+                                   **_relu_sides_parted(pre_k, pre_p)})
+                heads = [_relu_sides_parted(a, c) for hk, hp in zip(k_head, p_head)
+                         for a, c in zip(head_pres(hk), head_pres(hp))]
+                head_x_diff = max(float((hk - hp).abs().max()) for hk, hp in zip(k_head, p_head))
+            torch.cuda.synchronize()
+        cam_diff = (k["camera_opt"] - s["camera_opt"]).reshape(n_cams, -1)
+        row_norms = torch.linalg.vector_norm(cam_diff, dim=-1)
+        top = int(torch.argmax(row_norms))
+        out = {"loss": k_loss,
+               "loss_err": {n_: abs(k_loss[n_] - s_loss[n_]) / max(abs(s_loss[n_]), 1e-12) for n_ in s_loss},
+               "grad_norm": {g: float(torch.linalg.vector_norm(v)) for g, v in k.items()},
+               "shared": errs(k, s), "kernel_repeat": errs(k2, k), "plain_repeat": errs(s2, s),
+               "rounded_chains_vs_plain": errs(r, s), "rounded_all_vs_plain": errs(r2, s),
+               "kernel_vs_rounded_all": errs(k, r2),
+               "camera_top_row": top, "camera_top_row_share": float(row_norms[top] / row_norms.norm()),
+               "chains": chains, "head": heads, "head_x_max_abs_diff": head_x_diff}
+        log("density_probe", f"batch {seed}: shared {out['shared']}; rounded vs plain "
+            f"{out['rounded_all_vs_plain']}; kernel repeat {out['kernel_repeat']}")
+        return out
+
+    rows = []
+    for b in range(batches):
+        seed = 777 if b == 0 else 3000 + b
+        try:  # the phase's check, the relu sides carried
+            chk = step_vs_plain(fm, f"probe batch {seed}", lambda: one_step(seed), shared_samples=True,
+                                only_well_posed=True, model=model, carry_relu=True)
+            check_rec = {"held": True, "carried": chk["shared_grad_err"],
+                         "uncarried": chk["shared_uncarried_grad_err"], "relu_flips": chk["relu_flips"]}
+            del chk
+        except AssertionError as e:
+            check_rec = {"held": False, "message": str(e)}
+        rows.append({"seed": seed, "check": check_rec})
+        if b < DENSITY_PROBE_FULL:
+            rows[-1].update(density_probe_batch(seed))
+
+    full = [x for x in rows if "shared" in x]
+
+    def top_of(key, g="camera_opt", n=5):
+        return sorted((x[key][g] for x in full), reverse=True)[:n]
+
+    def over(key, g="camera_opt"):
+        return sum(1 for x in full if x[key][g] > STEP_GRAD_TOL)
+
+    keys = ("shared", "kernel_repeat", "plain_repeat", "rounded_chains_vs_plain",
+            "rounded_all_vs_plain", "kernel_vs_rounded_all")
+    groups = list(full[0]["shared"])
+    checked = [dict(x["check"], seed=x["seed"]) for x in rows if x["check"]["held"]]
+    summary = {
+        "batches": batches, "batches_compared_in_full": len(full), "train_s": train_s, "smi": smi,
+        "check_not_held": [{"seed": x["seed"], **x["check"]} for x in rows if not x["check"]["held"]],
+        "check_carried_max": {g: max((c["carried"][g] for c in checked), default=None) for g in groups},
+        "check_uncarried_max": {g: max((c["uncarried"][g] for c in checked), default=None) for g in groups},
+        "check_uncarried_over_tol": sum(1 for c in checked if max(c["uncarried"].values()) > STEP_GRAD_TOL),
+        "check_batches_with_relu_flips": sum(1 for c in checked
+                                             if c["relu_flips"]["chain_flips"] + c["relu_flips"]["mlp_flips"]),
+        "check_relu_flips": {k_: sum(c["relu_flips"][k_] for c in checked)
+                             for k_ in ("chain_flips", "mlp_flips", "rows_queried")},
+        # the batches whose uncarried comparison parted by more than 1e-5: what the carry made of them
+        "check_parted": [c for c in checked if max(c["uncarried"].values()) > 0.1 * STEP_GRAD_TOL],
+        "over_tol": {key: {g: over(key, g) for g in groups} for key in keys},
+        "camera_top5": {key: top_of(key) for key in keys},
+        "field_max": {key: max(x[key]["field"] for x in full) for key in keys},
+        "camera_grad_norm": [min(x["grad_norm"]["camera_opt"] for x in full),
+                             max(x["grad_norm"]["camera_opt"] for x in full)],
+        "chain_flips_total": sum(c["flips"] for x in full for c in x["chains"]),
+        "head_flips_total": sum(h["flips"] for x in full for h in x["head"]),
+        "batches_over_tol_shared": [
+            {"seed": x["seed"], "shared": x["shared"]["camera_opt"],
+             "rounded_all_vs_plain": x["rounded_all_vs_plain"]["camera_opt"],
+             "kernel_repeat": x["kernel_repeat"]["camera_opt"],
+             "chain_flips": [c["flips"] for c in x["chains"]], "head_flips": [h["flips"] for h in x["head"]],
+             "top_row_share": x["camera_top_row_share"]}
+            for x in full if x["shared"]["camera_opt"] > STEP_GRAD_TOL],
+    }
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps({"summary": summary, "batches": rows}, default=str))
+    log("density_probe", json.dumps(summary, default=str))
+    return summary
 
 
 def main() -> int:
@@ -3931,6 +4982,7 @@ def main() -> int:
     # the cue phases' scene and the NeRF phases' scenes, generated on the host while the card works
     start_cue_scene()
     write_nerf_scenes()
+    write_capture_scenes()
 
     # 1. device -------------------------------------------------------------
     smi = nvidia_smi_line()
@@ -4127,8 +5179,14 @@ def main() -> int:
     # 17. the NeRF baselines through JAX's command line on the written scenes
     nerf_scenes = finish_nerf_scenes()
     nerf = {m: nerf_phase(fm, smi, m, nerf_scenes) for m in NERF_METHODS}
+    # 18. real-capture layouts through JAX's command line: distortion, camera models, image sizes
+    capture_scenes = finish_capture_scenes(_CUE_SCENE["dir"])
+    camera_models = camera_models_case(smi)
+    capture = {n: capture_phase(fm, smi, n, capture_scenes) for n in CAPTURE_PHASES}
+    capture_s = sum(r["phase_s"] for r in capture.values())
+    log("capture", f"the four phases took {capture_s:.1f} s (budget {CAPTURE_BUDGET_S} s)")
 
-    # 18. results -----------------------------------------------------------
+    # 19. results -----------------------------------------------------------
     bwd = train["bwd_calls"]
 
     def gather_entry(kind: str, replaces: str) -> dict:
@@ -4201,6 +5259,27 @@ def main() -> int:
                 key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
                 rows.append({"method": m, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
                              "out_act": c["out_act"], "g_seeded": c["g_seeded"],
+                             "launches": sum(part["chains"].get(key, 0)
+                                             for part in r["launches"].values()),
+                             **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
+                                                  "bound_ms", "bound_ms_fp32", "bound_by")}})
+        return rows
+
+    def capture_launches(name: str) -> int:
+        """Phase 18's launches of kernel ``name`` (train steps and eval.py)."""
+        return sum(r["train_launches"].get(name, 0) + r["eval_launches"].get(name, 0)
+                   for r in capture.values())
+
+    def capture_chain_rows(which: str) -> list:
+        """Phase 18's chains alone at a step's captured inputs, with each
+        chain's launches on that phase's path (train steps, eval.py)."""
+        rows = []
+        for n, r in capture.items():
+            for c in r["chains"]:
+                d = c[which]
+                key = f"fused_mlp_{which}:{'-'.join(map(str, c['dims']))}"
+                rows.append({"phase": n, "call": c["call"], "rows": c["rows"], "dims": c["dims"],
+                             "out_act": c["out_act"],
                              "launches": sum(part["chains"].get(key, 0)
                                              for part in r["launches"].values()),
                              **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "cublas_ms",
@@ -4311,7 +5390,10 @@ def main() -> int:
             "source": "sdfstudio_tpu_torch/csrc/hash_grid.cu",
             "replaces": replaces,
             "launches": nf_launches[name] + cli_launches(name) + grid_launches(name)
-            + baked_launches(name) + density_launches(name) + nerf_launches(name),
+            + baked_launches(name) + density_launches(name) + nerf_launches(name)
+            + capture_launches(name),
+            "launches_capture": {n: r["train_launches"].get(name, 0) + r["eval_launches"].get(name, 0)
+                                 for n, r in capture.items()},
             "launches_nerf": {m: r["train_launches"].get(name, 0) + r["eval_launches"].get(name, 0)
                               for m, r in nerf.items()},
             "launches_density": {m: r["train_launches"][name] + r["eval_launches"][name]
@@ -4434,7 +5516,11 @@ def main() -> int:
                      + nf_launches["fused_mlp_fwd"] + surface_launches("fused_mlp_fwd")
                      + cli_launches("fused_mlp_fwd") + cue_launches("fused_mlp_fwd")
                      + grid_launches("fused_mlp_fwd") + baked_launches("fused_mlp_fwd")
-                     + density_launches("fused_mlp_fwd") + nerf_launches("fused_mlp_fwd")),
+                     + density_launches("fused_mlp_fwd") + nerf_launches("fused_mlp_fwd")
+                     + capture_launches("fused_mlp_fwd")),
+        "launches_capture": {n: r["train_launches"]["fused_mlp_fwd"] + r["eval_launches"]["fused_mlp_fwd"]
+                             for n, r in capture.items()},
+        "capture_chains": capture_chain_rows("fwd"),
         "launches_nerf": {m: r["train_launches"]["fused_mlp_fwd"] + r["eval_launches"]["fused_mlp_fwd"]
                           for m, r in nerf.items()},
         "nerf_chains": nerf_chain_rows("fwd"),
@@ -4464,7 +5550,8 @@ def main() -> int:
         "max_abs_err": max([r["max_abs_err"] for r in per_call]
                            + [c["max_abs_err"] for c in surface_chains("fwd") + cli_chain_rows("fwd")
                               + grid_chain_rows("fwd") + baked_chain_rows("fwd")
-                              + density_chain_rows("fwd") + nerf_chain_rows("fwd")]),
+                              + density_chain_rows("fwd") + nerf_chain_rows("fwd")
+                              + capture_chain_rows("fwd")]),
         "ms": sum(r["ms"] for r in per_call),
         "plain_ms": sum(r["plain_ms"] for r in per_call),
         "bound_ms": sum(r["bound_ms"] for r in per_call),
@@ -4487,7 +5574,10 @@ def main() -> int:
                      + nf_launches["fused_mlp_bwd"] + surface_launches("fused_mlp_bwd")
                      + cli_launches("fused_mlp_bwd") + cue_launches("fused_mlp_bwd")
                      + grid_launches("fused_mlp_bwd") + baked_launches("fused_mlp_bwd")
-                     + density_launches("fused_mlp_bwd") + nerf_launches("fused_mlp_bwd")),
+                     + density_launches("fused_mlp_bwd") + nerf_launches("fused_mlp_bwd")
+                     + capture_launches("fused_mlp_bwd")),
+        "launches_capture": {n: r["train_launches"]["fused_mlp_bwd"] for n, r in capture.items()},
+        "capture_chains": capture_chain_rows("bwd"),
         "launches_nerf": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in nerf.items()},
         "nerf_chains": nerf_chain_rows("bwd"),
         "launches_density": {m: r["train_launches"]["fused_mlp_bwd"] for m, r in density.items()},
@@ -4508,7 +5598,8 @@ def main() -> int:
         "max_abs_err": max([r["max_abs_err"] for r in bwd]
                            + [c["max_abs_err"] for c in surface_chains("bwd") + cli_chain_rows("bwd")
                               + grid_chain_rows("bwd") + baked_chain_rows("bwd")
-                              + density_chain_rows("bwd") + nerf_chain_rows("bwd")]),
+                              + density_chain_rows("bwd") + nerf_chain_rows("bwd")
+                              + capture_chain_rows("bwd")]),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
         "bound_ms": sum(r["bound_ms"] for r in bwd),
@@ -4591,6 +5682,13 @@ def main() -> int:
         "blender_data",
         "segmentations_written_unread")} | {"tensorvm_encode_range": r["ranges"].get("sst/tensorvm_encode")}
         for m, r in nerf.items()}, default=str))
+    log("capture", json.dumps({"camera_models": camera_models, "seconds": capture_s, **{
+        n: {k: r.get(k) for k in (
+            "method", "parser", "steps", "rays", "step_ms", "rays_per_s", "main_s", "eval_py",
+            "eval_py_s", "eval_views", "train_step_idle_share", "traced_step_ms", "device_busy_ms",
+            "peak_memory_gib", "stack", "subset", "buckets", "undistort", "step_loss_err",
+            "step_grad_err", "step_shared_grad_err", "loss_first", "loss_last", "phase_s")}
+        for n, r in capture.items()}}, default=str))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps(kernels))
     print(smi)
@@ -4599,10 +5697,36 @@ def main() -> int:
     return 0
 
 
+def probe_main(argv) -> int:
+    """``--probe-bigmlp N`` or ``--probe-density N`` ``[--probe-out FILE]``:
+    the kernels built, then ``bigmlp_probe`` or ``density_probe`` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sdfstudio_tpu_torch.engine.final_eval import set_fp32_precision
+    from sdfstudio_tpu_torch.ops import fused_mlp as fm
+    from sdfstudio_tpu_torch.utils import cuda_build
+
+    flag = "--probe-bigmlp" if "--probe-bigmlp" in argv else "--probe-density"
+    n = int(argv[argv.index(flag) + 1])
+    out = argv[argv.index("--probe-out") + 1] if "--probe-out" in argv else None
+    set_fp32_precision()
+    cuda_build.build(force=True)
+    cuda_build.load_library()
+    probe = bigmlp_probe if flag == "--probe-bigmlp" else density_probe
+    summary = probe(fm, nvidia_smi_line(), n, out)
+    print(json.dumps(summary, default=str))
+    return 0
+
+
 if __name__ == "__main__":
+    if "--probe-bigmlp" in sys.argv or "--probe-density" in sys.argv:
+        sys.exit(probe_main(sys.argv))
     try:
         code = main()
     finally:
         stop_cue_scene()
         remove_nerf_scenes()
+        remove_capture_scenes()
     sys.exit(code)

@@ -20,8 +20,9 @@ grid over ``[-1, 1]^3`` and dilates it by one cell along each axis (with
 ``np.roll``'s wrap, as JAX), and reads ``masks/<stem>.png`` where every
 image has one. Train is every image; eval is the first 10. The
 ``phototourism`` parser is the mipnerf360 parser under another default
-scene (colmap_family.py:145-155). The ported parsers raise on distorted
-cameras and on images of different sizes.
+scene (colmap_family.py:145-155). All three keep each image's own size and
+its camera's distortion (SIMPLE_RADIAL's and RADIAL's k1, k2; OPENCV's k1,
+k2, p1, p2), as JAX's do.
 """
 from __future__ import annotations
 
@@ -100,19 +101,11 @@ class Mipnerf360DataParserConfig:
     images_path: str = "images"
 
 
-def _same_size_undistorted(distorts: np.ndarray, w: np.ndarray, h: np.ndarray) -> None:
-    if np.any(distorts != 0.0):
-        raise NotImplementedError("camera distortion is not ported (ROADMAP queue 1 item 12)")
-    if len(set(w.tolist())) != 1 or len(set(h.tolist())) != 1:
-        raise NotImplementedError("images of different sizes are not ported (ROADMAP queue 1 item 12)")
-
-
 def parse_mipnerf360(config: Mipnerf360DataParserConfig, split: str = "train") -> DataparserOutputs:
     """The split's images of a mip-NeRF 360 capture (colmap_family.py:107-142)."""
     cfg = config
     files, poses, fx, fy, cx, cy, w, h, distorts, _ = load_colmap_cameras(Path(cfg.data),
                                                                            cfg.images_path)
-    _same_size_undistorted(distorts, w, h)
     oriented, transform = auto_orient_and_center_poses(poses, method=cfg.orientation_method,
                                                        center_poses=cfg.center_poses)
     scale = 1.0
@@ -124,7 +117,8 @@ def parse_mipnerf360(config: Mipnerf360DataParserConfig, split: str = "train") -
     i_eval = np.setdiff1d(np.arange(n), i_train)
     sel = i_train if split == "train" else (i_eval if len(i_eval) else np.arange(n))
     cameras = Cameras.create(camera_to_worlds=oriented[sel, :3, :4], fx=fx[sel], fy=fy[sel],
-                             cx=cx[sel], cy=cy[sel], width=int(w[0]), height=int(h[0]), device="cpu")
+                             cx=cx[sel], cy=cy[sel], width=w[sel], height=h[sel],
+                             distortion_params=distorts[sel], device="cpu")
     scene_box = SceneBox(aabb=np.asarray([[-1, -1, -1], [1, 1, 1]], np.float32) * cfg.scene_scale,
                          near=0.05, far=1000.0, collider_type="near_far")
     return DataparserOutputs([files[i] for i in sel], cameras, scene_box,
@@ -180,7 +174,6 @@ def parse_heritage(config: HeritageDataParserConfig, split: str = "train") -> Da
     files, poses, fx, fy, cx, cy, w, h, distorts, pts = load_colmap_cameras(data, cfg.images_path)
     if pts is None:
         raise ValueError(f"the heritage parser needs points3D in the sparse model under {data}")
-    _same_size_undistorted(distorts, w, h)
     xyz = np.stack([p.xyz for p in pts.values()])
     track_len = np.asarray([len(p.image_ids) for p in pts.values()])
     xyz, center, radius = heritage_normalization(xyz, track_len, cfg.min_track_length,
@@ -199,5 +192,6 @@ def parse_heritage(config: HeritageDataParserConfig, split: str = "train") -> Da
         if all(p.exists() for p in paths):
             masks = [load_image(p)[..., :1] for p in paths]
     cameras = Cameras.create(camera_to_worlds=poses[sel, :3, :4], fx=fx[sel], fy=fy[sel], cx=cx[sel],
-                             cy=cy[sel], width=int(w[0]), height=int(h[0]), device="cpu")
+                             cy=cy[sel], width=w[sel], height=h[sel], distortion_params=distorts[sel],
+                             device="cpu")
     return DataparserOutputs([files[i] for i in sel], cameras, scene_box, fg_masks=masks)

@@ -22,7 +22,9 @@ and every option of JAX's parser (sdfstudio.py:29-182):
 ``neighbors_num`` and ``neighbors_shuffle`` are carried and not read, as in
 JAX's parser (the flexible data manager reads its own ``neighbors_num``). The
 train / eval split is sdfstudio.py:56-60: with the defaults both splits hold
-every frame.
+every frame. ``meta["camera_model"]`` is not read: every frame is a
+perspective camera without distortion, whatever the file names, as JAX's
+parser builds it (sdfstudio.py:68-153).
 """
 from __future__ import annotations
 
@@ -120,8 +122,6 @@ def parse_config(config: SDFStudioDataParserConfig, split: str = "train") -> Dat
     if not meta_path.is_file():
         raise FileNotFoundError(f"no meta_data.json under {data}")
     meta = json.loads(meta_path.read_text())
-    if meta.get("camera_model", "OPENCV") != "OPENCV":
-        raise NotImplementedError(f"camera model {meta['camera_model']} is not ported")
     frames = meta["frames"]
     indices = split_indices(len(frames), split, cfg.skip_every_for_val_split,
                             cfg.train_val_no_overlap)

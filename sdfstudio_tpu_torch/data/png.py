@@ -16,7 +16,7 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Union
+from typing import Tuple, Union
 
 import numpy as np
 
@@ -104,6 +104,16 @@ def read_png(path: Union[str, Path]) -> np.ndarray:
         out[y] = cur
         prev = out[y]
     return out.reshape(height, width) if bpp == 1 else out.reshape(height, width, bpp)
+
+
+def png_size(path: Union[str, Path]) -> Tuple[int, int]:
+    """(H, W) of a PNG from its IHDR chunk, without decoding the image."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
 
 
 def load_image(path: Union[str, Path]) -> np.ndarray:

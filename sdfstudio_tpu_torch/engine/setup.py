@@ -27,7 +27,11 @@ from sdfstudio_tpu_torch.data.dataparsers.colmap_family import (
     HeritageDataParserConfig, Mipnerf360DataParserConfig, PhototourismDataParserConfig,
     parse_heritage, parse_mipnerf360)
 from sdfstudio_tpu_torch.data.dataparsers.misc_parsers import (
-    DNeRFDataParserConfig, FriendsDataParserConfig, parse_dnerf, parse_friends)
+    DNeRFDataParserConfig, FriendsDataParserConfig, InstantNGPDataParserConfig,
+    Record3DDataParserConfig, parse_dnerf, parse_friends, parse_instant_ngp, parse_record3d)
+from sdfstudio_tpu_torch.data.dataparsers.monosdf import MonoSDFDataParserConfig, parse_monosdf
+from sdfstudio_tpu_torch.data.dataparsers.nerfstudio_parser import (NerfstudioDataParserConfig,
+                                                                    parse_nerfstudio)
 from sdfstudio_tpu_torch.data.dataparsers.sdfstudio import SDFStudioDataParserConfig, parse_config
 from sdfstudio_tpu_torch.engine.optimizers import OptimizerConfig, OptimizerGroupConfig
 from sdfstudio_tpu_torch.engine.trainer import Trainer
@@ -39,7 +43,9 @@ MODEL_SEED = 0
 PARSERS = {SDFStudioDataParserConfig: parse_config, HeritageDataParserConfig: parse_heritage,
            Mipnerf360DataParserConfig: parse_mipnerf360,
            PhototourismDataParserConfig: parse_mipnerf360, BlenderDataParserConfig: parse_blender,
-           DNeRFDataParserConfig: parse_dnerf, FriendsDataParserConfig: parse_friends}
+           DNeRFDataParserConfig: parse_dnerf, FriendsDataParserConfig: parse_friends,
+           NerfstudioDataParserConfig: parse_nerfstudio, MonoSDFDataParserConfig: parse_monosdf,
+           InstantNGPDataParserConfig: parse_instant_ngp, Record3DDataParserConfig: parse_record3d}
 CAMERA_OPT_GROUP = OptimizerGroupConfig(OptimizerConfig(lr=6e-4, eps=1e-8, weight_decay=1e-2))
 
 

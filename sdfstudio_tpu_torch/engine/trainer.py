@@ -402,6 +402,7 @@ class Trainer:
             vec = self.train_step()
             step = self.step
             window_steps += 1
+            dm.maybe_resample(step)  # the subset image cache's rotation (trainer.py:689-691)
             if crossed(cfg.steps_per_log, lo, step) or step >= max_iters:
                 # the interval's last metrics, read back once (JAX keeps the same row)
                 last.clear()

@@ -155,8 +155,12 @@ def test_help_lists_the_methods(capsys):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_script.parse_args(["neus-facto", "nerfstudio-data", "--data", "x"])
+    # every dataparser of JAX's is ported: nerfstudio-data parses to JAX's parser config
+    argv = ["neus-facto", "nerfstudio-data", "--data", "x", "--train-split-percentage", "0.5"]
+    config, _ = train_script.parse_args(argv)
+    assert train_script.UNPORTED_DATAPARSERS == ()
+    assert type(config.dataparser) is train_script.DATAPARSERS["nerfstudio-data"]
+    assert _held(_strip(config.to_dict())["dataparser"], _jax_tree(argv)["dataparser"]) == 8
     with pytest.raises(NotImplementedError, match="item 13"):
         train_script.parse_args(["neus-facto", "--machine.num-devices", "2"])
     with pytest.raises(ValueError, match="unknown flag"):

@@ -1,7 +1,7 @@
 """The port and ``chip_smoke.py`` run on a machine without JAX.
 
 The card's machine has torch, numpy, scipy and the standard library, but no
-``jax``, ``flax``, ``yaml``, ``PIL`` or the JAX package. A subprocess whose
+``jax``, ``flax``, ``yaml``, ``PIL``, ``cv2`` or the JAX package. A subprocess whose
 import system refuses those names imports every module of
 ``sdfstudio_tpu_torch`` and compiles ``chip_smoke.py``; an AST scan checks
 that ``chip_smoke.py`` and the package import nothing else.
@@ -21,7 +21,8 @@ OPTIONAL = {"sdfstudio_tpu_torch/utils/writer.py": {"tensorboardX", "wandb"}}
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "sdfstudio_tpu", "tests", "conftest")
+REFUSED = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "cv2", "sdfstudio_tpu", "tests",
+           "conftest")
 
 def refused(name):
     # the exact module or its submodules: ``sdfstudio_tpu_torch`` is not ``sdfstudio_tpu``

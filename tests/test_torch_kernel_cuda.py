@@ -755,3 +755,58 @@ def test_grid_background_hash_matches_plain_on_contracted_points(card):
     assert float(x.min()) >= 0.0 and float(x.max()) <= 1.0 and math.isclose(
         float((x - 0.5).abs().max()), 0.5, abs_tol=1e-3)
     _check_hash(field.encoding, x.contiguous(), False, card)
+
+
+# --- the Newton undistortion and the three camera models on the card ------------------
+# plain PyTorch (XLA code in JAX): the card's float32 against the CPU's on the same inputs,
+# to 1e-5 of the normalised coordinate (the CPU side is held to JAX in tests/test_torch_capture.py)
+
+RAYS_TOL = 1e-5  # chip_smoke.py
+
+
+def _distortions(rng, n):
+    from sdfstudio_tpu_torch.cameras.camera_utils import get_distortion_params
+
+    return np.stack([get_distortion_params(k1=rng.uniform(-0.4, 0.4), k2=rng.uniform(-0.1, 0.1),
+                                           k3=0.01, k4=-0.005, p1=rng.uniform(-0.01, 0.01),
+                                           p2=rng.uniform(-0.01, 0.01)) for _ in range(n)])
+
+
+def test_undistort_on_the_card_matches_the_cpu(card):
+    from sdfstudio_tpu_torch.cameras.camera_utils import (_residual_and_jacobian,
+                                                          radial_and_tangential_undistort)
+
+    rng = np.random.default_rng(0)
+    coords = torch.as_tensor(rng.uniform(-0.8, 0.8, (3, 65536, 2)), dtype=torch.float32)
+    params = torch.as_tensor(_distortions(rng, 65536))[None]
+    cpu = radial_and_tangential_undistort(coords, params)
+    got = radial_and_tangential_undistort(coords.to(card), params.to(card)).cpu()
+    # a distorted point beyond the lens's fold has no undistorted point: there
+    # the fixed Newton steps wander (in JAX too) and two float32 paths part.
+    # Held where float64 finds the point the distortion maps there
+    x64 = radial_and_tangential_undistort(coords.double(), params.double())
+    fx, fy, *_ = _residual_and_jacobian(x64[..., 0], x64[..., 1], coords[..., 0].double(),
+                                        coords[..., 1].double(), params.double())
+    solved = torch.maximum(fx.abs(), fy.abs()) < 1e-9
+    assert float(solved.double().mean()) > 0.85
+    assert float((got - cpu).abs().amax(-1)[solved].max()) <= RAYS_TOL
+    assert float((cpu.double() - x64).abs().amax(-1)[solved].max()) <= RAYS_TOL
+
+
+@pytest.mark.parametrize("model", [1, 2, 3])
+@pytest.mark.parametrize("distorted", [True, False])
+def test_camera_rays_on_the_card_match_the_cpu(card, model, distorted):
+    from sdfstudio_tpu_torch.cameras.cameras import Cameras
+
+    rng = np.random.default_rng(model)
+    n, R = 4, 32768
+    c2w = np.concatenate([np.linalg.qr(rng.normal(size=(n, 3, 3)))[0], rng.normal(size=(n, 3, 1))], -1)
+    fx = rng.uniform(300, 400, n)
+    kw = dict(camera_type=model, distortion_params=_distortions(rng, n) if distorted else None)
+    idx = torch.as_tensor(rng.integers(0, n, R))
+    coords = torch.as_tensor(np.stack([rng.uniform(0, 300, R), rng.uniform(0, 400, R)], -1),
+                             dtype=torch.float32)
+    rays = [Cameras.create(c2w, fx, 1.1 * fx, 200.0, 150.0, 400, 300, device=d, **kw)
+            .generate_rays(idx.to(d), coords.to(d)) for d in (card, "cpu")]
+    for k in ("origins", "directions", "pixel_area", "directions_norm"):
+        assert float((getattr(rays[0], k).cpu() - getattr(rays[1], k)).abs().max()) <= RAYS_TOL, k

@@ -105,7 +105,8 @@ class _JaxLoop(JTrainer):
 
 class _PortLoop(Trainer):
     def __init__(self, config, start, events, base_dir, stop_at=None):
-        dm = types.SimpleNamespace(num_eval_images=NUM_EVAL,
+        # the loop rotates the subset image cache after each step, as JAX's stand-in allows
+        dm = types.SimpleNamespace(num_eval_images=NUM_EVAL, maybe_resample=lambda step: None,
                                    config=types.SimpleNamespace(train_num_rays_per_batch=64))
         super().__init__(config, None, dm, {}, base_dir=base_dir, writer=_Writer(events))
         self.step, self.events, self.stop_at = start, events, stop_at
